@@ -1,0 +1,106 @@
+"""Policies of the port: no JAX import, no quiet CPU run, refusals of what is
+not ported yet, and chip_smoke.py's refusal to run without a card."""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from tests.test_torch_model import small_configs
+from whisperlive_tpu_torch import device as device_policy
+from whisperlive_tpu_torch.engine.engine import TranscribeOptions, WhisperEngine
+from whisperlive_tpu_torch.models import whisper as tw
+
+torch.set_num_threads(2)
+
+REPO = Path(__file__).resolve().parents[1]
+
+IMPORT_ALL_WITHOUT_JAX = r"""
+import importlib, pkgutil, sys
+sys.modules["jax"] = None  # any `import jax`, however indirect, now fails
+import whisperlive_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(whisperlive_tpu_torch.__path__,
+                                               "whisperlive_tpu_torch.")]
+for name in names + ["chip_smoke"]:
+    importlib.import_module(name)
+loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")))
+assert loaded == ["jax"] and sys.modules["jax"] is None, loaded
+print(len(names))
+"""
+
+
+def test_port_imports_no_jax():
+    proc = subprocess.run(
+        [sys.executable, "-c", IMPORT_ALL_WITHOUT_JAX], cwd=REPO, capture_output=True,
+        text=True, timeout=120, env={**os.environ, "PYTHONPATH": str(REPO)},
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.strip()) >= 15  # every module of the package was imported
+
+
+def test_cuda_request_without_a_card_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        device_policy.resolve_device("cuda")
+    _, tcfg = small_configs()
+    with pytest.raises(RuntimeError, match="cuda"):
+        WhisperEngine(tcfg, {}, device="cuda")
+    assert device_policy.resolve_device("cpu").type == "cpu"
+    assert device_policy.default_compute_dtype(torch.device("cuda")) == torch.bfloat16
+    assert device_policy.default_compute_dtype(torch.device("cpu")) == torch.float32
+    assert device_policy.default_quantized(torch.device("cuda"))
+
+
+@pytest.fixture(scope="module")
+def tiny_params():
+    _, tcfg = small_configs()
+    return tcfg, tw.init_params(tcfg, 0)
+
+
+@pytest.mark.parametrize("kw,env", [
+    (dict(cross_kv_bits=4), {}),
+    ({}, {"WL_CROSS_BITS": "4"}),
+    (dict(shardings=object()), {}),
+    ({}, {"WL_BEAM_CHUNK": "24"}),
+])
+def test_engine_refuses_unported_configurations(tiny_params, monkeypatch, kw, env):
+    tcfg, params = tiny_params
+    for key, value in env.items():
+        monkeypatch.setenv(key, value)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        WhisperEngine(tcfg, params, device="cpu", **kw)
+
+
+def test_engine_refuses_beam_search_and_alignment(tiny_params):
+    tcfg, params = tiny_params
+    eng = WhisperEngine(tcfg, params, device="cpu", batch_buckets=(1,))
+    assert eng.cross_kv_bits == 16 and not eng.decoder_int8  # CPU defaults
+    audio = np.zeros((1, 480000), np.float32)
+    prompt, sot = eng.build_prompt(TranscribeOptions(language="en"))
+    beam = TranscribeOptions(language="en", beam_size=2)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        eng.transcribe_batch(audio, [prompt], [sot], [True], beam)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        eng.warmup(batch_sizes=[1], options=beam)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        eng.align_words({}, 0, [1, 2], 100)
+
+
+def test_chip_smoke_refuses_to_run_without_cuda(tmp_path):
+    hidden = {**os.environ, "CUDA_VISIBLE_DEVICES": "", "PYTHONPATH": str(REPO)}
+    proc = subprocess.run([sys.executable, str(REPO / "chip_smoke.py")], cwd=REPO,
+                          capture_output=True, text=True, timeout=120, env=hidden)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
+    # alone in a directory, without the package beside it, it cannot run either
+    alone = tmp_path / "chip_smoke.py"
+    alone.write_text((REPO / "chip_smoke.py").read_text())
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, str(alone)], cwd=tmp_path, capture_output=True,
+                          text=True, timeout=120, env=env)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
