@@ -1,2 +1,2 @@
-"""The engine: WhisperEngine, the window batch scheduler and segment
-splitting."""
+"""The engine: WhisperEngine, the continuous slot pool and scheduler, the
+window batch scheduler, segment splitting and the tokenizer."""

@@ -29,7 +29,7 @@ from typing import Any, Sequence
 import numpy as np
 import torch
 
-from whisperlive_tpu.engine.tokenizer import (
+from whisperlive_tpu_torch.engine.tokenizer import (
     TokenSpec,
     WhisperTokenizer,
     get_suppressed_tokens,
@@ -433,7 +433,7 @@ class WhisperEngine:
     ) -> None:
         """Run the serving path once per batch bucket before traffic (on
         CUDA this also builds the kernels)."""
-        from whisperlive_tpu.serving.session import SessionOptions
+        from whisperlive_tpu_torch.serving.session import SessionOptions
         from whisperlive_tpu_torch.serving.backends import transcribe_options_from_session
 
         if options is None:

@@ -21,11 +21,11 @@ import queue
 import threading
 import time
 from concurrent.futures import Future
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 
-from whisperlive_tpu.utils import metrics as wl_metrics
+from whisperlive_tpu_torch.utils import metrics as wl_metrics
 from whisperlive_tpu_torch.engine.engine import (
     NOT_PORTED_ALIGN,
     NOT_PORTED_BEAM,
@@ -48,10 +48,22 @@ class BatchRequest:
     options: TranscribeOptions
     previous_tokens: Sequence[int] = ()
     language: Optional[str] = None  # resolved language (None -> detect)
+    uid: str = ""
     # streaming sessions keep the unfinished trailing slice as the rolling
     # partial; offline seek loops drop it
     include_unfinished: bool = True
+    # continuous scheduler only: the previous window's hypothesis, forced
+    # as a decode prefix so only the new tail is sampled (ignored when
+    # options.prefix is set)
+    prefix_tokens: Sequence[int] = ()
+    # continuous scheduler only: called once at slot grant to swap in the
+    # stream's current tail (same anchor); None keeps the snapshot
+    refresh_audio: Optional[Callable[[], Optional[np.ndarray]]] = None
+    audio_rebound: bool = False  # set by the scheduler after the one refresh
+    # when the decoded audio was captured (a refresh updates it)
+    audio_bound_at: float = dataclasses.field(default_factory=time.monotonic)
     future: Future = dataclasses.field(default_factory=Future)
+    submitted_at: float = dataclasses.field(default_factory=time.monotonic)
 
     def group_key(self):
         # the scalar decode knobs are batch-global inputs taken from
@@ -74,6 +86,7 @@ class BatchResult:
     duration: float  # seconds of audio covered by this result
     advance_s: float = 0.0  # seconds consumed (seek feedback)
     raw_tokens: tuple = ()  # full decoded stream, timestamps included
+    audio_bound_at: float = 0.0  # when the decoded audio was captured
 
 
 def assemble_result(
@@ -83,9 +96,12 @@ def assemble_result(
     duration: float,
     language: str,
     language_prob: float,
+    prefix_ok: bool = True,
 ) -> BatchResult:
     """One decode result -> wire-ready BatchResult (no-speech skip and the
-    timestamp split)."""
+    timestamp split). prefix_ok=False (the final attempt still failed the
+    quality gates) keeps the token stream from seeding the next window's
+    forced prefix, as a no-speech skip does."""
     segments: list[Segment] = []
     advance_s = duration
     skip = (
@@ -128,7 +144,8 @@ def assemble_result(
         duration=duration,
         advance_s=advance_s,
         # a no-speech skip is hallucination over silence: no token stream
-        raw_tokens=() if skip else tuple(int(t) for t in res.tokens),
+        raw_tokens=() if (skip or not prefix_ok) else tuple(int(t) for t in res.tokens),
+        audio_bound_at=req.audio_bound_at,
     )
 
 

@@ -11,8 +11,10 @@ Where the JAX code on a TPU reaches a Pallas kernel, this code calls the
 wrapper of the matching CUDA kernel under the same condition: K1
 fused_attention in the encoder, K2 int8_matmul for int8 linears at
 M <= 512, K3 int8_matmul_t for int8 tied-embedding logits, K4
-cross_attention_int8 for single-query cross-attention over int8 K|V. The
-wrappers run their plain versions only for CPU tensors. Everything else
+cross_attention_int8 for single-query cross-attention over int8 K|V, and
+K5 cross_attention_int8_skip when the continuous step passes its active
+rows. The wrappers run their plain versions only for CPU tensors.
+Everything else
 (encoder linears, the cross-KV projection, linears at M > 512, the conv
 stem, decode-step self-attention, prefill cross-attention) is plain
 PyTorch, as the JAX package leaves it to XLA.
@@ -309,26 +311,47 @@ def quantize_cross_kv(cross_kv: Params) -> Params:
     return {"kv8": packed[:, None], "scale": scale.to(torch.bfloat16)}
 
 
-def _cross_attend(qc: torch.Tensor, ckv: Params, dtype: torch.dtype) -> torch.Tensor:
+def _cross_len_mask(t: int, cross_len: torch.Tensor | None) -> torch.Tensor | None:
+    """[B] valid encoder lengths -> [B, 1, 1, T] attention mask (or None).
+
+    A slot whose window was encoded at a reduced context occupies only the
+    first cross_len positions of the shared cross-KV region; the tail holds
+    stale data from a previous occupant and must get no attention mass."""
+    if cross_len is None:
+        return None
+    return (torch.arange(t, device=cross_len.device)[None, :] < cross_len[:, None])[
+        :, None, None, :]
+
+
+def _cross_attend(qc: torch.Tensor, ckv: Params, dtype: torch.dtype,
+                  cross_len: torch.Tensor | None = None,
+                  active: torch.Tensor | None = None) -> torch.Tensor:
     """Cross-attention against one layer's cross-KV slice.
 
     qc [B, Tq, H, hd]; ckv {"kv": [2, B, T, H, hd], "scale": None} or
     {"kv8": [1, B, H, T, 2*hd] int8 packed, "scale": [2, B, 1, H, hd]}.
     The K scales fold into q in the compute dtype and the V scales into the
-    output after the cast, as in the JAX code."""
+    output after the cast, as in the JAX code. cross_len: optional [B] int32
+    valid encoder positions (reduced-context slots). active: optional [B]
+    bool, the rows whose output the caller keeps (requires cross_len); a
+    single int8 query with it is K5, which reads nothing for the other rows
+    and returns zeros there."""
     scale = ckv.get("scale")
+    if active is not None and cross_len is None:
+        raise ValueError("active-slot skipping requires per-slot cross_len")
     if "kv8" in ckv:
         kvp = ckv["kv8"][0]  # [B, H, T, 2*hd]
         hd = kvp.shape[-1] // 2
         q_eff = qc * scale[0][:, 0][:, None].to(qc.dtype)
         v_scale = scale[1][:, 0][:, None]  # [B, 1, H, hd]
         if qc.shape[1] == 1:
-            out = cross_attention_int8(q_eff[:, 0].contiguous(), kvp)
+            lengths = None if cross_len is None else cross_len.to(torch.int32)
+            out = cross_attention_int8(q_eff[:, 0].contiguous(), kvp, lengths, active)
             return out[:, None].to(dtype) * v_scale.to(dtype)
         # multi-token queries (prompt prefill): dequantize and attend
         k = kvp[..., :hd].transpose(1, 2).to(dtype)
         v = kvp[..., hd:].transpose(1, 2).to(dtype)
-        out = _attention(q_eff, k, v)
+        out = _attention(q_eff, k, v, _cross_len_mask(k.shape[1], cross_len))
         return out * v_scale.to(out.dtype)
     if "kv4" in ckv:
         raise NotImplementedError(
@@ -336,7 +359,8 @@ def _cross_attend(qc: torch.Tensor, ckv: Params, dtype: torch.dtype) -> torch.Te
         )
     if scale is not None:
         raise ValueError("unquantized cross-KV must not carry scales")
-    return _attention(qc, ckv["kv"][0].to(dtype), ckv["kv"][1].to(dtype))
+    k, v = ckv["kv"][0], ckv["kv"][1]
+    return _attention(qc, k.to(dtype), v.to(dtype), _cross_len_mask(k.shape[1], cross_len))
 
 
 # ---------------------------------------------------------------------------
@@ -430,12 +454,16 @@ def decode_step(params, cfg, token, pos, slot: int, prompt_len, prompt_pad: int,
     return decode_step_masked(params, cfg, token, pos, slot, mask, self_kv, cross_kv)
 
 
-def decode_step_masked(params, cfg, token, pos, slot: int, mask, self_kv, cross_kv):
+def decode_step_masked(params, cfg, token, pos, slot: int, mask, self_kv, cross_kv,
+                       cross_len=None, active=None):
     """decode_step with a caller-supplied [B, C] mask over cache slots.
 
     As in the JAX code, the cache and this step's new K are scored as
     separate columns, and the new K/V are written to `slot` only after the
-    layer has run (here in place on self_kv)."""
+    layer has run (here in place on self_kv). cross_len [B] masks each
+    row's stale cross-KV tail; active [B] marks the rows whose output the
+    caller keeps (the continuous step's write mask): with int8 cross-KV,
+    the cross-attention of the other rows reads nothing (K5)."""
     p = params["decoder"]
     x = _embed_lookup(p, token[:, None], cfg.dtype) + p["pos"].to(cfg.dtype)[
         pos[:, None].clamp(0, cfg.n_text_ctx - 1).long()
@@ -463,7 +491,7 @@ def decode_step_masked(params, cfg, token, pos, slot: int, mask, self_kv, cross_
 
         h = _layer_norm(x, lp["cross_attn_ln"])
         qc = _split_heads(_linear(h, lp["cross_attn"]["q"]), n_head)
-        cross_out = _cross_attend(qc, layer(cross_kv, i), x.dtype)
+        cross_out = _cross_attend(qc, layer(cross_kv, i), x.dtype, cross_len, active)
         x = x + _linear(_merge_heads(cross_out), lp["cross_attn"]["o"])
         x = x + _mlp(_layer_norm(x, lp["mlp_ln"]), lp["mlp"])
 

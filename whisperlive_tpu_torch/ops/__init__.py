@@ -1,2 +1,3 @@
-"""Compute primitives: log-mel, logit rules and sampling, and the CUDA
-kernels (attention, quant_matmul) with their plain PyTorch versions."""
+"""Compute primitives: log-mel, logit rules (window and ring) and sampling,
+and the CUDA kernels (attention, quant_matmul) with their plain PyTorch
+versions."""

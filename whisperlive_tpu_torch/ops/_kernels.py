@@ -1,7 +1,8 @@
 """Build, load and launch the port's CUDA kernels (csrc/*.cu).
 
 On first use, `nvcc` compiles every source under whisperlive_tpu_torch/csrc
-for sm_90a into one shared library with a plain C interface, placed in
+for sm_90a (one process per source, in parallel) and links them into one
+shared library with a plain C interface, placed in
 build/whisperlive_tpu_torch/ at the repository root and named by a hash of
 the sources and flags; `ctypes` loads it. Nothing is built or loaded at
 import time, so the CPU test suite imports every module without a CUDA
@@ -32,7 +33,10 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
 
-KERNELS = ("fused_attention", "int8_matmul", "int8_matmul_t", "cross_attention_int8")
+KERNELS = (
+    "fused_attention", "int8_matmul", "int8_matmul_t", "cross_attention_int8",
+    "cross_attention_int8_skip",
+)
 launches: dict[str, int] = dict.fromkeys(KERNELS, 0)
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
@@ -41,6 +45,7 @@ _SIGNATURES = {
     "wl_int8_matmul": [_P, _P, _P, _P, _I, _I, _I, _P],
     "wl_int8_matmul_t": [_P, _P, _P, _P, _I, _I, _I, _P],
     "wl_cross_attention_int8": [_P, _P, _P, _P, _I, _I, _I, _F, _P],
+    "wl_cross_attention_int8_skip": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
 }
 
 _lock = threading.Lock()
@@ -70,20 +75,34 @@ def library_path() -> Path:
     return BUILD_DIR / f"libwl_kernels-{digest.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds: list[list[str]]) -> None:
+    """Run the commands concurrently; raise with the first failure's stderr."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    outs = [(p, *p.communicate()) for p in procs]
+    for p, _, err in outs:
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}): {' '.join(p.args)}\n{err}")
+        if err.strip():
+            logger.info("nvcc: %s", err.strip())
+
+
 def build() -> Path:
-    """Compile the kernels if this source set has not been built yet."""
+    """Compile the kernels if this source set has not been built yet: one
+    nvcc per source, all started together, then one link."""
     path = library_path()
     if path.exists():
         return path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{path.stem}.{os.getpid()}"
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources()]
+    _run_all([[_nvcc(), *compile_flags, "-c", "-o", str(o), str(s)]
+              for s, o in zip(sources(), objs)])
     tmp = path.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(s) for s in sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    if proc.stderr.strip():
-        logger.info("nvcc: %s", proc.stderr.strip())
+    _run_all([[_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, objs)]])
+    for o in objs:
+        o.unlink()
     os.replace(tmp, path)  # atomic: a concurrent build in another process sees all or nothing
     return path
 

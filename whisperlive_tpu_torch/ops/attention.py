@@ -1,4 +1,5 @@
-"""Attention kernels of the slice: K1 (encoder) and K4 (int8 decode cross).
+"""Attention kernels: K1 (encoder), K4 (int8 decode cross) and K5 (K4 with
+per-slot lengths and an active mask, for the continuous decode step).
 
 Each public function is the wrapper of a hand-written CUDA kernel
 (whisperlive_tpu_torch/csrc): for a CUDA tensor it checks device, dtype,
@@ -100,15 +101,8 @@ def cross_attention_int8_ref(
     return torch.einsum("bht,bhtd->bhd", probs.float(), v)
 
 
-def cross_attention_int8(
-    q: torch.Tensor, kvp: torch.Tensor, lengths: torch.Tensor | None = None
-) -> torch.Tensor:
-    """Single-token cross-attention reading packed int8 K|V. q [B, H, 64]
-    bf16, kvp [B, H, T, 128] int8, lengths optional [B] int32; returns
-    [B, H, 64] float32."""
-    tensors = (q, kvp) if lengths is None else (q, kvp, lengths)
-    if runs_on_cpu(*tensors):
-        return cross_attention_int8_ref(q, kvp, lengths)
+def _check_int8_cross(q: torch.Tensor, kvp: torch.Tensor, lengths: torch.Tensor | None):
+    """Shape, dtype and layout checks shared by K4 and K5; -> (b, h, t, hd)."""
     require(q.dim() == 3 and kvp.dim() == 4, f"bad ranks: q {q.shape} kvp {kvp.shape}")
     b, h, hd = q.shape
     t = kvp.shape[2]
@@ -118,15 +112,69 @@ def cross_attention_int8(
     require(kvp.dtype == torch.int8, f"kvp must be int8, got {kvp.dtype}")
     require(q.is_contiguous() and kvp.is_contiguous(), "q and kvp must be contiguous")
     require(1 <= t <= 8192, f"T={t} outside the kernel's 1..8192 positions")
-    len_ptr = 0
     if lengths is not None:
         require(lengths.dtype == torch.int32 and tuple(lengths.shape) == (b,)
                 and lengths.is_contiguous(), "lengths must be a contiguous [B] int32")
-        len_ptr = lengths.data_ptr()
+    return b, h, t, hd
+
+
+def cross_attention_int8(
+    q: torch.Tensor, kvp: torch.Tensor, lengths: torch.Tensor | None = None,
+    active: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Single-token cross-attention reading packed int8 K|V. q [B, H, 64]
+    bf16, kvp [B, H, T, 128] int8, lengths optional [B] int32; returns
+    [B, H, 64] float32. `active` ([B] bool, requires `lengths`) routes to
+    K5, cross_attention_int8_skip: inactive rows read no K/V."""
+    if active is not None:
+        if lengths is None:
+            raise ValueError("active-slot skipping requires per-slot lengths")
+        return cross_attention_int8_skip(q, kvp, lengths, active)
+    tensors = (q, kvp) if lengths is None else (q, kvp, lengths)
+    if runs_on_cpu(*tensors):
+        return cross_attention_int8_ref(q, kvp, lengths)
+    b, h, t, hd = _check_int8_cross(q, kvp, lengths)
+    len_ptr = 0 if lengths is None else lengths.data_ptr()
     out = torch.empty((b, h, hd), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         _kernels.launch(
             "cross_attention_int8", q.data_ptr(), kvp.data_ptr(), len_ptr,
             out.data_ptr(), b, h, t, hd**-0.5, torch.cuda.current_stream().cuda_stream,
+        )
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K5: K4 with per-slot lengths and an active mask (continuous decode step)
+# ---------------------------------------------------------------------------
+
+
+def cross_attention_int8_skip_ref(
+    q: torch.Tensor, kvp: torch.Tensor, lengths: torch.Tensor, active: torch.Tensor
+) -> torch.Tensor:
+    """K4's masked contract on the active rows; inactive rows are zero. The
+    TPU kernel leaves them unspecified, so callers must not read them."""
+    out = cross_attention_int8_ref(q, kvp, lengths)
+    return torch.where(active[:, None, None], out, 0.0)
+
+
+def cross_attention_int8_skip(
+    q: torch.Tensor, kvp: torch.Tensor, lengths: torch.Tensor, active: torch.Tensor
+) -> torch.Tensor:
+    """Single-token cross-attention of the continuous decode step. q
+    [B, H, 64] bf16 (K scales folded in), kvp [B, H, T, 128] int8, lengths
+    [B] int32, active [B] bool; returns [B, H, 64] float32, zero on
+    inactive rows, whose K/V the kernel never reads."""
+    if runs_on_cpu(q, kvp, lengths, active):
+        return cross_attention_int8_skip_ref(q, kvp, lengths, active)
+    b, h, t, hd = _check_int8_cross(q, kvp, lengths)
+    require(active.dtype == torch.bool and tuple(active.shape) == (b,)
+            and active.is_contiguous(), "active must be a contiguous [B] bool")
+    out = torch.empty((b, h, hd), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        _kernels.launch(
+            "cross_attention_int8_skip", q.data_ptr(), kvp.data_ptr(), lengths.data_ptr(),
+            active.data_ptr(), out.data_ptr(), b, h, t, hd**-0.5,
+            torch.cuda.current_stream().cuda_stream,
         )
     return out

@@ -1,1 +1,1 @@
-"""Serving: the port's backend for whisperlive_tpu.serving.server."""
+"""Serving: the port's server, session, and TorchBackend."""
