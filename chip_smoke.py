@@ -7,14 +7,18 @@ a result):
 
 1. Require CUDA; print the card's name and power limit (nvidia-smi).
 2. Build the seven CUDA sources of whisperlive_tpu_torch/csrc with nvcc
-   (one process per source, in parallel): nine kernel entry points.
+   (one process per source, in parallel): nine kernel entry points. Print
+   what `nvcc -Xptxas -v` reports for K1 (registers, spills).
 3. Hold each kernel against its plain PyTorch version on the card at the
    serving paths' shapes (large-v3) in bf16, with the stated tolerance,
    and time both (CUDA events, median of 20 runs of 10 calls), plus one
    PyTorch call that computes the same function where there is one (the
    port never calls it). K1 is also checked at the 512-position encoder
-   context; K2 and K3 at the window batch's M=4 and the continuous pool's
-   M=8 (each kernel's entry reports the pool's shape); K5 at [8,20,64] x
+   context and, at T = 1500, with q drawn 4x larger (a peaked softmax);
+   its entry carries those shapes in `other_shapes`, each with its ratio
+   to scaled_dot_product_attention (`sdpa_ratio`). K2 and K3 at the
+   window batch's M=4 and the continuous pool's M=8 (each kernel's entry
+   reports the pool's shape); K5 at [8,20,64] x
    [8,20,640,128] with mixed lengths, half the rows active and an active
    row of length 0, and timed at 8/8, 4/8 and 1/8 rows active. The
    speculative verify's kernels at k=4 (a window of 5 queries): K6 at
@@ -24,6 +28,9 @@ a result):
    [8,20,5,64] x 2x[8,20,640,32]. The cross-attention kernels' tolerance
    is a share of each batch row's own max|ref|. The window kernel is also
    timed at Tq=1 beside K4 and K5.
+   Then the encoder forward: one encode call (32 layers) at mel
+   [4,3000,128] and at the insert bucket's [8,1024,128] on the host clock,
+   beside 32 x K1's time as K1's share, printed as {"encoder_forward": ...}.
 4. Serve the window path: large-v3 at full width with random bf16 weights
    from a seed, a WhisperEngine, BatchScheduler(max_batch_size=4) and
    TorchBackend, warmed up; two streaming sessions through the port's
@@ -55,7 +62,8 @@ a result):
    is held against the plain greedy decode of the same window: the tokens
    must be equal up to a tie within twice the verify's measured error.
 
-The line before the last is {"kernels": [...]}; the last line is
+The line before the last is {"kernels": [...]}, after {"encoder_forward":
+[...]}; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -63,6 +71,7 @@ from __future__ import annotations
 
 import asyncio
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -207,6 +216,21 @@ def median_ms(fn, warmup: int = 3, iters: int = 20, reps: int = 10) -> float:
     return statistics.median(times)
 
 
+def ptxas_summary(nvcc_stderr: str) -> str:
+    """The registers, spills and stack lines of `nvcc -Xptxas -v` output."""
+    return "; ".join(line.split(":", 1)[-1].strip() for line in nvcc_stderr.splitlines()
+                     if "registers" in line or "spill" in line)
+
+
+def ptxas_usage(kernel: str) -> str:
+    """ptxas_summary of one kernel source compiled with the build's own flags."""
+    src = _kernels.CSRC_DIR / f"{kernel}.cu"
+    flags = [f for f in _kernels.NVCC_FLAGS if f != "-shared"]
+    run = subprocess.run([_kernels._nvcc(), *flags, "-Xptxas", "-v", "-c", "-o", os.devnull,
+                          str(src)], capture_output=True, text=True, check=True)
+    return ptxas_summary(run.stderr)
+
+
 def bound(n_bytes: float, n_flops: float) -> dict:
     """Least time on the card: the larger of bytes over HBM rate and bf16
     operations over the tensor-core peak."""
@@ -278,19 +302,30 @@ def kernel_phase(dev: torch.device) -> dict:
     results = {}
     # K1: encoder self-attention, bf16 output; flash (unnormalised bf16
     # probabilities) vs two-pass softmax round differently: 2^-6 of max|ref|.
-    # T = 1500 on the window path, 512 on the continuous path's short tails.
-    for b, t in ((BATCH, t_enc), (8, 512)):
-        q, k, v = (randn(b, t, h, hd) for _ in range(3))
+    # T = 1500 on the window path, 512 on the continuous path's short tails;
+    # then T = 1500 with q drawn 4x larger, a peaked softmax in which a
+    # wrong rescale of the running max shows.
+    k1 = []
+    for b, t, q_scale in ((BATCH, t_enc, 1.0), (8, 512, 1.0), (BATCH, t_enc, 4.0)):
+        q, k, v = randn(b, t, h, hd, scale=q_scale), randn(b, t, h, hd), randn(b, t, h, hd)
+        shape = f"q/k/v [{b},{t},{h},{hd}]" + (f", q x{q_scale:g}" if q_scale != 1.0 else "")
         r = compare(
-            "fused_attention", f"q/k/v [{b},{t},{h},{hd}]",
+            "fused_attention", shape,
             lambda: attn_ops.fused_attention(q, k, v),
             lambda: attn_ops.fused_attention_ref(q, k, v), 2.0**-6)
         qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))  # [B, H, T, hd]
         r["library_ms"] = library_time("sdpa", lambda: sdpa(qh, kh, vh))
-        r.update(bound(4 * b * t * h * hd * 2, 4 * b * h * t * t * hd))
-        log(f"fused_attention [{b},{t}]: library (sdpa) {r['library_ms']} ms, "
-            f"bound {r['bound_ms']:.6g} ms ({r['bound_by']})")
-        results.setdefault("fused_attention", r)
+        n_flops = 4 * b * h * t * t * hd
+        r.update(bound(4 * b * t * h * hd * 2, n_flops))
+        r["sdpa_ratio"] = r["ms"] / r["library_ms"] if r["library_ms"] else None
+        log(f"fused_attention {shape}: {n_flops / r['ms'] * 1e-9:.6g} TFLOP/s, "
+            f"bound share {r['bound_ms'] / r['ms']:.6g}, library (sdpa) {r['library_ms']} ms, "
+            f"kernel/sdpa {r['sdpa_ratio']}, bound {r['bound_ms']:.6g} ms ({r['bound_by']})")
+        k1.append(r)
+    # the entry reports the window path's shape and the worst error; the
+    # insert's shape and the peaked case ride along in other_shapes
+    results["fused_attention"] = dict(
+        k1[0], max_abs_err=max(r["max_abs_err"] for r in k1), other_shapes=k1[1:])
 
     # K2: decoder linears at the window path's decode M=B, the continuous
     # pool's M=CONT_SLOTS (the kernel's second 4-row M tile) and prefill
@@ -524,6 +559,37 @@ def window_kernel_phase(randn, int8, dev, h: int, hd: int, t_enc: int) -> dict:
     results["cross_attention_int4_window"] = dict(
         k8[1], max_abs_err=max(r["max_abs_err"] for r in k8), library_ms=None)
     return results
+
+
+def encoder_phase(engine: WhisperEngine, k1: dict) -> list[dict]:
+    """Host time of one encode call (every encoder layer, random bf16
+    weights) at the window path's mel [BATCH, 3000, n_mels] and the insert
+    bucket's [8, 1024, n_mels]: median of 5 calls after a warm-up, each
+    ending in torch.cuda.synchronize(). Beside it n_audio_layer x K1's time
+    at the same attention shape (phase 3), as K1's share of the encoder."""
+    cfg, dev = engine.cfg, engine.device
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    k1_by_shape = {r["shape"]: r["ms"] for r in [k1, *k1["other_shapes"]]}
+    out = []
+    for b, t_mel in ((BATCH, 2 * cfg.n_audio_ctx), (8, 1024)):
+        mel = torch.randn((b, t_mel, cfg.n_mels), generator=gen, device=dev)
+        with torch.inference_mode():
+            times = []
+            for _ in range(6):
+                t0 = time.perf_counter()
+                enc = wmod.encode(engine.params, cfg, mel)
+                torch.cuda.synchronize(dev)
+                times.append((time.perf_counter() - t0) * 1e3)
+        check(enc.shape == (b, t_mel // 2, cfg.n_audio_state) and bool(torch.isfinite(enc).all()),
+              f"encode [{b},{t_mel}]: {tuple(enc.shape)}, finite {bool(torch.isfinite(enc).all())}")
+        ms = statistics.median(times[1:])
+        k1_ms = cfg.n_audio_layer * k1_by_shape[
+            f"q/k/v [{b},{t_mel // 2},{cfg.n_audio_head},{cfg.head_dim}]"]
+        out.append({"mel": [b, t_mel, cfg.n_mels], "encode_ms": ms, "k1_ms_x_layers": k1_ms,
+                    "k1_share": k1_ms / ms})
+        log(f"encoder forward mel [{b},{t_mel},{cfg.n_mels}]: {ms:.6g} ms (median of 5), "
+            f"{cfg.n_audio_layer} x K1 {k1_ms:.6g} ms, share {k1_ms / ms:.6g}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1289,16 +1355,20 @@ def main() -> int:
     t0 = time.monotonic()
     _kernels.library()
     log(f"kernel build + load: {time.monotonic() - t0:.6g} s ({_kernels.library_path().name})")
+    k1_ptxas = ptxas_usage("fused_attention")
+    log(f"fused_attention.cu, nvcc -Xptxas -v: {k1_ptxas}")
 
     from whisperlive_tpu_torch.device import resolve_device
 
     resolve_device(dev)  # the engine's numerics policy (TF32 off)
     measured = kernel_phase(dev)
+    measured["fused_attention"]["ptxas"] = k1_ptxas
     # the int8 engine serves phases 4-6, an int4 engine built from the same
     # parameters the mixed route; each has a distil-large-v3 draft of its
     # cross-KV width (random weights from SEED + 1)
     params = wmod.init_params(wmod.WHISPER_CONFIGS[MODEL], SEED, torch.bfloat16, dev)
     engine = build_engine(dev, MODEL, params, (1, 2, BATCH))
+    encoder = encoder_phase(engine, measured["fused_attention"])
     engine4 = build_engine(dev, MODEL, params, (1, 2, BATCH), cross_kv_bits=4)
     params = wmod.init_params(wmod.WHISPER_CONFIGS[DRAFT_MODEL], SEED + 1, torch.bfloat16, dev)
     draft = build_engine(dev, DRAFT_MODEL, params, (1,))
@@ -1329,6 +1399,7 @@ def main() -> int:
                 "launches": paths[served_by[name]][name], **measured[name]}
                for name, (src, replaces) in KERNELS.items()]
     log(f"chip_smoke total: {time.monotonic() - t_start:.6g} s")
+    print(json.dumps({"encoder_forward": encoder}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

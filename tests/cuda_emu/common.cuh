@@ -1,0 +1,320 @@
+// A CPU stand-in for csrc/common.cuh and the CUDA headers, so that a kernel
+// source of csrc/ compiles with g++ (C++17) and runs on the CPU. CTAs run one
+// after another; a CTA's threads are coroutines (ucontext) on one OS thread,
+// scheduled in turn, so runs are deterministic. __syncthreads is a barrier
+// of the CTA's threads, and the warp collectives (shuffles, ldmatrix,
+// mma.sync) exchange values through per-warp slots between two barriers of
+// the warp. A barrier that can never complete aborts as a deadlock.
+// cp.async copies are held per thread and land at the wait_group that
+// retires their group (or at once, with emu::eager_copies), so a read that
+// misses its wait sees the NaN that fills shared memory at each CTA's start.
+// Every ldmatrix counts its bank conflicts; a copy's source must lie in a
+// range registered with emu::add_global. Only what the kernels here use
+// is defined. A launch `k<<<grid, block, smem, stream>>>(args)` must be
+// rewritten to `emu_launch(k, grid, block, smem, stream, args)` first.
+#pragma once
+#include <ucontext.h>
+
+#include <cfloat>
+#include <cmath>
+#include <cstdint>
+#include <cstdio>
+#include <cstdlib>
+#include <cstring>
+#include <functional>
+#include <vector>
+
+#define __global__
+#define __device__
+#define __host__
+#define __forceinline__ inline
+#define __launch_bounds__(...)
+#define __shared__
+#define __restrict__
+#define __align__(n) alignas(n)
+
+struct dim3 {
+    unsigned x, y, z;
+    dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
+};
+struct uint3e { unsigned x, y, z; };
+inline uint3e blockIdx, blockDim, gridDim;
+
+struct alignas(16) uint4 { unsigned x, y, z, w; };
+inline uint4 make_uint4(unsigned a, unsigned b, unsigned c, unsigned d) { return {a, b, c, d}; }
+
+typedef struct CUstream_st* cudaStream_t;
+typedef int cudaError_t;
+constexpr int cudaSuccess = 0;
+constexpr int cudaFuncAttributeMaxDynamicSharedMemorySize = 8;
+template <class F> inline cudaError_t cudaFuncSetAttribute(F, int, int) { return 0; }
+inline cudaError_t cudaGetLastError() { return 0; }
+
+struct __nv_bfloat16 { uint16_t u; };
+struct __nv_bfloat162 { __nv_bfloat16 x, y; };
+inline uint16_t f2bf(float f) {
+    uint32_t u; std::memcpy(&u, &f, 4);
+    if (std::isnan(f)) return 0x7fc0;
+    u += 0x7fff + ((u >> 16) & 1);
+    return static_cast<uint16_t>(u >> 16);
+}
+inline float bf2f(uint16_t h) {
+    const uint32_t u = uint32_t(h) << 16;
+    float f;
+    std::memcpy(&f, &u, 4);
+    return f;
+}
+inline __nv_bfloat16 __float2bfloat16(float f) { return {f2bf(f)}; }
+inline float __bfloat162float(__nv_bfloat16 h) { return bf2f(h.u); }
+inline __nv_bfloat162 __floats2bfloat162_rn(float a, float b) { return {{f2bf(a)}, {f2bf(b)}}; }
+
+// ---- emulator state ----
+namespace emu {
+constexpr int kMaxWarps = 32;
+constexpr size_t kStack = 256 * 1024;
+struct Copy { void* dst; const void* src; bool valid; };
+struct Thread {
+    ucontext_t ctx;
+    std::vector<char> stack;
+    uint3e idx{};
+    bool done = false, waiting = false;
+    std::vector<std::vector<Copy>> groups;
+    std::vector<Copy> open_group;
+};
+inline std::vector<Thread> threads;
+inline Thread* cur = nullptr;
+inline ucontext_t scheduler;
+inline std::function<void()> body;
+inline int warp_arrived[kMaxWarps], cta_arrived;
+inline const void* x_ptr[kMaxWarps][32];
+inline uint32_t x_u[kMaxWarps][32][6];
+inline float x_f[kMaxWarps][32];
+inline unsigned char* smem_base; inline size_t smem_size;
+inline long bank_conflicts = 0, ldmatrix_calls = 0;
+inline bool eager_copies = false;
+inline std::vector<std::pair<const unsigned char*, size_t>> globals;
+inline void add_global(const void* p, size_t n) {
+    globals.emplace_back(static_cast<const unsigned char*>(p), n);
+}
+inline void check_global(const void* p, size_t n) {
+    auto c = static_cast<const unsigned char*>(p);
+    for (auto& [base, size] : globals)
+        if (c >= base && c + n <= base + size) return;
+    fprintf(stderr, "global read out of bounds\n");
+    abort();
+}
+inline int warp() { return cur->idx.x >> 5; }
+inline int lane() { return cur->idx.x & 31; }
+// Arrive at a barrier of threads [first, first + n) and wait for the rest.
+inline void barrier(int& arrived, int first, int n) {
+    cur->waiting = true;
+    if (++arrived == n) {
+        arrived = 0;
+        for (int i = first; i < first + n; ++i) threads[i].waiting = false;
+    }
+    while (cur->waiting) swapcontext(&cur->ctx, &scheduler);
+}
+inline void wsync() { barrier(warp_arrived[warp()], warp() * 32, 32); }
+inline void check_smem(const void* p, size_t n) {
+    auto c = static_cast<const unsigned char*>(p);
+    if (c < smem_base || c + n > smem_base + smem_size) { fprintf(stderr, "smem OOB\n"); abort(); }
+}
+inline void do_copy(const Copy& c) {
+    if (c.valid) std::memcpy(c.dst, c.src, 16); else std::memset(c.dst, 0, 16);
+}
+// How a CTA's threads take turns: kRoundRobin resumes each in turn, so the
+// warps keep in step; kFirstWarpAhead always resumes the lowest-numbered
+// thread that can run, and kLastWarpAhead the highest, so one warp runs as
+// far ahead of the others as the barriers allow (a missing barrier then
+// lets it overwrite, or read, shared memory that another warp still needs).
+enum Schedule { kRoundRobin, kFirstWarpAhead, kLastWarpAhead };
+inline Schedule schedule = kRoundRobin;
+
+inline void resume(Thread& th) {
+    cur = &th;
+    swapcontext(&scheduler, &th.ctx);
+}
+
+inline void run_cta() {
+    const int n = static_cast<int>(threads.size());
+    for (;;) {
+        int left = 0, ran = 0;
+        if (schedule == kRoundRobin) {
+            for (auto& th : threads) {
+                left += !th.done;
+                if (!th.done && !th.waiting) resume(th), ++ran;
+            }
+        } else {
+            for (int k = 0; k < n; ++k) {
+                Thread& th = threads[schedule == kFirstWarpAhead ? k : n - 1 - k];
+                left += !th.done;
+                if (!th.done && !th.waiting) {
+                    resume(th), ++ran;
+                    break;
+                }
+            }
+            if (ran) continue;
+        }
+        if (!left) return;
+        if (!ran) { fprintf(stderr, "deadlock: a barrier never completes\n"); abort(); }
+    }
+}
+
+inline void trampoline() {
+    body();
+    cur->done = true;
+    swapcontext(&cur->ctx, &scheduler);
+}
+}  // namespace emu
+
+#define threadIdx (emu::cur->idx)
+
+inline void __syncthreads() { emu::barrier(emu::cta_arrived, 0, static_cast<int>(blockDim.x)); }
+inline void __syncwarp() { emu::wsync(); }
+inline float __shfl_xor_sync(unsigned, float v, int m) {
+    const int w = emu::warp(), l = emu::lane();
+    emu::x_f[w][l] = v;
+    emu::wsync();
+    const float r = emu::x_f[w][l ^ m];
+    emu::wsync();
+    return r;
+}
+
+namespace wl {
+constexpr float kNegInf = -FLT_MAX;
+inline float quad_max(float v) {
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+    return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+inline float quad_sum(float v) {
+    v += __shfl_xor_sync(0xffffffffu, v, 1);
+    return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+inline void cp_async_16(void* dst, const void* src, bool valid) {
+    emu::check_smem(dst, 16);
+    if (reinterpret_cast<uintptr_t>(dst) % 16 || reinterpret_cast<uintptr_t>(src) % 16) {
+        fprintf(stderr, "cp.async misaligned\n"); abort();
+    }
+    if (valid) emu::check_global(src, 16);
+    emu::Copy c{dst, src, valid};
+    if (emu::eager_copies) emu::do_copy(c);
+    else emu::cur->open_group.push_back(c);
+}
+inline void cp_async_commit() {
+    emu::cur->groups.push_back(std::move(emu::cur->open_group));
+    emu::cur->open_group.clear();
+}
+template <int N> inline void cp_async_wait() {
+    auto& groups = emu::cur->groups;
+    while (groups.size() > static_cast<size_t>(N)) {
+        for (auto& c : groups.front()) emu::do_copy(c);
+        groups.erase(groups.begin());
+    }
+}
+inline void ldm(uint32_t r[4], const void* p, bool trans) {
+    const int w = emu::warp(), l = emu::lane();
+    emu::check_smem(p, 16);
+    if (reinterpret_cast<uintptr_t>(p) % 16) { fprintf(stderr, "ldmatrix misaligned\n"); abort(); }
+    emu::x_ptr[w][l] = p;
+    emu::wsync();
+    for (int i = 0; i < 4; ++i) {
+        uint16_t lo, hi;
+        if (!trans) {
+            auto row = static_cast<const uint16_t*>(emu::x_ptr[w][8 * i + (l >> 2)]);
+            lo = row[2 * (l & 3)]; hi = row[2 * (l & 3) + 1];
+        } else {
+            auto r0 = static_cast<const uint16_t*>(emu::x_ptr[w][8 * i + 2 * (l & 3)]);
+            auto r1 = static_cast<const uint16_t*>(emu::x_ptr[w][8 * i + 2 * (l & 3) + 1]);
+            lo = r0[l >> 2]; hi = r1[l >> 2];
+        }
+        r[i] = lo | (uint32_t(hi) << 16);
+    }
+    if (l == 0) {  // bank check: each matrix's 8 rows must cover 32 distinct banks
+        emu::ldmatrix_calls++;
+        for (int i = 0; i < 4; ++i) {
+            bool used[32] = {};
+            for (int rr = 0; rr < 8; ++rr) {
+                const uintptr_t a = reinterpret_cast<uintptr_t>(emu::x_ptr[w][8 * i + rr]);
+                for (int q = 0; q < 4; ++q) {
+                    const int bank = ((a >> 2) + q) & 31;
+                    if (used[bank]) emu::bank_conflicts++;
+                    used[bank] = true;
+                }
+            }
+        }
+    }
+    emu::wsync();
+}
+inline void ldmatrix_x4(uint32_t r[4], const void* p) { ldm(r, p, false); }
+inline void ldmatrix_x4_trans(uint32_t r[4], const void* p) { ldm(r, p, true); }
+inline void mma_bf16_16816(float d[4], const uint32_t a[4], uint32_t b0, uint32_t b1) {
+    const int w = emu::warp(), l = emu::lane();
+    for (int i = 0; i < 4; ++i) emu::x_u[w][l][i] = a[i];
+    emu::x_u[w][l][4] = b0; emu::x_u[w][l][5] = b1;
+    emu::wsync();
+    float A[16][16], Bm[16][8];
+    for (int ln = 0; ln < 32; ++ln) {
+        const int g = ln >> 2, t = ln & 3;
+        auto lo = [](uint32_t x) { return bf2f(x & 0xffff); };
+        auto hi = [](uint32_t x) { return bf2f(x >> 16); };
+        const uint32_t* u = emu::x_u[w][ln];
+        A[g][2 * t] = lo(u[0]); A[g][2 * t + 1] = hi(u[0]);
+        A[g + 8][2 * t] = lo(u[1]); A[g + 8][2 * t + 1] = hi(u[1]);
+        A[g][2 * t + 8] = lo(u[2]); A[g][2 * t + 9] = hi(u[2]);
+        A[g + 8][2 * t + 8] = lo(u[3]); A[g + 8][2 * t + 9] = hi(u[3]);
+        Bm[2 * t][g] = lo(u[4]); Bm[2 * t + 1][g] = hi(u[4]);
+        Bm[2 * t + 8][g] = lo(u[5]); Bm[2 * t + 9][g] = hi(u[5]);
+    }
+    emu::wsync();
+    const int g = l >> 2, t = l & 3;
+    for (int e = 0; e < 4; ++e) {
+        const int row = g + (e >> 1) * 8, col = 2 * t + (e & 1);
+        float acc = d[e];
+        for (int kk = 0; kk < 16; ++kk) acc += A[row][kk] * Bm[kk][col];
+        d[e] = acc;
+    }
+}
+inline float exp2_approx(float x) { return exp2f(x); }
+inline uint32_t pack_bf16x2(float lo, float hi) {
+    return f2bf(lo) | (uint32_t(f2bf(hi)) << 16);
+}
+}  // namespace wl
+
+alignas(128) inline unsigned char emu_smem[256 * 1024];
+
+// kernel<<<grid, block, smem, stream>>>(args...) is rewritten to this.
+template <class K, class... A>
+void emu_launch(K kernel, dim3 grid, dim3 block, size_t smem, cudaStream_t, A... args) {
+    emu::smem_base = emu_smem;
+    emu::smem_size = smem;
+    if (smem > sizeof(emu_smem) || block.x % 32 || block.x > 32 * emu::kMaxWarps) {
+        fprintf(stderr, "launch refused\n");
+        abort();
+    }
+    blockDim = {block.x, 1, 1};
+    gridDim = {grid.x, grid.y, 1};
+    emu::body = [&] { kernel(args...); };
+    for (unsigned by = 0; by < grid.y; ++by) {
+        for (unsigned bx = 0; bx < grid.x; ++bx) {
+            blockIdx = {bx, by, 0};
+            std::memset(emu_smem, 0xff, smem);  // bf16 NaN everywhere
+            emu::threads.assign(block.x, {});
+            for (unsigned t = 0; t < block.x; ++t) {
+                emu::Thread& th = emu::threads[t];
+                th.idx = {t, 0, 0};
+                th.stack.resize(emu::kStack);
+                getcontext(&th.ctx);
+                th.ctx.uc_stack.ss_sp = th.stack.data();
+                th.ctx.uc_stack.ss_size = th.stack.size();
+                th.ctx.uc_link = nullptr;
+                makecontext(&th.ctx, emu::trampoline, 0);
+            }
+            emu::run_cta();
+            for (auto& th : emu::threads) {
+                for (auto& g : th.groups)
+                    if (!g.empty()) { fprintf(stderr, "copies pending at exit\n"); abort(); }
+                if (!th.open_group.empty()) { fprintf(stderr, "uncommitted copies\n"); abort(); }
+            }
+        }
+    }
+}

@@ -55,11 +55,31 @@ def _rows_close(out, ref, rel_tol):
     return bool((err <= rel_tol * scale).all())
 
 
+# K1 cases: (B, T, q scale, strided). T covers a single key, the ragged
+# key tile (64 keys a tile: 28, 63, 65, 127, 129, 1500 = 23*64 + 28) and the
+# ragged query tile (128 queries a CTA: 127, 129, 512 full, 1500); q drawn
+# 4x larger peaks the softmax, so a wrong rescale of the running max shows;
+# strided q/k/v are the head slices of one [B, T, 3H, 64] tensor.
+K1_CASES = [
+    *[(2, t, 1.0, False) for t in (1, 28, 63, 64, 65, 127, 128, 129, 512, 1500)],
+    (1, 1500, 1.0, False), (8, 512, 1.0, False), (8, 129, 1.0, False),
+    (4, 1500, 4.0, False), (1, 65, 4.0, False),
+    (2, 129, 1.0, True), (8, 512, 1.0, True), (2, 1500, 4.0, True),
+]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("t", [28, 512, 1500])
-def test_fused_attention_kernel_on_card(cuda_device, t):
-    rng = np.random.default_rng(t)
-    q, k, v = (_gpu(rng, (2, t, 20, 64)) for _ in range(3))
+@pytest.mark.parametrize("b, t, q_scale, strided", K1_CASES)
+def test_fused_attention_kernel_on_card(cuda_device, b, t, q_scale, strided):
+    rng = np.random.default_rng(t * 16 + b)
+    h = 20
+    if strided:
+        qkv = _gpu(rng, (b, t, 3 * h, 64))
+        qkv[:, :, :h] *= q_scale
+        q, k, v = qkv[:, :, :h], qkv[:, :, h:2 * h], qkv[:, :, 2 * h:]
+    else:
+        q = _gpu(rng, (b, t, h, 64), q_scale)
+        k, v = (_gpu(rng, (b, t, h, 64)) for _ in range(2))
     n = _kernels.launches["fused_attention"]
     err, scale = _err(tattn.fused_attention(q, k, v), tattn.fused_attention_ref(q, k, v))
     assert _kernels.launches["fused_attention"] == n + 1

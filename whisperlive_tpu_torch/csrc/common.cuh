@@ -55,6 +55,84 @@ __device__ __forceinline__ float warp_max(float v) {
     return v;
 }
 
+// Reductions over the quad of lanes (lane ^ 1, lane ^ 2) that share a row
+// of an mma.sync accumulator.
+__device__ __forceinline__ float quad_max(float v) {
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+    return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+    v += __shfl_xor_sync(0xffffffffu, v, 1);
+    return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// ---- Tensor-core and asynchronous-copy primitives (PTX, sm_80 and up) ----
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte global -> shared copy that bypasses L1. With `valid` false the
+// source is not read and the 16 bytes are zero-filled.
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src, bool valid) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(smem_u32(dst)), "l"(src), "r"(valid ? 16 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's committed copy groups are pending.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// Four 8x8 b16 matrices from shared memory: lanes 8i..8i+7 give the row
+// addresses of matrix i, and r[i] of lane l holds row l/4, columns
+// 2(l%4) and 2(l%4)+1 of matrix i (with .trans: column l/4, rows 2(l%4)
+// and 2(l%4)+1).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const void* p) {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4], const void* p) {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_u32(p)));
+}
+
+// d[16x8] += a[16x16] b[16x8], bf16 in, f32 accumulate. With g = lane / 4
+// and t = lane % 4: a holds rows g, g + 8 x columns 2t, 2t + 1 (a[0],
+// a[1]) and 2t + 8, 2t + 9 (a[2], a[3]); b0, b1 hold rows 2t, 2t + 1 and
+// 2t + 8, 2t + 9 of column g; d[0], d[1] are row g and d[2], d[3] row g + 8,
+// columns 2t, 2t + 1.
+__device__ __forceinline__ void mma_bf16_16816(float d[4], const uint32_t a[4], uint32_t b0,
+                                               uint32_t b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 2^x on the special-function unit with subnormal results flushed to zero
+// (ex2.approx.ftz.f32, what exp2f becomes under --use_fast_math; exp2f
+// itself adds a range check and two multiplies around it). 2 ulp.
+__device__ __forceinline__ float exp2_approx(float x) {
+    float y;
+    asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+    return y;
+}
+
+// Two floats -> one bf16x2 register, `lo` in the low half.
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+    const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&v);
+}
+
 // Block-wide reductions over blockDim.x threads (a multiple of 32). `buf`
 // is shared scratch of at least 32 floats; every thread gets the result.
 __device__ __forceinline__ float block_max(float v, float* buf) {

@@ -1,58 +1,99 @@
-// K1: bidirectional encoder self-attention, flash style, hd = 64.
+// K1: bidirectional encoder self-attention, hd = 64.
 //
 // Replaces the TPU kernel whisperlive_tpu/ops/attention.py fused_attention
 // (_attn_kernel): out = softmax(q k^T * hd^-0.5) v over [B, T, H, 64] with
-// f32 scores and softmax, probabilities cast to v's dtype (bf16) before the
-// PV product, output in q's dtype.
+// f32 scores and softmax, probabilities cast to bf16 before the PV
+// product, output bf16. q/k/v are read in place through their strides;
+// the output is a contiguous [B, T, H, 64].
 //
-// What bounds it on the card: the product, 4*B*H*T^2*64 FLOP (46 GFLOP per
-// encoder layer at large-v3, B=4, T=1500), so it must run on the tensor
-// cores. The TPU kernel kept K/V of one (batch, head) whole in VMEM and
-// materialised a [512, T] score block; here shared memory is far smaller,
-// so the design is the flash form instead: one CTA per (b*h, 64-query
-// tile), K/V tiles of 64 positions staged through shared memory, bf16 WMMA
-// (16x16x16, f32 accumulate) for QK^T and PV, and an online softmax in f32
-// that never writes a score to device memory. q/k/v are read in place
-// through their [B, T, H, hd] strides (no transposed copies), and the
-// ragged last tile (1500 = 23*64 + 28) is masked here, not padded by the
-// caller. A simple kernel that is right first: no TMA, no wgmma, no
-// double buffering.
-#include <mma.h>
-
+// What bounds it on the card: operations at the window path's T = 1500
+// (4*B*H*T^2*64 = 46.1 GFLOP at B=4: 46.6 us at 989 TFLOP/s bf16) and
+// bytes at the continuous insert's T = 512 (q, k, v read and out written
+// once, 41.9 MB at B=8: 12.5 us at 3.35 TB/s, against 10.9 us of
+// operations). So the products must run on the tensor cores with nothing
+// else in their way, and K/V should come from L2, not HBM, after the first
+// CTA of a (b, h) has read them.
+//
+// The design is the FlashAttention-2 forward form:
+// - One CTA per (128-query tile, b*h), with the query tiles of one (b, h)
+//   adjacent in launch order (blockIdx.x), so that their K/V stay in L2.
+// - 4 warps, each owning 32 query rows as two m16 tiles: every K or V
+//   fragment that ldmatrix brings from shared memory feeds two mma.sync
+//   instead of one, which halves the shared-memory reads per product
+//   against 8 warps of 16 rows. Measured (k1_variants.py, H100 SXM at
+//   700 W): 8 warps of 16 rows take 1.34x as long at T = 1500, 64 queries
+//   a CTA 1.06x (but 0.93x at T = 512), 128 keys a tile (which spills)
+//   1.06x, and capping the registers for 3 CTAs an SM (which spills) 1.20x.
+// - Q is copied once by cp.async and held in registers as mma.sync A
+//   fragments (ldmatrix.x4) for the whole key loop.
+// - K/V tiles of 64 keys arrive through a ring of kStages stages by
+//   cp.async.cg (16 bytes a thread, commit/wait groups); the copy of tile
+//   j + kStages - 1 is in flight while tile j is multiplied. Rows are 128
+//   bytes with chunk c of row r stored at chunk c ^ (r % 8), so the eight
+//   rows that an ldmatrix reads hit all 32 banks once. A third stage
+//   measured no faster.
+// - S = Q K^T by mma.sync.m16n8k16 (bf16 in, f32 accumulate) with K from
+//   ldmatrix; the scores stay in the accumulator registers. Columns past T
+//   in the ragged last tile (1500 = 23*64 + 28) are -inf before the row
+//   max; their K/V rows were zero-filled by the copy (src-size 0).
+// - Online softmax in registers: the row max is taken across the quad of
+//   lanes that share a row, 2^x with hd^-0.5 * log2(e) folded into one
+//   FMA, the running output rescaled in registers, and each thread's row
+//   sums reduced across the quad only once, at the end. 2^x is the SFU's
+//   ex2.approx.ftz (wl::exp2_approx): exp2f's own range handling around the
+//   same instruction cost 5% at T = 1500.
+// - O += P V: two adjacent n8 score tiles packed to bf16x2 are the A
+//   fragment of one k16 step (P never touches shared memory); V comes by
+//   ldmatrix.trans.
+// - Epilogue: divide by the row sum, convert to bf16, stage each warp's
+//   rows in the (by then free) Q tile and store 16 bytes a thread; rows
+//   at or past T are not stored.
+//
+// Shared memory: 16 KB of Q + kStages * 16 KB of K/V = 48 KB at two
+// stages. nvcc -Xptxas -v (sm_90a, CUDA 12.8): 244 registers, 0 bytes of
+// spill, 1 barrier; so registers, not shared memory, hold an SM to 2 CTAs
+// (8 warps).
 #include "common.cuh"
 
 namespace {
 
-using namespace nvcuda;
 using bf16 = __nv_bfloat16;
 
 constexpr int kHd = 64;
-constexpr int kBq = 64;           // queries per CTA
-constexpr int kBk = 64;           // key/value positions per tile
-constexpr int kWarps = kBq / 16;  // each warp owns 16 query rows
+constexpr int kBq = 128;                // queries per CTA
+constexpr int kBk = 64;                 // keys per K/V tile
+constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
-constexpr int kLdb = kHd + 8;     // bf16 smem row stride (elements): skews banks
-constexpr int kLdf = kBk + 4;     // f32 smem row stride (elements)
+constexpr int kRowsPerWarp = kBq / kWarps;
+constexpr int kMt = kRowsPerWarp / 16;  // m16 tiles per warp
+constexpr int kNt = kBk / 8;            // n8 score tiles per K/V tile
+constexpr int kDt = kHd / 8;            // n8 output tiles (head dims)
+constexpr int kStages = 2;              // depth of the K/V ring
+constexpr int kChunks = kHd / 8;        // 16-byte chunks in a 128-byte row
+constexpr float kLog2e = 1.4426950408889634f;
 
 struct Smem {
-    bf16 q[kBq * kLdb];
-    bf16 k[kBk * kLdb];
-    bf16 v[kBk * kLdb];
-    bf16 p[kBq * kLdb];   // unnormalised probabilities of the current tile
-    float s[kBq * kLdf];  // raw scores of the current tile
-    float o[kBq * kLdf];  // running output accumulator
+    bf16 q[kBq * kHd];  // the output tile in the epilogue
+    bf16 k[kStages][kBk * kHd];
+    bf16 v[kStages][kBk * kHd];
 };
 
-// rows x 64 bf16 tile from global memory (row stride in elements) into
-// shared memory; rows at or beyond `rows_valid` are zero-filled.
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
-                                          long long row_stride, int rows_valid) {
-    for (int i = threadIdx.x; i < 64 * 8; i += kThreads) {
-        const int r = i >> 3, c = (i & 7) * 8;
-        uint4 val = make_uint4(0u, 0u, 0u, 0u);
-        if (r < rows_valid)
-            val = __ldg(reinterpret_cast<const uint4*>(src + r * row_stride + c));
-        *reinterpret_cast<uint4*>(dst + r * kLdb + c) = val;
+// Element offset of 16-byte chunk c of row r in a swizzled [rows, 64] tile.
+__device__ __forceinline__ int swz(int r, int c) {
+    return r * kHd + ((c ^ (r & 7)) << 3);
+}
+
+// Rows [row0, row0 + kRows) of one (b, h) into a swizzled tile by cp.async;
+// rows at or past T are zero-filled and not read.
+template <int kRows>
+__device__ __forceinline__ void copy_tile(bf16* dst, const bf16* src, long long row_stride,
+                                          int row0, int T) {
+#pragma unroll
+    for (int i = 0; i < kRows * kChunks / kThreads; ++i) {
+        const int idx = threadIdx.x + i * kThreads;
+        const int r = idx / kChunks, c = idx % kChunks;
+        const bool ok = row0 + r < T;
+        wl::cp_async_16(dst + swz(r, c), src + (ok ? row0 + r : 0) * row_stride + c * 8, ok);
     }
 }
 
@@ -63,106 +104,171 @@ fused_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                        long long qsb, long long qst, long long qsh,
                        long long ksb, long long kst, long long ksh,
                        long long vsb, long long vst, long long vsh,
-                       float scale) {
+                       float scale_log2) {
     extern __shared__ __align__(128) unsigned char smem_raw[];
     Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
-    const int b = blockIdx.x / H, h = blockIdx.x % H;
-    const int q0 = blockIdx.y * kBq;
+    const int q0 = blockIdx.x * kBq;
+    const long long b = blockIdx.y / H;
+    const int h = blockIdx.y % H;
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int n_tiles = (T + kBk - 1) / kBk;
 
-    const bf16* qb = q + b * qsb + h * qsh;
     const bf16* kb = k + b * ksb + h * ksh;
     const bf16* vb = v + b * vsb + h * vsh;
 
-    load_tile(sm.q, qb + q0 * qst, qst, min(kBq, T - q0));
-    for (int i = threadIdx.x; i < kBq * kLdf; i += kThreads) sm.o[i] = 0.0f;
-    __syncthreads();
-
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> qa[kHd / 16];
+    // Q joins the first K/V tile's copy group; one group per tile after.
+    copy_tile<kBq>(sm.q, q + b * qsb + h * qsh, qst, q0, T);
 #pragma unroll
-    for (int kk = 0; kk < kHd / 16; ++kk)
-        wmma::load_matrix_sync(qa[kk], sm.q + warp * 16 * kLdb + kk * 16, kLdb);
-
-    float* sw = sm.s + warp * 16 * kLdf;
-    float* ow = sm.o + warp * 16 * kLdf;
-    bf16* pw = sm.p + warp * 16 * kLdb;
-    float m_r[16], l_r[16];
-#pragma unroll
-    for (int r = 0; r < 16; ++r) {
-        m_r[r] = -INFINITY;
-        l_r[r] = 0.0f;
+    for (int s = 0; s < kStages - 1; ++s) {
+        if (s < n_tiles) {
+            copy_tile<kBk>(sm.k[s], kb, kst, s * kBk, T);
+            copy_tile<kBk>(sm.v[s], vb, vst, s * kBk, T);
+        }
+        wl::cp_async_commit();
     }
 
-    for (int k0 = 0; k0 < T; k0 += kBk) {
-        const int n_valid = min(kBk, T - k0);
-        __syncthreads();  // every warp is done with the previous K/V tile
-        load_tile(sm.k, kb + k0 * kst, kst, n_valid);
-        load_tile(sm.v, vb + k0 * vst, vst, n_valid);
+    uint32_t qf[kMt][kHd / 16][4];    // Q as A fragments [m tile][k16 step]
+    float o[kMt][kDt][4] = {};        // output accumulator [m tile][n8 tile]
+    float m_run[kMt][2];              // [m tile][row g, g + 8]: running max
+    float l_run[kMt][2] = {};         // and this thread's share of the row sum
+#pragma unroll
+    for (int mt = 0; mt < kMt; ++mt) m_run[mt][0] = m_run[mt][1] = -INFINITY;
+
+    for (int j = 0; j < n_tiles; ++j) {
+        const int pre = j + kStages - 1;  // refills the stage tile j - 1 used
+        if (pre < n_tiles) {
+            copy_tile<kBk>(sm.k[pre % kStages], kb, kst, pre * kBk, T);
+            copy_tile<kBk>(sm.v[pre % kStages], vb, vst, pre * kBk, T);
+        }
+        wl::cp_async_commit();
+        wl::cp_async_wait<kStages - 1>();  // tile j (and Q) landed
         __syncthreads();
 
-        // S = Q K^T for this warp's 16 rows x 64 tile columns.
+        if (j == 0) {
 #pragma unroll
-        for (int n = 0; n < kBk / 16; ++n) {
-            wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-            wmma::fill_fragment(acc, 0.0f);
+            for (int mt = 0; mt < kMt; ++mt)
+#pragma unroll
+                for (int kk = 0; kk < kHd / 16; ++kk)
+                    wl::ldmatrix_x4(qf[mt][kk],
+                                    sm.q + swz(warp * kRowsPerWarp + mt * 16 + (lane & 15),
+                                               kk * 2 + (lane >> 4)));
+        }
+        const bf16* ks = sm.k[j % kStages];
+        const bf16* vs = sm.v[j % kStages];
+
+        // S = Q K^T. One ldmatrix.x4 gives the B fragments of keys
+        // 16np..16np+7 and 16np+8..16np+15 for one k16 step of head dims.
+        float s[kMt][kNt][4] = {};
+#pragma unroll
+        for (int np = 0; np < kNt / 2; ++np) {
 #pragma unroll
             for (int kk = 0; kk < kHd / 16; ++kk) {
-                // K^T in column-major is K row-major: column j = key n*16+j.
-                wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> kf;
-                wmma::load_matrix_sync(kf, sm.k + n * 16 * kLdb + kk * 16, kLdb);
-                wmma::mma_sync(acc, qa[kk], kf, acc);
+                uint32_t kf[4];
+                wl::ldmatrix_x4(kf, ks + swz(np * 16 + (lane & 7) + ((lane >> 4) << 3),
+                                             kk * 2 + ((lane >> 3) & 1)));
+#pragma unroll
+                for (int mt = 0; mt < kMt; ++mt) {
+                    wl::mma_bf16_16816(s[mt][2 * np], qf[mt][kk], kf[0], kf[1]);
+                    wl::mma_bf16_16816(s[mt][2 * np + 1], qf[mt][kk], kf[2], kf[3]);
+                }
             }
-            wmma::store_matrix_sync(sw + n * 16, acc, kLdf, wmma::mem_row_major);
         }
-        __syncwarp();
 
-        // Online softmax, one row at a time across the warp (2 columns a lane).
-        const bool ok0 = lane < n_valid, ok1 = lane + 32 < n_valid;
+        if ((j + 1) * kBk > T) {  // the ragged last tile
 #pragma unroll
-        for (int r = 0; r < 16; ++r) {
-            const float s0 = ok0 ? sw[r * kLdf + lane] * scale : -INFINITY;
-            const float s1 = ok1 ? sw[r * kLdf + lane + 32] * scale : -INFINITY;
-            const float m_new = fmaxf(m_r[r], wl::warp_max(fmaxf(s0, s1)));
-            const float alpha = expf(m_r[r] - m_new);  // 0 on the first tile
-            const float p0 = ok0 ? expf(s0 - m_new) : 0.0f;
-            const float p1 = ok1 ? expf(s1 - m_new) : 0.0f;
-            pw[r * kLdb + lane] = __float2bfloat16(p0);
-            pw[r * kLdb + lane + 32] = __float2bfloat16(p1);
-            l_r[r] = l_r[r] * alpha + wl::warp_sum(p0 + p1);
-            m_r[r] = m_new;
-            ow[r * kLdf + lane] *= alpha;
-            ow[r * kLdf + lane + 32] *= alpha;
-        }
-        __syncwarp();
-
-        // O += P V (P 16 x 64 positions, V 64 positions x 64 channels).
+            for (int nt = 0; nt < kNt; ++nt) {
 #pragma unroll
-        for (int n = 0; n < kHd / 16; ++n) {
-            wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-            wmma::load_matrix_sync(acc, ow + n * 16, kLdf, wmma::mem_row_major);
+                for (int e = 0; e < 4; ++e) {
+                    if (j * kBk + nt * 8 + 2 * (lane & 3) + (e & 1) >= T) {
 #pragma unroll
-            for (int kk = 0; kk < kBk / 16; ++kk) {
-                wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> pf;
-                wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> vf;
-                wmma::load_matrix_sync(pf, pw + kk * 16, kLdb);
-                wmma::load_matrix_sync(vf, sm.v + kk * 16 * kLdb + n * 16, kLdb);
-                wmma::mma_sync(acc, pf, vf, acc);
+                        for (int mt = 0; mt < kMt; ++mt) s[mt][nt][e] = -INFINITY;
+                    }
+                }
             }
-            wmma::store_matrix_sync(ow + n * 16, acc, kLdf, wmma::mem_row_major);
         }
-        __syncwarp();
+
+        // Online softmax; the scores become unnormalised probabilities in place.
+#pragma unroll
+        for (int mt = 0; mt < kMt; ++mt) {
+#pragma unroll
+            for (int hr = 0; hr < 2; ++hr) {
+                float mx = m_run[mt][hr];
+#pragma unroll
+                for (int nt = 0; nt < kNt; ++nt)
+                    mx = fmaxf(mx, fmaxf(s[mt][nt][2 * hr], s[mt][nt][2 * hr + 1]));
+                mx = wl::quad_max(mx);  // finite: every tile has a key below T
+                // 0 on the first tile, where m_run is -inf
+                const float alpha = wl::exp2_approx((m_run[mt][hr] - mx) * scale_log2);
+                const float mc = mx * scale_log2;
+                float sum = 0.0f;
+#pragma unroll
+                for (int nt = 0; nt < kNt; ++nt) {
+#pragma unroll
+                    for (int e = 2 * hr; e < 2 * hr + 2; ++e) {
+                        s[mt][nt][e] = wl::exp2_approx(fmaf(s[mt][nt][e], scale_log2, -mc));
+                        sum += s[mt][nt][e];
+                    }
+                }
+                l_run[mt][hr] = l_run[mt][hr] * alpha + sum;
+                m_run[mt][hr] = mx;
+#pragma unroll
+                for (int dt = 0; dt < kDt; ++dt) {
+                    o[mt][dt][2 * hr] *= alpha;
+                    o[mt][dt][2 * hr + 1] *= alpha;
+                }
+            }
+        }
+
+        // O += P V. The accumulators of n8 tiles 2kk and 2kk + 1, packed to
+        // bf16x2, are the A fragment of k16 step kk; one ldmatrix.x4.trans
+        // gives the B fragments of head dims 16dp..16dp+7 and 16dp+8..16dp+15.
+#pragma unroll
+        for (int kk = 0; kk < kNt / 2; ++kk) {
+            uint32_t pf[kMt][4];
+#pragma unroll
+            for (int mt = 0; mt < kMt; ++mt) {
+                pf[mt][0] = wl::pack_bf16x2(s[mt][2 * kk][0], s[mt][2 * kk][1]);
+                pf[mt][1] = wl::pack_bf16x2(s[mt][2 * kk][2], s[mt][2 * kk][3]);
+                pf[mt][2] = wl::pack_bf16x2(s[mt][2 * kk + 1][0], s[mt][2 * kk + 1][1]);
+                pf[mt][3] = wl::pack_bf16x2(s[mt][2 * kk + 1][2], s[mt][2 * kk + 1][3]);
+            }
+#pragma unroll
+            for (int dp = 0; dp < kDt / 2; ++dp) {
+                uint32_t vf[4];
+                wl::ldmatrix_x4_trans(vf, vs + swz(kk * 16 + (lane & 15), dp * 2 + (lane >> 4)));
+#pragma unroll
+                for (int mt = 0; mt < kMt; ++mt) {
+                    wl::mma_bf16_16816(o[mt][2 * dp], pf[mt], vf[0], vf[1]);
+                    wl::mma_bf16_16816(o[mt][2 * dp + 1], pf[mt], vf[2], vf[3]);
+                }
+            }
+        }
+        __syncthreads();  // every warp is done with this stage before it is refilled
     }
 
-    // Normalise and write [B, T, H, 64] (contiguous output).
+    // Epilogue: each warp stages its own kRowsPerWarp rows of sm.q (read into
+    // registers before the first barrier of the loop) as bf16, then
+    // stores them 16 bytes a thread.
 #pragma unroll
-    for (int r = 0; r < 16; ++r) {
-        const int t = q0 + warp * 16 + r;
-        if (t < T) {
-            const float inv = 1.0f / l_r[r];
-            bf16* dst = out + ((static_cast<long long>(b) * T + t) * H + h) * kHd;
-            dst[lane] = __float2bfloat16(ow[r * kLdf + lane] * inv);
-            dst[lane + 32] = __float2bfloat16(ow[r * kLdf + lane + 32] * inv);
+    for (int mt = 0; mt < kMt; ++mt) {
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+            const float inv = 1.0f / wl::quad_sum(l_run[mt][hr]);
+            const int r = warp * kRowsPerWarp + mt * 16 + hr * 8 + (lane >> 2);
+#pragma unroll
+            for (int dt = 0; dt < kDt; ++dt)
+                *reinterpret_cast<uint32_t*>(sm.q + swz(r, dt) + 2 * (lane & 3)) =
+                    wl::pack_bf16x2(o[mt][dt][2 * hr] * inv, o[mt][dt][2 * hr + 1] * inv);
         }
+    }
+    __syncwarp();
+#pragma unroll
+    for (int i = 0; i < kRowsPerWarp * kChunks / 32; ++i) {
+        const int r = warp * kRowsPerWarp + i * 4 + (lane >> 3), c = lane & 7;
+        const int t = q0 + r;
+        if (t < T)
+            *reinterpret_cast<uint4*>(out + ((b * T + t) * H + h) * kHd + c * 8) =
+                *reinterpret_cast<const uint4*>(sm.q + swz(r, c));
     }
 }
 
@@ -174,19 +280,17 @@ extern "C" int wl_fused_attention(const void* q, const void* k, const void* v, v
                                   long long ksb, long long kst, long long ksh,
                                   long long vsb, long long vst, long long vsh,
                                   float scale, void* stream) {
-    static bool smem_set = false;
-    if (!smem_set) {
-        const cudaError_t err = cudaFuncSetAttribute(
+    if constexpr (sizeof(Smem) > 48 * 1024) {
+        static const cudaError_t attr = cudaFuncSetAttribute(
             fused_attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
             static_cast<int>(sizeof(Smem)));
-        if (err != cudaSuccess) return static_cast<int>(err);
-        smem_set = true;
+        if (attr != cudaSuccess) return static_cast<int>(attr);
     }
-    const dim3 grid(B * H, (T + kBq - 1) / kBq);
+    const dim3 grid((T + kBq - 1) / kBq, B * H);
     fused_attention_kernel<<<grid, kThreads, sizeof(Smem),
                              static_cast<cudaStream_t>(stream)>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k),
         static_cast<const bf16*>(v), static_cast<bf16*>(out), T, H,
-        qsb, qst, qsh, ksb, kst, ksh, vsb, vst, vsh, scale);
+        qsb, qst, qsh, ksb, kst, ksh, vsb, vst, vsh, scale * kLog2e);
     return static_cast<int>(cudaGetLastError());
 }
