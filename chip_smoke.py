@@ -8,7 +8,7 @@ a result):
 1. Require CUDA; print the card's name and power limit (nvidia-smi).
 2. Build the seven CUDA sources of whisperlive_tpu_torch/csrc with nvcc
    (one process per source, in parallel): nine kernel entry points. Print
-   what `nvcc -Xptxas -v` reports for K1 (registers, spills).
+   what `nvcc -Xptxas -v` reports for K1 and K2 (registers, spills).
 3. Hold each kernel against its plain PyTorch version on the card at the
    serving paths' shapes (large-v3) in bf16, with the stated tolerance,
    and time both (CUDA events, median of 20 runs of 10 calls), plus one
@@ -18,7 +18,12 @@ a result):
    its entry carries those shapes in `other_shapes`, each with its ratio
    to scaled_dot_product_attention (`sdpa_ratio`). K2 and K3 at the
    window batch's M=4 and the continuous pool's M=8 (each kernel's entry
-   reports the pool's shape); K5 at [8,20,64] x
+   reports the pool's shape). K2 is also timed cold (rotating over
+   distinct weight copies that exceed the L2) at each of those shapes and
+   at prefill M=64, and over a decode-step sweep (the 256 K2 calls of one
+   large-v3 step at M=8, 32 layers of distinct weights), each beside
+   torch.matmul on the weights dequantized to bf16 (`bf16_gemm_ms`); its
+   entry carries them as `cold` and `step_sweep`. K5 at [8,20,64] x
    [8,20,640,128] with mixed lengths, half the rows active and an active
    row of length 0, and timed at 8/8, 4/8 and 1/8 rows active. The
    speculative verify's kernels at k=4 (a window of 5 queries): K6 at
@@ -37,7 +42,7 @@ a result):
    TranscriptionServer connection handler on an in-process websocket.
 5. Serve the continuous path on the same engine: ContinuousScheduler
    (8 slots, 8 steps per chunk, cross cap 640, encoder buckets 512 and
-   1500) behind TorchBackend; three ~8 s streaming sessions, the third
+   1500) behind TorchBackend; three ~10 s streaming sessions, the third
    joining 2 s late so that a window joins a running decode, one with the
    VAD gate off.
 6. Serve the three speculative routes with a random distil-large-v3 draft
@@ -102,7 +107,9 @@ MAX_NEW_TOKENS = 48
 # call (up to ~5 s on a busy host: one 48-token window) done before the
 # audio ends: 8 s leaves room where 5 s did not.
 WINDOW_SESSION_S = 8.0
-CONT_SESSION_S = 8.0
+# The same holds for the continuous path's late session (2 s shorter),
+# whose first call took up to ~6 s on a busy host: 10 s leaves it room.
+CONT_SESSION_S = 10.0
 CONT_SLOTS = 8
 FRAME_S = 0.5
 DRAFT_MODEL = "distil-large-v3"
@@ -193,12 +200,13 @@ class VisibleTokenizer(WhisperTokenizer):
 # ---------------------------------------------------------------------------
 
 
-def median_ms(fn, warmup: int = 3, iters: int = 20, reps: int = 10) -> float:
+def median_ms(fn, warmup: int = 3, iters: int = 20, reps: int = 10,
+              spin_cycles: int = 20_000_000) -> float:
     """Device time of one call: the median over `iters` samples of a run of
     `reps` calls between two CUDA events. Each run is queued behind a
-    ~10 ms spin kernel so that the host has enqueued every call before the
-    first starts; the events then bound device work only, not the Python
-    and launch overhead of a single call."""
+    spin kernel (~10 ms by default) so that the host has enqueued every
+    call before the first starts; the events then bound device work only,
+    not the Python and launch overhead of a single call."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -206,7 +214,7 @@ def median_ms(fn, warmup: int = 3, iters: int = 20, reps: int = 10) -> float:
     for _ in range(iters):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(20_000_000)  # GPU cycles
+        torch.cuda._sleep(spin_cycles)  # GPU cycles
         start.record()
         for _ in range(reps):
             fn()
@@ -239,9 +247,9 @@ def bound(n_bytes: float, n_flops: float) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
-def library_time(name: str, fn) -> float | None:
-    """Time one PyTorch call computing the same function; None where this
-    PyTorch has no CUDA implementation of it."""
+def library_time(name: str, fn, **timing) -> float | None:
+    """Time one PyTorch call computing the same function (median_ms with
+    `timing`); None where this PyTorch has no CUDA implementation of it."""
     try:
         fn()
         torch.cuda.synchronize()
@@ -249,7 +257,7 @@ def library_time(name: str, fn) -> float | None:
         log(f"{name}: library call unavailable here ({type(e).__name__}: "
             f"{str(e).splitlines()[0][:120]})")
         return None
-    return median_ms(fn)
+    return median_ms(fn, **timing)
 
 
 def compare(name, shape, kernel_fn, ref_fn, rel_tol, rows=None, per_row=False):
@@ -287,18 +295,158 @@ def compare(name, shape, kernel_fn, ref_fn, rel_tol, rows=None, per_row=False):
     return {"shape": shape, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
 
 
-def kernel_phase(dev: torch.device) -> dict:
-    cfg = wmod.WHISPER_CONFIGS[MODEL]
-    gen = torch.Generator(device=dev).manual_seed(SEED)
-    h, hd, t_enc, d = cfg.n_audio_head, cfg.head_dim, cfg.n_audio_ctx, cfg.n_text_state
-    sdpa = torch.nn.functional.scaled_dot_product_attention
+def k2_shapes(d: int) -> list[tuple[int, int, int]]:
+    """(M, K, N) of K2's checks: every decoder linear (q, k, v, o and the
+    cross q and o at d x d, fc1 d x 4d, fc2 4d x d) at the window path's
+    decode M=B and the continuous pool's M=CONT_SLOTS, then prefill M=B*16."""
+    decode = ((d, d), (d, 4 * d), (4 * d, d))
+    return ([(BATCH, kk, n) for kk, n in decode] + [(CONT_SLOTS, kk, n) for kk, n in decode]
+            + [(BATCH * 16, d, 4 * d)])
+
+
+def k2_bound(m: int, kk: int, n: int) -> dict:
+    return bound(m * kk * 2 + kk * n + n * 2 + m * n * 2, 2 * m * kk * n)
+
+
+def k2_phase(randn, int8, d: int) -> list[dict]:
+    """K2 against its plain version at k2_shapes, times warm (the same
+    weights call after call, so they sit in the L2). bf16 output, f32 sums
+    in another order: 2^-7 of max|ref|."""
+    k2 = []
+    for m, kk, n in k2_shapes(d):
+        x, w8, s = randn(m, kk), int8(kk, n), randn(n, scale=0.01).abs()
+        r = compare(
+            "int8_matmul", f"x [{m},{kk}] w8 [{kk},{n}]",
+            lambda x=x, w8=w8, s=s: qmm.int8_matmul(x, w8, s),
+            lambda x=x, w8=w8, s=s: qmm.int8_matmul_ref(x, w8, s), 2.0**-7)
+        w8_nk = w8.t().contiguous()  # the library call's [N, K] layout, made once
+        r["library_ms"] = library_time(
+            "_weight_int8pack_mm", lambda x=x, w=w8_nk, s=s: torch._weight_int8pack_mm(x, w, s))
+        r.update(k2_bound(m, kk, n))
+        log(f"int8_matmul [{m},{kk}]x[{kk},{n}]: library (_weight_int8pack_mm) "
+            f"{r['library_ms']} ms, bound {r['bound_ms']:.6g} ms ({r['bound_by']})")
+        k2.append(r)
+    return k2
+
+
+# Cold-weight timings rotate over distinct weight copies that together
+# exceed the H100's 50 MB L2, as a decode step finds them
+COLD_BYTES = 64 << 20
+
+
+def rotating(fns):
+    """One call of each of `fns` in turn, a call per invocation."""
+    state = {"i": 0}
+
+    def call():
+        fn = fns[state["i"] % len(fns)]
+        state["i"] += 1
+        return fn()
+    return call
+
+
+def k2_cold_phase(randn, int8, d: int) -> list[dict]:
+    """K2 with cold weights at each decode shape (M=B and M=CONT_SLOTS) and
+    at prefill x [B*16, d] x [d, 4d]: a run calls K2 once on each of
+    ceil(64 MiB / weight bytes) distinct copies. Beside it, over the same
+    rotation, torch._weight_int8pack_mm (K2's function; its [N, K] copies)
+    and, as `bf16_gemm_ms`, torch.matmul of x with the weights dequantized
+    to bf16 beforehand (twice the bytes; not K2's function, the port never
+    calls it)."""
+    out = []
+    for m, kk, n in k2_shapes(d):
+        copies = -(-COLD_BYTES // (kk * n))
+        x, s = randn(m, kk), randn(n, scale=0.01).abs()
+        w8s = [int8(kk, n) for _ in range(copies)]
+        ms = median_ms(rotating([lambda w=w: qmm.int8_matmul(x, w, s) for w in w8s]),
+                       iters=10, reps=copies)
+        packed = [w.t().contiguous() for w in w8s]
+        lib = library_time("_weight_int8pack_mm", rotating(
+            [lambda w=w: torch._weight_int8pack_mm(x, w, s) for w in packed]), iters=10,
+            reps=copies)
+        del packed
+        wbf = [w.to(torch.bfloat16) for w in w8s]
+        gemm = median_ms(rotating([lambda w=w: torch.matmul(x, w) for w in wbf]), iters=10,
+                         reps=copies)
+        del wbf, w8s
+        r = {"shape": f"x [{m},{kk}] w8 [{kk},{n}]", "copies": copies, "ms": ms,
+             "library_ms": lib, "bf16_gemm_ms": gemm, **k2_bound(m, kk, n)}
+        r["bound_share"] = r["bound_ms"] / ms
+        log(f"int8_matmul cold {r['shape']} ({copies} weight copies): {ms:.6g} ms, bound "
+            f"{r['bound_ms']:.6g} ms ({r['bound_by']}), bound share {r['bound_share']:.6g}, "
+            f"_weight_int8pack_mm {lib} ms, bf16_gemm {gemm:.6g} ms")
+        out.append(r)
+    torch.cuda.empty_cache()
+    return out
+
+
+def step_sweep_calls(randn, int8, cfg) -> list[tuple]:
+    """(x, w8, s) of the K2 calls of one decode step at the continuous
+    pool's M, in layer order over n_text_layer layers of distinct weights:
+    per layer the self-attention q, k, v, o, the cross-attention q and o
+    (d x d), fc1 (d x 4d) and fc2 (4d x d); the cross k and v are projected
+    once per window, not per step."""
+    d = cfg.n_text_state
+    shapes = [(d, d)] * 6 + [(d, 4 * d), (4 * d, d)]
+    xs = {kk: randn(CONT_SLOTS, kk) for kk in (d, 4 * d)}
+    return [(xs[kk], int8(kk, n), randn(n, scale=0.01).abs())
+            for _ in range(cfg.n_text_layer) for kk, n in shapes]
+
+
+def k2_step_sweep(randn, int8, cfg) -> dict:
+    """The K2 launches of one decode step (step_sweep_calls): device time
+    per step (median of 10 runs, each queued behind a ~30 ms spin) against
+    the step's byte bound, and the same products as torch.matmul on the
+    weights dequantized to bf16 (`bf16_gemm_ms`, twice the bytes; the port
+    never calls it)."""
+    m = CONT_SLOTS
+    calls = step_sweep_calls(randn, int8, cfg)
+    n_calls = len(calls)
+    w_bytes = sum(w.numel() for _, w, _ in calls)
+    n_bytes = sum(m * w.shape[0] * 2 + w.numel() + w.shape[1] * (2 + m * 2) for _, w, _ in calls)
+    n_flops = sum(2 * m * w.numel() for _, w, _ in calls)
+
+    def step():
+        for x, w, s in calls:
+            qmm.int8_matmul(x, w, s)
+    ms = median_ms(step, warmup=2, iters=10, reps=1, spin_cycles=60_000_000)
+    wbf = [(x, w.to(torch.bfloat16)) for x, w, _ in calls]
+    del calls
+
+    def step_bf16():
+        for x, w in wbf:
+            torch.matmul(x, w)
+    gemm = median_ms(step_bf16, warmup=2, iters=10, reps=1, spin_cycles=60_000_000)
+    del wbf
+    torch.cuda.empty_cache()
+    r = {"calls": n_calls, "m": m, "weight_bytes": w_bytes, "ms": ms,
+         "bf16_gemm_ms": gemm, **bound(n_bytes, n_flops)}
+    r["bound_share"] = r["bound_ms"] / ms
+    log(f"int8_matmul step sweep: {r['calls']} calls at M={m} over {w_bytes / 1e6:.6g} MB of "
+        f"int8 weights: {ms * 1e3:.6g} us per step, bound {r['bound_ms'] * 1e3:.6g} us "
+        f"({r['bound_by']}), bound share {r['bound_share']:.6g}, bf16_gemm "
+        f"{gemm * 1e3:.6g} us")
+    return r
+
+
+def random_makers(dev: torch.device, seed: int):
+    """randn(*shape, scale) -> bf16 and int8(*shape) -> codes in [-127, 127],
+    drawn on the card from one generator seeded with `seed`."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
 
     def randn(*shape, scale=1.0):
         return (torch.randn(shape, generator=gen, device=dev) * scale).to(torch.bfloat16)
 
     def int8(*shape):
         return torch.randint(-127, 128, shape, generator=gen, device=dev, dtype=torch.int8)
+    return randn, int8
 
+
+def kernel_phase(dev: torch.device) -> dict:
+    cfg = wmod.WHISPER_CONFIGS[MODEL]
+    h, hd, t_enc, d = cfg.n_audio_head, cfg.head_dim, cfg.n_audio_ctx, cfg.n_text_state
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    randn, int8 = random_makers(dev, SEED)
     results = {}
     # K1: encoder self-attention, bf16 output; flash (unnormalised bf16
     # probabilities) vs two-pass softmax round differently: 2^-6 of max|ref|.
@@ -327,29 +475,12 @@ def kernel_phase(dev: torch.device) -> dict:
     results["fused_attention"] = dict(
         k1[0], max_abs_err=max(r["max_abs_err"] for r in k1), other_shapes=k1[1:])
 
-    # K2: decoder linears at the window path's decode M=B, the continuous
-    # pool's M=CONT_SLOTS (the kernel's second 4-row M tile) and prefill
-    # M=B*16; bf16 output, f32 sums in another order: 2^-7 of max|ref|
-    k2 = []
-    decode_shapes = ((d, d), (d, 4 * d), (4 * d, d))
-    for m, kk, n in ([(BATCH, kk, n) for kk, n in decode_shapes]
-                     + [(CONT_SLOTS, kk, n) for kk, n in decode_shapes]
-                     + [(BATCH * 16, d, 4 * d)]):
-        x, w8, s = randn(m, kk), int8(kk, n), randn(n, scale=0.01).abs()
-        r = compare(
-            "int8_matmul", f"x [{m},{kk}] w8 [{kk},{n}]",
-            lambda x=x, w8=w8, s=s: qmm.int8_matmul(x, w8, s),
-            lambda x=x, w8=w8, s=s: qmm.int8_matmul_ref(x, w8, s), 2.0**-7)
-        w8_nk = w8.t().contiguous()  # the library call's [N, K] layout, made once
-        r["library_ms"] = library_time(
-            "_weight_int8pack_mm", lambda x=x, w=w8_nk, s=s: torch._weight_int8pack_mm(x, w, s))
-        r.update(bound(m * kk * 2 + kk * n + n * 2 + m * n * 2, 2 * m * kk * n))
-        log(f"int8_matmul [{m},{kk}]x[{kk},{n}]: library (_weight_int8pack_mm) "
-            f"{r['library_ms']} ms, bound {r['bound_ms']:.6g} ms ({r['bound_by']})")
-        k2.append(r)
+    k2 = k2_phase(randn, int8, d)
     # the entry reports the continuous pool's decode fc1 shape (the main
     # path's) and the worst error over every shape
-    results["int8_matmul"] = dict(k2[4], max_abs_err=max(r["max_abs_err"] for r in k2))
+    results["int8_matmul"] = dict(k2[4], max_abs_err=max(r["max_abs_err"] for r in k2),
+                                  cold=k2_cold_phase(randn, int8, d), step_sweep=k2_step_sweep(
+                                      randn, int8, cfg))
 
     # K3: tied-embedding logits at the window path's M=B and the continuous
     # pool's M=CONT_SLOTS; f32 output and f32 sums: 1e-5 of max|ref|
@@ -1298,13 +1429,34 @@ def teacher_logits(engine: WhisperEngine, cross: dict, prompt: list[int], sot: i
     return out
 
 
+def timestamp_rule_gap(engine: WhisperEngine, opts: TranscribeOptions, logits: torch.Tensor,
+                       prev: list[int]) -> float:
+    """|log-mass of the timestamps the decoder may emit after `prev` - the
+    best text logit it may emit|: the margin of the rule that forces a
+    timestamp (ops/decoding.py apply_logit_rules). After text, the
+    timestamps it may emit are those above the last one. Where other rules
+    alone decide (the first token must be a timestamp; after a timestamp
+    the pairing rule suppresses text or timestamps), the margin decides
+    nothing and is infinite."""
+    tb = engine.spec.timestamp_begin
+    if not prev or prev[-1] >= tb:
+        return float("inf")
+    allowed = ~engine.suppress_mask_for(opts)
+    allowed[tb - 1] = False  # the no-timestamps token
+    stamps = [t for t in prev if t >= tb]
+    if stamps:
+        allowed[tb:stamps[-1] + 1] = False
+    ts_mass = torch.logsumexp(logits[tb:][allowed[tb:]], 0)
+    return abs(ts_mass - logits[:tb][allowed[:tb]].max()).item()
+
+
 def spec_reference(engine: WhisperEngine, draft: WhisperEngine, err: float) -> None:
     """One speculative greedy decode against the plain greedy decode of the
     same window. On the card the verify (K6) and the plain steps (K4) sum in
     other orders, so the tokens must agree up to a tie: at the first token
     that differs, the two candidates' plain logits (or, for the timestamp
-    rule, the timestamp log-mass and the best text logit) lie within twice
-    the verify's measured error."""
+    rule, the log-mass of the timestamps the rules allow and the best
+    allowed text logit) lie within twice the verify's measured error."""
     spec = SpeculativeDecoder(engine, draft, k=SPEC_K)
     audio = np.zeros((1, 480000), np.float32)
     audio[0, :112000] = speech_like(7.0, 40)
@@ -1328,8 +1480,7 @@ def spec_reference(engine: WhisperEngine, draft: WhisperEngine, err: float) -> N
         return
     logits = teacher_logits(engine, cross, prompt, sot, q[: i + 1])[i].float()
     gap = abs(logits[s[i]] - logits[q[i]]).item()
-    tb = engine.spec.timestamp_begin
-    ts_gap = abs(torch.logsumexp(logits[tb:], 0) - logits[:eot].max()).item()
+    ts_gap = timestamp_rule_gap(engine, opts, logits, q[:i])
     log(f"reference: speculative and plain tokens first differ at {i} ({s[i]} vs {q[i]}): "
         f"plain-logit gap {gap:.6g}, timestamp-rule gap {ts_gap:.6g}, tie bound {2 * err:.6g}")
     check(min(gap, ts_gap) <= 2 * err,
@@ -1355,14 +1506,16 @@ def main() -> int:
     t0 = time.monotonic()
     _kernels.library()
     log(f"kernel build + load: {time.monotonic() - t0:.6g} s ({_kernels.library_path().name})")
-    k1_ptxas = ptxas_usage("fused_attention")
+    k1_ptxas, k2_ptxas = ptxas_usage("fused_attention"), ptxas_usage("int8_matmul")
     log(f"fused_attention.cu, nvcc -Xptxas -v: {k1_ptxas}")
+    log(f"int8_matmul.cu, nvcc -Xptxas -v: {k2_ptxas}")
 
     from whisperlive_tpu_torch.device import resolve_device
 
     resolve_device(dev)  # the engine's numerics policy (TF32 off)
     measured = kernel_phase(dev)
     measured["fused_attention"]["ptxas"] = k1_ptxas
+    measured["int8_matmul"]["ptxas"] = k2_ptxas
     # the int8 engine serves phases 4-6, an int4 engine built from the same
     # parameters the mixed route; each has a distil-large-v3 draft of its
     # cross-KV width (random weights from SEED + 1)

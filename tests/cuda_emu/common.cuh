@@ -1,17 +1,23 @@
 // A CPU stand-in for csrc/common.cuh and the CUDA headers, so that a kernel
-// source of csrc/ compiles with g++ (C++17) and runs on the CPU. CTAs run one
-// after another; a CTA's threads are coroutines (ucontext) on one OS thread,
-// scheduled in turn, so runs are deterministic. __syncthreads is a barrier
-// of the CTA's threads, and the warp collectives (shuffles, ldmatrix,
-// mma.sync) exchange values through per-warp slots between two barriers of
-// the warp. A barrier that can never complete aborts as a deadlock.
-// cp.async copies are held per thread and land at the wait_group that
-// retires their group (or at once, with emu::eager_copies), so a read that
-// misses its wait sees the NaN that fills shared memory at each CTA's start.
-// Every ldmatrix counts its bank conflicts; a copy's source must lie in a
-// range registered with emu::add_global. Only what the kernels here use
-// is defined. A launch `k<<<grid, block, smem, stream>>>(args)` must be
-// rewritten to `emu_launch(k, grid, block, smem, stream, args)` first.
+// source of csrc/ compiles with g++ (C++17) and runs on the CPU. Clusters
+// of CTAs (one CTA each, unless the launch asks for more) run one after
+// another, in launch order (x fastest) or, with emu::reverse_ctas, in the
+// reverse order; the threads of a cluster's CTAs are coroutines (ucontext)
+// on one OS thread, scheduled in turn, so runs are deterministic.
+// __syncthreads is a barrier of the CTA's threads, cluster_sync one of the
+// cluster's, and the warp collectives (shuffles, ldmatrix, mma.sync)
+// exchange values through per-warp slots between two barriers of the warp.
+// A barrier that can never complete aborts as a deadlock. Each CTA has its
+// own shared memory, filled with NaN at the cluster's start and again when
+// the CTA exits; a read of another CTA's through the cluster helpers lands
+// in the same offset of its memory. cp.async copies are held per thread and land at the wait_group
+// that retires their group (or at once, with emu::eager_copies), so a read
+// that misses its wait sees that NaN. Every ldmatrix counts its bank
+// conflicts; a copy's source must lie in a range registered with
+// emu::add_global. Only what the kernels here use is defined. A launch
+// `k<<<grid, block, smem, stream>>>(args)` must be rewritten to
+// `emu_launch(k, grid, block, smem, stream, args)` first; cudaLaunchKernelEx
+// runs as it is.
 #pragma once
 #include <ucontext.h>
 
@@ -21,7 +27,9 @@
 #include <cstdio>
 #include <cstdlib>
 #include <cstring>
+#include <algorithm>
 #include <functional>
+#include <memory>
 #include <vector>
 
 #define __global__
@@ -38,16 +46,36 @@ struct dim3 {
     dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
 };
 struct uint3e { unsigned x, y, z; };
-inline uint3e blockIdx, blockDim, gridDim;
+inline uint3e blockDim, gridDim;
 
 struct alignas(16) uint4 { unsigned x, y, z, w; };
 inline uint4 make_uint4(unsigned a, unsigned b, unsigned c, unsigned d) { return {a, b, c, d}; }
+struct alignas(8) uint2 { unsigned x, y; };
+inline uint2 make_uint2(unsigned a, unsigned b) { return {a, b}; }
+struct alignas(8) float2 { float x, y; };
+inline float2 make_float2(float a, float b) { return {a, b}; }
+struct alignas(16) float4 { float x, y, z, w; };
+using std::max;
+using std::min;
 
 typedef struct CUstream_st* cudaStream_t;
 typedef int cudaError_t;
 constexpr int cudaSuccess = 0;
+constexpr int cudaErrorInvalidValue = 1;
 constexpr int cudaFuncAttributeMaxDynamicSharedMemorySize = 8;
 template <class F> inline cudaError_t cudaFuncSetAttribute(F, int, int) { return 0; }
+constexpr int cudaLaunchAttributeClusterDimension = 4;
+struct cudaLaunchAttributeValue {
+    struct { unsigned x, y, z; } clusterDim;
+};
+struct cudaLaunchAttribute { int id; cudaLaunchAttributeValue val; };
+struct cudaLaunchConfig_t {
+    dim3 gridDim, blockDim;
+    size_t dynamicSmemBytes;
+    cudaStream_t stream;
+    cudaLaunchAttribute* attrs;
+    unsigned numAttrs;
+};
 inline cudaError_t cudaGetLastError() { return 0; }
 
 struct __nv_bfloat16 { uint16_t u; };
@@ -68,30 +96,46 @@ inline __nv_bfloat16 __float2bfloat16(float f) { return {f2bf(f)}; }
 inline float __bfloat162float(__nv_bfloat16 h) { return bf2f(h.u); }
 inline __nv_bfloat162 __floats2bfloat162_rn(float a, float b) { return {{f2bf(a)}, {f2bf(b)}}; }
 
+// Integer and bit intrinsics. __byte_perm(x, y, s): byte i of the result is
+// byte (s >> 4i) & 7 of the eight bytes y:x (x holds bytes 0-3).
+inline uint32_t __byte_perm(uint32_t x, uint32_t y, uint32_t s) {
+    const uint64_t v = (uint64_t(y) << 32) | x;
+    uint32_t r = 0;
+    for (int i = 0; i < 4; ++i) r |= uint32_t((v >> (8 * ((s >> (4 * i)) & 7))) & 0xff) << (8 * i);
+    return r;
+}
+inline float __uint_as_float(uint32_t u) { float f; std::memcpy(&f, &u, 4); return f; }
+inline uint32_t __float_as_uint(float f) { uint32_t u; std::memcpy(&u, &f, 4); return u; }
+
 // ---- emulator state ----
 namespace emu {
-constexpr int kMaxWarps = 32;
+constexpr int kMaxCtas = 8;                  // CTAs in a cluster
+constexpr int kMaxWarps = 32 * kMaxCtas;     // warps in a cluster
+constexpr size_t kSmemPerCta = 64 * 1024;
 constexpr size_t kStack = 256 * 1024;
 struct Copy { void* dst; const void* src; bool valid; };
 struct Thread {
     ucontext_t ctx;
-    std::vector<char> stack;
-    uint3e idx{};
+    std::unique_ptr<char[]> stack;
+    uint3e idx{}, block{};
+    int cta = 0;  // rank of its CTA in the cluster
     bool done = false, waiting = false;
     std::vector<std::vector<Copy>> groups;
     std::vector<Copy> open_group;
 };
-inline std::vector<Thread> threads;
+inline std::vector<Thread> threads;  // a cluster's, CTA by CTA
 inline Thread* cur = nullptr;
 inline ucontext_t scheduler;
 inline std::function<void()> body;
-inline int warp_arrived[kMaxWarps], cta_arrived;
+inline int warp_arrived[kMaxWarps], cta_arrived[kMaxCtas], cluster_arrived;
 inline const void* x_ptr[kMaxWarps][32];
 inline uint32_t x_u[kMaxWarps][32][6];
 inline float x_f[kMaxWarps][32];
-inline unsigned char* smem_base; inline size_t smem_size;
+alignas(128) inline unsigned char smem_buf[kMaxCtas][kSmemPerCta];
+inline size_t smem_size;
 inline long bank_conflicts = 0, ldmatrix_calls = 0;
 inline bool eager_copies = false;
+inline bool reverse_ctas = false;
 inline std::vector<std::pair<const unsigned char*, size_t>> globals;
 inline void add_global(const void* p, size_t n) {
     globals.emplace_back(static_cast<const unsigned char*>(p), n);
@@ -103,7 +147,9 @@ inline void check_global(const void* p, size_t n) {
     fprintf(stderr, "global read out of bounds\n");
     abort();
 }
-inline int warp() { return cur->idx.x >> 5; }
+inline unsigned char* cta_smem() { return smem_buf[cur->cta]; }
+// warp of the current thread among the cluster's warps
+inline int warp() { return (cur->cta * static_cast<int>(blockDim.x) + cur->idx.x) >> 5; }
 inline int lane() { return cur->idx.x & 31; }
 // Arrive at a barrier of threads [first, first + n) and wait for the rest.
 inline void barrier(int& arrived, int first, int n) {
@@ -117,16 +163,20 @@ inline void barrier(int& arrived, int first, int n) {
 inline void wsync() { barrier(warp_arrived[warp()], warp() * 32, 32); }
 inline void check_smem(const void* p, size_t n) {
     auto c = static_cast<const unsigned char*>(p);
-    if (c < smem_base || c + n > smem_base + smem_size) { fprintf(stderr, "smem OOB\n"); abort(); }
+    if (c < cta_smem() || c + n > cta_smem() + smem_size) {
+        fprintf(stderr, "smem OOB\n");
+        abort();
+    }
 }
 inline void do_copy(const Copy& c) {
     if (c.valid) std::memcpy(c.dst, c.src, 16); else std::memset(c.dst, 0, 16);
 }
-// How a CTA's threads take turns: kRoundRobin resumes each in turn, so the
-// warps keep in step; kFirstWarpAhead always resumes the lowest-numbered
-// thread that can run, and kLastWarpAhead the highest, so one warp runs as
-// far ahead of the others as the barriers allow (a missing barrier then
-// lets it overwrite, or read, shared memory that another warp still needs).
+// How a cluster's threads take turns: kRoundRobin resumes each in turn, so
+// the warps keep in step; kFirstWarpAhead always resumes the
+// lowest-numbered thread that can run, and kLastWarpAhead the highest, so
+// one warp runs as far ahead of the others as the barriers allow (a missing
+// barrier then lets it overwrite, or read, shared memory that another warp
+// still needs).
 enum Schedule { kRoundRobin, kFirstWarpAhead, kLastWarpAhead };
 inline Schedule schedule = kRoundRobin;
 
@@ -135,7 +185,7 @@ inline void resume(Thread& th) {
     swapcontext(&scheduler, &th.ctx);
 }
 
-inline void run_cta() {
+inline void run_cluster() {
     const int n = static_cast<int>(threads.size());
     for (;;) {
         int left = 0, ran = 0;
@@ -163,13 +213,24 @@ inline void run_cta() {
 inline void trampoline() {
     body();
     cur->done = true;
+    // a CTA that has exited leaves NaN behind for the cluster's late readers
+    const int n = static_cast<int>(blockDim.x), first = cur->cta * n;
+    bool cta_done = true;
+    for (int i = first; i < first + n; ++i) cta_done = cta_done && threads[i].done;
+    if (cta_done) std::memset(smem_buf[cur->cta], 0xff, smem_size);
     swapcontext(&cur->ctx, &scheduler);
 }
 }  // namespace emu
 
 #define threadIdx (emu::cur->idx)
+#define blockIdx (emu::cur->block)
+// the dynamic shared memory of the current thread's CTA
+#define emu_smem (emu::cta_smem())
 
-inline void __syncthreads() { emu::barrier(emu::cta_arrived, 0, static_cast<int>(blockDim.x)); }
+inline void __syncthreads() {
+    const int n = static_cast<int>(blockDim.x);
+    emu::barrier(emu::cta_arrived[emu::cur->cta], emu::cur->cta * n, n);
+}
 inline void __syncwarp() { emu::wsync(); }
 inline float __shfl_xor_sync(unsigned, float v, int m) {
     const int w = emu::warp(), l = emu::lane();
@@ -274,47 +335,91 @@ inline void mma_bf16_16816(float d[4], const uint32_t a[4], uint32_t b0, uint32_
         d[e] = acc;
     }
 }
+inline uint32_t cluster_rank() { return static_cast<uint32_t>(emu::cur->cta); }
+inline void cluster_sync() {
+    emu::barrier(emu::cluster_arrived, 0, static_cast<int>(emu::threads.size()));
+}
+inline float4 ld_shared_cluster_f4(const void* p, uint32_t rank) {
+    emu::check_smem(p, 16);
+    const size_t off = static_cast<const unsigned char*>(p) - emu::cta_smem();
+    if (rank * blockDim.x >= emu::threads.size() || off % 16) {
+        fprintf(stderr, "bad distributed shared memory read\n");
+        abort();
+    }
+    float4 v;
+    std::memcpy(&v, emu::smem_buf[rank] + off, 16);
+    return v;
+}
 inline float exp2_approx(float x) { return exp2f(x); }
 inline uint32_t pack_bf16x2(float lo, float hi) {
     return f2bf(lo) | (uint32_t(f2bf(hi)) << 16);
 }
 }  // namespace wl
 
-alignas(128) inline unsigned char emu_smem[256 * 1024];
-
-// kernel<<<grid, block, smem, stream>>>(args...) is rewritten to this.
+// A launch of clusters of `cluster` CTAs; kernel<<<grid, block, smem,
+// stream>>>(args...) is rewritten to emu_launch, a launch of one-CTA
+// clusters.
 template <class K, class... A>
-void emu_launch(K kernel, dim3 grid, dim3 block, size_t smem, cudaStream_t, A... args) {
-    emu::smem_base = emu_smem;
-    emu::smem_size = smem;
-    if (smem > sizeof(emu_smem) || block.x % 32 || block.x > 32 * emu::kMaxWarps) {
+void emu_launch_clusters(K kernel, dim3 grid, dim3 block, size_t smem, dim3 cluster, A... args) {
+    const unsigned per_cluster = cluster.x * cluster.y * cluster.z;
+    if (smem > emu::kSmemPerCta || block.x % 32 || block.x * per_cluster > 32 * emu::kMaxWarps ||
+        per_cluster > emu::kMaxCtas || grid.x % cluster.x || grid.y % cluster.y ||
+        grid.z % cluster.z) {
         fprintf(stderr, "launch refused\n");
         abort();
     }
+    emu::smem_size = smem;
     blockDim = {block.x, 1, 1};
-    gridDim = {grid.x, grid.y, 1};
+    gridDim = {grid.x, grid.y, grid.z};
     emu::body = [&] { kernel(args...); };
-    for (unsigned by = 0; by < grid.y; ++by) {
-        for (unsigned bx = 0; bx < grid.x; ++bx) {
-            blockIdx = {bx, by, 0};
-            std::memset(emu_smem, 0xff, smem);  // bf16 NaN everywhere
-            emu::threads.assign(block.x, {});
+    const unsigned gx = grid.x / cluster.x, gy = grid.y / cluster.y;
+    const unsigned n_clusters = gx * gy * (grid.z / cluster.z);
+    for (unsigned i = 0; i < n_clusters; ++i) {
+        const unsigned c = emu::reverse_ctas ? n_clusters - 1 - i : i;
+        const uint3e origin{c % gx * cluster.x, c / gx % gy * cluster.y, c / (gx * gy) * cluster.z};
+        emu::threads.clear();
+        emu::threads.resize(per_cluster * block.x);
+        for (unsigned r = 0; r < per_cluster; ++r) {
+            std::memset(emu::smem_buf[r], 0xff, smem);  // bf16 NaN everywhere
+            const uint3e b{origin.x + r % cluster.x, origin.y + r / cluster.x % cluster.y,
+                           origin.z + r / (cluster.x * cluster.y)};
             for (unsigned t = 0; t < block.x; ++t) {
-                emu::Thread& th = emu::threads[t];
+                emu::Thread& th = emu::threads[r * block.x + t];
                 th.idx = {t, 0, 0};
-                th.stack.resize(emu::kStack);
+                th.block = b;
+                th.cta = static_cast<int>(r);
+                th.stack.reset(new char[emu::kStack]);
                 getcontext(&th.ctx);
-                th.ctx.uc_stack.ss_sp = th.stack.data();
-                th.ctx.uc_stack.ss_size = th.stack.size();
+                th.ctx.uc_stack.ss_sp = th.stack.get();
+                th.ctx.uc_stack.ss_size = emu::kStack;
                 th.ctx.uc_link = nullptr;
                 makecontext(&th.ctx, emu::trampoline, 0);
             }
-            emu::run_cta();
-            for (auto& th : emu::threads) {
-                for (auto& g : th.groups)
-                    if (!g.empty()) { fprintf(stderr, "copies pending at exit\n"); abort(); }
-                if (!th.open_group.empty()) { fprintf(stderr, "uncommitted copies\n"); abort(); }
-            }
+        }
+        emu::run_cluster();
+        for (auto& th : emu::threads) {
+            for (auto& g : th.groups)
+                if (!g.empty()) { fprintf(stderr, "copies pending at exit\n"); abort(); }
+            if (!th.open_group.empty()) { fprintf(stderr, "uncommitted copies\n"); abort(); }
         }
     }
+}
+
+template <class K, class... A>
+void emu_launch(K kernel, dim3 grid, dim3 block, size_t smem, cudaStream_t, A... args) {
+    emu_launch_clusters(kernel, grid, block, smem, dim3(1, 1, 1), args...);
+}
+
+template <class... P, class... A>
+cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* config, void (*kernel)(P...),
+                               A... args) {
+    dim3 cluster(1, 1, 1);
+    for (unsigned i = 0; i < config->numAttrs; ++i)
+        if (config->attrs[i].id == cudaLaunchAttributeClusterDimension) {
+            const auto& d = config->attrs[i].val.clusterDim;
+            cluster = dim3(d.x, d.y, d.z);
+        }
+    emu_launch_clusters(kernel, config->gridDim, config->blockDim, config->dynamicSmemBytes,
+                        cluster, static_cast<P>(args)...);
+    return cudaSuccess;
 }

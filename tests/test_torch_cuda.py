@@ -86,15 +86,49 @@ def test_fused_attention_kernel_on_card(cuda_device, b, t, q_scale, strided):
     assert err <= 2.0**-6 * scale
 
 
+def _k2_inputs(m, k, n):
+    rng = np.random.default_rng(m * 7 + k + n)
+    x = _gpu(rng, (m, k))
+    w8 = torch.from_numpy(rng.integers(-127, 128, (k, n)).astype(np.int8)).cuda()
+    return x, w8, _gpu(rng, (n,), 0.01).abs()
+
+
+# K2 at large-v3's three decode shapes (the d x d linears, fc1 d x 4d, fc2
+# 4d x d) and M over the decode batches (1, 4, 8, 16), the verify window
+# (40), prefill (64, 300, 512) and the ragged n8 and 64-row tiles (7, 9,
+# 17, 65). Below 264 CTAs K is split across the CTAs of a cluster.
+K2_SHAPES = [(1280, 1280), (1280, 5120), (5120, 1280)]
+K2_ROWS = [1, 4, 7, 8, 9, 16, 17, 40, 64, 65, 300, 512]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("m", [1, 4, 64, 300, 512])
-def test_int8_matmul_kernel_on_card(cuda_device, m):
-    rng = np.random.default_rng(m)
-    x = _gpu(rng, (m, 1280))
-    w8 = torch.from_numpy(rng.integers(-127, 128, (1280, 5120)).astype(np.int8)).cuda()
-    s = _gpu(rng, (5120,), 0.01).abs()
+@pytest.mark.parametrize("k, n", K2_SHAPES)
+@pytest.mark.parametrize("m", K2_ROWS)
+def test_int8_matmul_kernel_on_card(cuda_device, m, k, n):
+    x, w8, s = _k2_inputs(m, k, n)
+    launched = _kernels.launches["int8_matmul"]
     err, scale = _err(tqmm.int8_matmul(x, w8, s), tqmm.int8_matmul_ref(x, w8, s))
+    assert _kernels.launches["int8_matmul"] == launched + 1
     assert err <= 2.0**-7 * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k, n", K2_SHAPES)
+@pytest.mark.parametrize("m", [1, 8, 40])
+def test_int8_matmul_kernel_same_bits_twice(cuda_device, m, k, n):
+    """The split over K sums its slices in a fixed order: two calls agree
+    bit for bit."""
+    x, w8, s = _k2_inputs(m, k, n)
+    first = tqmm.int8_matmul(x, w8, s)
+    assert torch.equal(first.view(torch.int16), tqmm.int8_matmul(x, w8, s).view(torch.int16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k, n", [(1280 + 32, 1280), (1280, 1280 + 16), (32, 64)])
+def test_int8_matmul_kernel_refuses_untiled_shapes(cuda_device, k, n):
+    x, w8, s = _k2_inputs(8, k, n)
+    with pytest.raises(ValueError, match="multiples of 64"):
+        tqmm.int8_matmul(x, w8, s)
 
 
 @pytest.mark.cuda

@@ -152,13 +152,14 @@ def test_random_draft_organically_trips_the_breaker():
 def test_spec_thresholds_read_from_env(monkeypatch):
     monkeypatch.setenv("WL_SPEC_BREAKEVEN", "0.4")
     monkeypatch.setenv("WL_SPEC_PROBE_S", "5")
+    monkeypatch.setenv("WL_SPEC_WARM_WINDOWS", "3")
     (_, te), (_, td) = engines(8)
     plain = tcont.ContinuousScheduler(te, n_slots=2, prompt_pad=16, ring=32)
     spec = tcont.ContinuousScheduler(te, draft_engine=td, n_slots=2, prompt_pad=16, ring=32)
     window = tsched.BatchScheduler(te)
     backend = tbackends.TorchBackend(window, continuous_scheduler=plain, spec_scheduler=spec)
     assert backend.spec_breakeven == 0.4 and backend.spec_reenable == 0.35
-    assert backend.spec_probe_s == 5.0
+    assert backend.spec_probe_s == 5.0 and backend.spec_warm_windows == 3
     monkeypatch.setenv("WL_SPEC_BREAKEVEN", "0.1")  # read once, at construction
     assert backend.spec_breakeven == 0.4
 

@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import argparse
 import logging
+import os
 
 from whisperlive_tpu_torch.models.whisper import WHISPER_CONFIGS
 
@@ -87,6 +88,13 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--spec_slots", type=int, default=8,
                         help="Device slots of the mixed mode's speculative pool (full "
                              "re-decodes only, so fewer than --continuous_slots).")
+    parser.add_argument("--raw_pcm_input", type=str, default="float32",
+                        choices=["float32", "int16", "uint8"],
+                        help="Default PCM format when clients don't specify one.")
+    parser.add_argument("--metrics_port", type=int, default=None,
+                        help="Prometheus /metrics port.")
+    parser.add_argument("--api_key", type=str, default=os.environ.get("WL_API_KEY"),
+                        help="Require 'Authorization: Bearer <key>' / ?token=.")
     parser.add_argument("--no_warmup", action="store_true",
                         help="Skip the warm-up decodes (and kernel build) at startup.")
     return parser
@@ -183,14 +191,18 @@ def main(argv=None) -> None:
 
     from whisperlive_tpu_torch.serving.server import TranscriptionServer
 
+    server = TranscriptionServer()
+    server.raw_pcm_default = args.raw_pcm_input
     try:
-        TranscriptionServer().run(
+        server.run(
             backend,
             host=args.host,
             port=args.port,
             backend_name="torch",
             max_clients=args.max_clients,
             max_connection_time=args.max_connection_time,
+            api_key=args.api_key,
+            metrics_port=args.metrics_port,
         )
     finally:
         stop_backend(backend)

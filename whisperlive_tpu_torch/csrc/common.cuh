@@ -118,6 +118,34 @@ __device__ __forceinline__ void mma_bf16_16816(float d[4], const uint32_t a[4], 
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// ---- Thread-block clusters (sm_90) ----
+
+// This CTA's rank in its cluster.
+__device__ __forceinline__ uint32_t cluster_rank() {
+    uint32_t r;
+    asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+    return r;
+}
+
+// Barrier of every thread of every CTA in the cluster: shared-memory
+// writes before it are visible to the cluster's reads after it.
+__device__ __forceinline__ void cluster_sync() {
+    asm volatile("barrier.cluster.arrive.release.aligned;\n"
+                 "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// 16 bytes at the address `p` has in this CTA's shared memory, read from
+// the shared memory of the cluster's CTA `rank` (distributed shared memory).
+__device__ __forceinline__ float4 ld_shared_cluster_f4(const void* p, uint32_t rank) {
+    uint32_t remote;
+    asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+                 : "=r"(remote) : "r"(smem_u32(p)), "r"(rank));
+    float4 v;
+    asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+                 : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w) : "r"(remote) : "memory");
+    return v;
+}
+
 // 2^x on the special-function unit with subnormal results flushed to zero
 // (ex2.approx.ftz.f32, what exp2f becomes under --use_fast_math; exp2f
 // itself adds a range check and two multiplies around it). 2 ulp.

@@ -29,6 +29,11 @@ def int8_matmul_t_ref(x: torch.Tensor, w8: torch.Tensor, s: torch.Tensor) -> tor
     return torch.matmul(x.float(), w8.float().t()) * s.float()
 
 
+# K2 (csrc/int8_matmul.cu) tiles K and N by 64: 64 k a pipeline stage,
+# 64 output columns a CTA.
+K2_TILE = 64
+
+
 def _check(x: torch.Tensor, w8: torch.Tensor, s: torch.Tensor, k: int, n: int) -> None:
     require(x.dim() == 2 and x.shape[1] == k, f"x {tuple(x.shape)} does not match K={k}")
     require(x.dtype == torch.bfloat16, f"x must be bfloat16, got {x.dtype}")
@@ -51,7 +56,8 @@ def int8_matmul(
     k, n = w8.shape
     _check(x, w8, s, k, n)
     require(out_dtype in (None, x.dtype), "the kernel writes x's dtype")
-    require(k % 8 == 0 and n % 16 == 0, f"K={k} must be a multiple of 8, N={n} of 16")
+    require(k % K2_TILE == 0 and n % K2_TILE == 0,
+            f"K={k} and N={n} must be multiples of {K2_TILE}")
     out = torch.empty((x.shape[0], n), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         _kernels.launch(

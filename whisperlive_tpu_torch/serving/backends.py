@@ -99,7 +99,7 @@ class TorchBackend:
         self.spec_breakeven = float(os.environ.get("WL_SPEC_BREAKEVEN", "0.25"))
         self.spec_reenable = float(os.environ.get("WL_SPEC_REENABLE", "0.35"))
         self.spec_probe_s = float(os.environ.get("WL_SPEC_PROBE_S", "30"))
-        self.spec_warm_windows = 16
+        self.spec_warm_windows = int(os.environ.get("WL_SPEC_WARM_WINDOWS", "16"))
         self._spec_enabled = True
         self._spec_last_probe = 0.0
         self.spec_route_stats = {
