@@ -6,9 +6,10 @@ Phases (any failure exits non-zero; without CUDA it exits 1 before printing
 a result):
 
 1. Require CUDA; print the card's name and power limit (nvidia-smi).
-2. Build the seven CUDA sources of whisperlive_tpu_torch/csrc with nvcc
+2. Build the six CUDA sources of whisperlive_tpu_torch/csrc with nvcc
    (one process per source, in parallel): nine kernel entry points. Print
-   what `nvcc -Xptxas -v` reports for K1 and K2 (registers, spills).
+   what `nvcc -Xptxas -v` reports for K1, K2 and the K4/K5 source
+   (registers, spills).
 3. Hold each kernel against its plain PyTorch version on the card at the
    serving paths' shapes (large-v3) in bf16, with the stated tolerance,
    and time both (CUDA events, median of 20 runs of 10 calls), plus one
@@ -23,9 +24,16 @@ a result):
    at prefill M=64, and over a decode-step sweep (the 256 K2 calls of one
    large-v3 step at M=8, 32 layers of distinct weights), each beside
    torch.matmul on the weights dequantized to bf16 (`bf16_gemm_ms`); its
-   entry carries them as `cold` and `step_sweep`. K5 at [8,20,64] x
-   [8,20,640,128] with mixed lengths, half the rows active and an active
-   row of length 0, and timed at 8/8, 4/8 and 1/8 rows active. The
+   entry carries them as `cold` and `step_sweep`. K4 at [B,20,64] x
+   [B,20,1500,128] for the window buckets B = 1, 2, 4 and at B = 4 with
+   lengths [1500,700,1,0]; K5 at [8,20,64] x [8,20,640,128] with mixed
+   lengths, half the rows active, an active row of length 0, lengths on
+   and past the chunk boundaries of its split over T, and 8/8, 4/8 and
+   1/8 rows active. K4 (every case) and K5 (the three occupancies) are
+   also timed cold (rotating over distinct K/V copies that exceed the L2),
+   each beside scaled_dot_product_attention at Tq = 1 on K and V
+   dequantized to bf16 (`sdpa_bf16_ms`; the port never calls it); their
+   entries carry the other cases as `other_shapes` and `cold`. The
    speculative verify's kernels at k=4 (a window of 5 queries): K6 at
    [1,20,5,64] x [1,20,1500,128] (and Tq=8, the shared-memory limit case);
    K5's window form at [8,20,5,64] x [8,20,640,128] like K5; K7 at
@@ -44,7 +52,9 @@ a result):
    (8 slots, 8 steps per chunk, cross cap 640, encoder buckets 512 and
    1500) behind TorchBackend; three ~10 s streaming sessions, the third
    joining 2 s late so that a window joins a running decode, one with the
-   VAD gate off.
+   VAD gate off. A torch.profiler window over two step chunks prints the
+   launches and device time per step, and the five largest CUDA kernels
+   and K5 by device time per step.
 6. Serve the three speculative routes with a random distil-large-v3 draft
    (seed + 1) at k=4: the window route (SpeculativeDecoder on the
    BatchScheduler, one stream of lone greedy requests) and the continuous
@@ -140,7 +150,7 @@ KERNELS = {
                       "whisperlive_tpu/ops/quant_matmul.py:40"),
     "cross_attention_int8": ("whisperlive_tpu_torch/csrc/cross_attention_int8.cu",
                              "whisperlive_tpu/ops/attention.py:158"),
-    "cross_attention_int8_skip": ("whisperlive_tpu_torch/csrc/cross_attention_int8_skip.cu",
+    "cross_attention_int8_skip": ("whisperlive_tpu_torch/csrc/cross_attention_int8.cu",
                                   "whisperlive_tpu/ops/attention.py:212"),
     "cross_attention_int8_window": ("whisperlive_tpu_torch/csrc/cross_attention_int8_window.cu",
                                     "whisperlive_tpu/ops/attention.py:409"),
@@ -442,6 +452,130 @@ def random_makers(dev: torch.device, seed: int):
     return randn, int8
 
 
+# K5's content cap at large-v3 (the continuous pool's cross cap)
+K5_T = 640
+
+
+def cross_int8_work(h: int, hd: int, used: list[int], n_rows: int, masked: bool):
+    """(bytes, operations) of one K4/K5 call: the K|V rows each computed
+    batch row reads (`used` positions each), its bf16 q and f32 output, and
+    the [B] int32 lengths and bool active flags when given (`n_rows`)."""
+    n_bytes = sum(h * (n * 2 * hd + hd * 2 + hd * 4) for n in used)
+    return n_bytes + (5 * n_rows if masked else 0), sum(4 * h * n * hd for n in used)
+
+
+def cross_int8_cold(label: str, call, q, kvp, rows, work: tuple) -> dict:
+    """`call(kvp)` with cold K/V: a run calls it once on each of
+    ceil(COLD_BYTES / n_bytes) distinct copies of kvp (n_bytes: what one
+    call reads), as a decode step finds each layer's cross-KV behind the
+    other layers' weights (`work`: its bytes and operations, from
+    cross_int8_work). Beside it, over as many copies dequantized to
+    bf16 beforehand, `sdpa_bf16_ms`: scaled_dot_product_attention at
+    Tq = 1 on the computed `rows` over all T positions (twice the bytes
+    and not the function; the port never calls it)."""
+    copies = -(-COLD_BYTES // work[0])
+    kvps = [kvp] + [kvp.clone() for _ in range(copies - 1)]
+    ms = median_ms(rotating([lambda k=k: call(k) for k in kvps]), iters=10, reps=copies)
+    hd = q.shape[-1]
+    q4 = q[rows].unsqueeze(2)
+    kv_bf16 = [(k[rows][..., :hd].to(torch.bfloat16), k[rows][..., hd:].to(torch.bfloat16))
+               for k in kvps]
+    del kvps
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    sdpa_ms = median_ms(rotating([lambda k=k, v=v: sdpa(q4, k, v) for k, v in kv_bf16]),
+                        iters=10, reps=copies)
+    del kv_bf16
+    torch.cuda.empty_cache()
+    r = {"shape": label, "copies": copies, "ms": ms, "sdpa_bf16_ms": sdpa_ms, **bound(*work)}
+    r["bound_share"] = r["bound_ms"] / ms
+    log(f"cold {label} ({copies} K/V copies): {ms * 1e3:.6g} us, bound "
+        f"{r['bound_ms'] * 1e3:.6g} us ({r['bound_by']}), bound share "
+        f"{r['bound_share']:.6g}, sdpa_bf16 {sdpa_ms * 1e3:.6g} us")
+    return r
+
+
+def k4_phase(randn, int8, dev, h: int, hd: int, t_enc: int) -> dict:
+    """K4, the window path's decode cross-attention, at q [B,H,64] x kvp
+    [B,H,T,128] for the window path's batch buckets B = 1, 2, 4 over the
+    full context, and at B = 4 with lengths [T, 700, 1, 0]; each timed warm
+    (the same K/V call after call) and cold (cross_int8_cold). f32 output;
+    a probability that rounds to the other bf16 neighbour moves the output
+    by ~2^-9 of it: 1e-3 of each row's max|ref|. The entry reports B = 4
+    unmasked (its launches come from the window path at B <= 4)."""
+    warm, cold = [], []
+    for b, lens in ((1, None), (2, None), (BATCH, None), (BATCH, [t_enc, 700, 1, 0])):
+        q, kvp = randn(b, h, hd, scale=0.05), int8(b, h, t_enc, 2 * hd)
+        ln = None if lens is None else torch.tensor(lens, dtype=torch.int32, device=dev)
+        label = (f"q [{b},{h},{hd}] kvp [{b},{h},{t_enc},{2 * hd}]"
+                 + ("" if lens is None else f" lengths {lens}"))
+        r = compare("cross_attention_int8", label,
+                    lambda q=q, kvp=kvp, ln=ln: attn_ops.cross_attention_int8(q, kvp, ln),
+                    lambda q=q, kvp=kvp, ln=ln: attn_ops.cross_attention_int8_ref(q, kvp, ln),
+                    1e-3, per_row=True)
+        used = [t_enc] * b if lens is None else [min(n, t_enc) or t_enc for n in lens]
+        work = cross_int8_work(h, hd, used, b, lens is not None)
+        r.update(bound(*work))
+        warm.append(r)
+        cold.append(cross_int8_cold(
+            "cross_attention_int8 " + label,
+            lambda k, q=q, ln=ln: attn_ops.cross_attention_int8(q, k, ln), q, kvp,
+            slice(None), work))
+    log("cross_attention_int8 warm / cold (us): " + ", ".join(
+        f"{w['shape']} {w['ms'] * 1e3:.6g} / {c['ms'] * 1e3:.6g}" for w, c in zip(warm, cold)))
+    return dict(warm[2], max_abs_err=max(r["max_abs_err"] for r in warm), library_ms=None,
+                other_shapes=[warm[0], warm[1], warm[3]], cold=cold)
+
+
+def k5_phase(randn, int8, dev, h: int, hd: int) -> dict:
+    """K5, the continuous step's cross-attention, at the smoke pool's q
+    [8,H,64] x kvp [8,H,640,128]: mixed lengths all and half active, a lone
+    active row of length 0, lengths on and one past the chunk boundaries of
+    a split over T in 2 or 4 (T/2 = 320, T/4 = 160) and of rows split small
+    (2, 3), and 8/8, 4/8 and 1/8 rows active at length 640, each warm and,
+    at the three occupancies, cold. Tolerance as K4's family on the card:
+    2^-6 of each active row's max|ref|. The entry reports 8/8 active."""
+    b5, t5 = CONT_SLOTS, K5_T
+    q, kvp = randn(b5, h, hd, scale=0.05), int8(b5, h, t5, 2 * hd)
+    cold = []
+
+    def k5_case(label, lens, act, time_cold=False):
+        ln = torch.tensor(lens, dtype=torch.int32, device=dev)
+        ac = torch.tensor(act, device=dev)
+        label = f"q [{b5},{h},{hd}] kvp [{b5},{h},{t5},{2 * hd}] {label}"
+        r = compare(
+            "cross_attention_int8_skip", label,
+            lambda: attn_ops.cross_attention_int8_skip(q, kvp, ln, ac),
+            lambda: attn_ops.cross_attention_int8_skip_ref(q, kvp, ln, ac), 2.0**-6, rows=ac,
+            per_row=True)
+        out = attn_ops.cross_attention_int8_skip(q, kvp, ln, ac)
+        check(not out[~ac].any(), f"cross_attention_int8_skip {label}: inactive rows must be zero")
+        used = [min(n, t5) or t5 for n, a in zip(lens, act) if a]
+        work = cross_int8_work(h, hd, used, b5, True)
+        r.update(bound(*work))
+        log(f"cross_attention_int8_skip {label}: bound {r['bound_ms']:.6g} ms ({r['bound_by']})")
+        if time_cold:
+            cold.append(cross_int8_cold(
+                "cross_attention_int8_skip " + label,
+                lambda k: attn_ops.cross_attention_int8_skip(q, k, ln, ac), q, kvp, ac, work))
+        return r
+
+    mixed = [640, 300, 1, 640, 512, 17, 640, 100]
+    k5 = [k5_case("all active, lengths mixed", mixed, [True] * b5),
+          k5_case("half active", mixed, [i % 2 == 0 for i in range(b5)]),
+          k5_case("one active row, len 0", [0] + mixed[1:], [True] + [False] * (b5 - 1)),
+          k5_case("lengths on and past chunk boundaries", [320, 321, 160, 161, 2, 3, 319, 640],
+                  [True] * b5)]
+    occupancy = {n_act: k5_case(f"{n_act}/{b5} active, len {t5}", [t5] * b5,
+                                [i < n_act for i in range(b5)], time_cold=True)
+                 for n_act in (8, 4, 1)}
+    log("cross_attention_int8_skip occupancy warm / cold (us): " + ", ".join(
+        f"{n}/{b5} active {r['ms'] * 1e3:.6g} / {c['ms'] * 1e3:.6g} (bound "
+        f"{r['bound_ms'] * 1e3:.6g})" for (n, r), c in zip(occupancy.items(), cold)))
+    return dict(occupancy[8], max_abs_err=max(r["max_abs_err"] for r in k5 + list(
+        occupancy.values())), library_ms=None, other_shapes=k5 + [occupancy[4], occupancy[1]],
+                cold=cold)
+
+
 def kernel_phase(dev: torch.device) -> dict:
     cfg = wmod.WHISPER_CONFIGS[MODEL]
     h, hd, t_enc, d = cfg.n_audio_head, cfg.head_dim, cfg.n_audio_ctx, cfg.n_text_state
@@ -502,62 +636,13 @@ def kernel_phase(dev: torch.device) -> dict:
     # the entry reports the continuous pool's shape (the main path's)
     results["int8_matmul_t"] = dict(k3[1], max_abs_err=max(r["max_abs_err"] for r in k3))
 
-    # K4: decode cross-attention, f32 output; a probability that rounds to
-    # the other bf16 neighbour moves the output by ~2^-9 of it: 1e-3 of each
-    # row's max|ref|
-    q, kvp = randn(BATCH, h, hd, scale=0.05), int8(BATCH, h, t_enc, 2 * hd)
-    k4 = [compare(
-        "cross_attention_int8", f"q [{BATCH},{h},{hd}] kvp [{BATCH},{h},{t_enc},{2 * hd}]",
-        lambda: attn_ops.cross_attention_int8(q, kvp),
-        lambda: attn_ops.cross_attention_int8_ref(q, kvp), 1e-3, per_row=True)]
-    lengths = torch.tensor([t_enc, 700, 1, 0][:BATCH], dtype=torch.int32, device=dev)
-    k4.append(compare(
-        "cross_attention_int8", f"... lengths {lengths.tolist()}",
-        lambda: attn_ops.cross_attention_int8(q, kvp, lengths),
-        lambda: attn_ops.cross_attention_int8_ref(q, kvp, lengths), 1e-3, per_row=True))
-    results["cross_attention_int8"] = dict(
-        k4[0], max_abs_err=max(r["max_abs_err"] for r in k4), library_ms=None,
-        **bound(BATCH * h * (t_enc * 2 * hd + hd * 2 + hd * 4), 4 * BATCH * h * t_enc * hd))
-
-    # K5: the continuous step's cross-attention at the smoke pool's shape;
-    # tolerance as K4's family on the card: 2^-6 of each active row's max|ref|
-    b5, t5 = CONT_SLOTS, 640
-    q, kvp = randn(b5, h, hd, scale=0.05), int8(b5, h, t5, 2 * hd)
-
-    def k5_case(label, lens, act):
-        ln = torch.tensor(lens, dtype=torch.int32, device=dev)
-        ac = torch.tensor(act, device=dev)
-        r = compare(
-            "cross_attention_int8_skip",
-            f"q [{b5},{h},{hd}] kvp [{b5},{h},{t5},{2 * hd}] {label}",
-            lambda: attn_ops.cross_attention_int8_skip(q, kvp, ln, ac),
-            lambda: attn_ops.cross_attention_int8_skip_ref(q, kvp, ln, ac), 2.0**-6, rows=ac,
-            per_row=True)
-        n_bytes = sum(h * (min(n, t5) or t5) * 2 * hd + h * hd * 6
-                      for n, a in zip(lens, act) if a) + b5 * 5
-        n_flops = sum(4 * h * (min(n, t5) or t5) * hd for n, a in zip(lens, act) if a)
-        r.update(bound(n_bytes, n_flops))
-        log(f"cross_attention_int8_skip {label}: bound {r['bound_ms']:.6g} ms ({r['bound_by']})")
-        return r
-
-    mixed = [640, 300, 1, 640, 512, 17, 640, 100]
-    k5 = [k5_case("all active, lengths mixed", mixed, [True] * b5),
-          k5_case("half active", mixed, [i % 2 == 0 for i in range(b5)]),
-          k5_case("one active row, len 0", [0] + mixed[1:], [True] + [False] * (b5 - 1))]
-    occupancy = {}
-    for n_act in (8, 4, 1):
-        occupancy[n_act] = k5_case(f"{n_act}/{b5} active, len {t5}", [t5] * b5,
-                                   [i < n_act for i in range(b5)])
-    log("cross_attention_int8_skip occupancy: " + ", ".join(
-        f"{n}/{b5} active {r['ms']:.6g} ms (bound {r['bound_ms']:.6g})"
-        for n, r in occupancy.items()))
-    results["cross_attention_int8_skip"] = dict(
-        occupancy[8], max_abs_err=max(r["max_abs_err"] for r in k5 + list(occupancy.values())),
-        library_ms=None)
+    results["cross_attention_int8"] = k4_phase(randn, int8, dev, h, hd, t_enc)
+    results["cross_attention_int8_skip"] = k5_phase(randn, int8, dev, h, hd)
+    b5, t5 = CONT_SLOTS, K5_T
 
     # The window kernel (cross_attention_window.cuh) at Tq = 1 against K4
     # and K5 at their serving shapes: whether the window template could
-    # replace the single-query sources. Held against the plain version; not
+    # replace the single-query source. Held against the plain version; not
     # an entry of the kernels line.
     q, kvp = randn(BATCH, h, 1, hd, scale=0.05), int8(BATCH, h, t_enc, 2 * hd)
     w4 = compare("cross_attention_int8_window at Tq=1",
@@ -612,7 +697,7 @@ def window_kernel_phase(randn, int8, dev, h: int, hd: int, t_enc: int) -> dict:
         k6[0], max_abs_err=max(r["max_abs_err"] for r in k6), library_ms=None)
 
     # K5's window form: the continuous verify at the smoke pool's shape
-    b5, t5 = CONT_SLOTS, 640
+    b5, t5 = CONT_SLOTS, K5_T
     q, kvp = randn(b5, h, tq, hd, scale=0.05), int8(b5, h, t5, 2 * hd)
 
     def k5w_case(label, lens, act):
@@ -976,10 +1061,13 @@ def continuous_phase(engine: WhisperEngine) -> dict:
 
 def profile_continuous_step(cs: ContinuousScheduler, chunks: int = 2) -> None:
     """torch.profiler over `chunks` step chunks of the serving pool with
-    three slots decoding: CUDA kernel launches per step and the device's
-    busy share of the wall time. Device time sums the CUDA events only (a
-    CPU op's device time repeats its kernels'); a profiler that records no
-    CUDA event is reported as not measured."""
+    three slots decoding: CUDA kernel launches per step, the device's
+    busy share of the wall time, and the device time per step of the five
+    largest CUDA kernels by name and of K4/K5's kernel (in these steps
+    only K5 launches it: K5's share of the step where it runs). Device
+    time sums the CUDA events only (a CPU op's device time repeats its
+    kernels'); a profiler that records no CUDA event is reported as not
+    measured."""
     cb = cs.cb
     cb.init_state()
     prompt, sot = cs.engine.build_prompt(
@@ -1012,6 +1100,12 @@ def profile_continuous_step(cs: ContinuousScheduler, chunks: int = 2) -> None:
     log(f"continuous step profile ({n_steps} steps, 3 of {cb.n_slots} slots decoding): "
         f"{n_launch / n_steps:.6g} kernel launches per step, wall {wall / n_steps * 1e3:.6g} "
         f"ms per step under the profiler, {device}")
+    top = sorted(on_card, key=lambda e: e.self_device_time_total, reverse=True)[:5]
+    k5 = [e for e in on_card if "cross_attention_int8_kernel" in e.key]
+    for label, events in (("one of the five largest", top), ("K5", k5)):
+        for e in events:
+            log(f"continuous step kernel ({label}): {e.self_device_time_total / n_steps:.6g} us "
+                f"per step in {e.count / n_steps:.6g} launches: {e.key[:160]}")
 
 
 # ---------------------------------------------------------------------------
@@ -1509,6 +1603,8 @@ def main() -> int:
     k1_ptxas, k2_ptxas = ptxas_usage("fused_attention"), ptxas_usage("int8_matmul")
     log(f"fused_attention.cu, nvcc -Xptxas -v: {k1_ptxas}")
     log(f"int8_matmul.cu, nvcc -Xptxas -v: {k2_ptxas}")
+    cross_ptxas = ptxas_usage("cross_attention_int8")
+    log(f"cross_attention_int8.cu (K4 and K5), nvcc -Xptxas -v: {cross_ptxas}")
 
     from whisperlive_tpu_torch.device import resolve_device
 
@@ -1516,6 +1612,8 @@ def main() -> int:
     measured = kernel_phase(dev)
     measured["fused_attention"]["ptxas"] = k1_ptxas
     measured["int8_matmul"]["ptxas"] = k2_ptxas
+    for name in ("cross_attention_int8", "cross_attention_int8_skip"):
+        measured[name]["ptxas"] = cross_ptxas
     # the int8 engine serves phases 4-6, an int4 engine built from the same
     # parameters the mixed route; each has a distil-large-v3 draft of its
     # cross-KV width (random weights from SEED + 1)

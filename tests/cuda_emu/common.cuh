@@ -9,10 +9,11 @@
 // exchange values through per-warp slots between two barriers of the warp.
 // A barrier that can never complete aborts as a deadlock. Each CTA has its
 // own shared memory, filled with NaN at the cluster's start and again when
-// the CTA exits; a read of another CTA's through the cluster helpers lands
-// in the same offset of its memory. cp.async copies are held per thread and land at the wait_group
-// that retires their group (or at once, with emu::eager_copies), so a read
-// that misses its wait sees that NaN. Every ldmatrix counts its bank
+// the CTA exits; a read of (or a write to) another CTA's through the
+// cluster helpers lands in the same offset of its memory, and a write to a
+// CTA that has exited aborts. cp.async copies are held per thread and land
+// at the wait_group that retires their group (or at once, with
+// emu::eager_copies), so a read that misses its wait sees that NaN. Every ldmatrix counts its bank
 // conflicts; a copy's source must lie in a range registered with
 // emu::add_global. Only what the kernels here use is defined. A launch
 // `k<<<grid, block, smem, stream>>>(args)` must be rewritten to
@@ -111,7 +112,7 @@ inline uint32_t __float_as_uint(float f) { uint32_t u; std::memcpy(&u, &f, 4); r
 namespace emu {
 constexpr int kMaxCtas = 8;                  // CTAs in a cluster
 constexpr int kMaxWarps = 32 * kMaxCtas;     // warps in a cluster
-constexpr size_t kSmemPerCta = 64 * 1024;
+constexpr size_t kSmemPerCta = 232448;     // the H100's 227 KB a CTA
 constexpr size_t kStack = 256 * 1024;
 struct Copy { void* dst; const void* src; bool valid; };
 struct Thread {
@@ -120,6 +121,8 @@ struct Thread {
     uint3e idx{}, block{};
     int cta = 0;  // rank of its CTA in the cluster
     bool done = false, waiting = false;
+    bool on_cluster = false;  // waiting at the cluster barrier ...
+    int cluster_target = 0;   // ... for its phase to reach this
     std::vector<std::vector<Copy>> groups;
     std::vector<Copy> open_group;
 };
@@ -128,6 +131,7 @@ inline Thread* cur = nullptr;
 inline ucontext_t scheduler;
 inline std::function<void()> body;
 inline int warp_arrived[kMaxWarps], cta_arrived[kMaxCtas], cluster_arrived;
+inline int cluster_phase;  // completed phases of the cluster barrier
 inline const void* x_ptr[kMaxWarps][32];
 inline uint32_t x_u[kMaxWarps][32][6];
 inline float x_f[kMaxWarps][32];
@@ -251,6 +255,14 @@ inline float quad_sum(float v) {
     v += __shfl_xor_sync(0xffffffffu, v, 1);
     return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
+inline float warp_sum(float v) {
+    for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+    return v;
+}
+inline float warp_max(float v) {
+    for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
+    return v;
+}
 inline void cp_async_16(void* dst, const void* src, bool valid) {
     emu::check_smem(dst, 16);
     if (reinterpret_cast<uintptr_t>(dst) % 16 || reinterpret_cast<uintptr_t>(src) % 16) {
@@ -336,8 +348,26 @@ inline void mma_bf16_16816(float d[4], const uint32_t a[4], uint32_t b0, uint32_
     }
 }
 inline uint32_t cluster_rank() { return static_cast<uint32_t>(emu::cur->cta); }
+// The cluster barrier in halves: a thread's wait returns once every thread
+// of the cluster has arrived for the phase of its own last arrive.
+inline void cluster_arrive_relaxed() {
+    emu::cur->cluster_target = emu::cluster_phase + 1;
+    if (++emu::cluster_arrived == static_cast<int>(emu::threads.size())) {
+        emu::cluster_arrived = 0;
+        ++emu::cluster_phase;
+        for (auto& th : emu::threads)
+            if (th.on_cluster && th.cluster_target <= emu::cluster_phase)
+                th.on_cluster = th.waiting = false;
+    }
+}
+inline void cluster_wait() {
+    if (emu::cluster_phase >= emu::cur->cluster_target) return;
+    emu::cur->on_cluster = emu::cur->waiting = true;
+    while (emu::cur->waiting) swapcontext(&emu::cur->ctx, &emu::scheduler);
+}
 inline void cluster_sync() {
-    emu::barrier(emu::cluster_arrived, 0, static_cast<int>(emu::threads.size()));
+    cluster_arrive_relaxed();
+    cluster_wait();
 }
 inline float4 ld_shared_cluster_f4(const void* p, uint32_t rank) {
     emu::check_smem(p, 16);
@@ -349,6 +379,28 @@ inline float4 ld_shared_cluster_f4(const void* p, uint32_t rank) {
     float4 v;
     std::memcpy(&v, emu::smem_buf[rank] + off, 16);
     return v;
+}
+// Distributed shared memory stores: the same offset in CTA `rank`'s memory.
+inline unsigned char* remote_smem(void* p, uint32_t rank, size_t n) {
+    emu::check_smem(p, n);
+    const size_t off = static_cast<unsigned char*>(p) - emu::cta_smem();
+    if (rank * blockDim.x >= emu::threads.size() || off % n) {
+        fprintf(stderr, "bad distributed shared memory write\n");
+        abort();
+    }
+    bool exited = true;  // a CTA's shared memory ends with its last thread
+    for (unsigned t = 0; t < blockDim.x; ++t) exited = exited && emu::threads[rank * blockDim.x + t].done;
+    if (exited) {
+        fprintf(stderr, "distributed shared memory write to an exited CTA\n");
+        abort();
+    }
+    return emu::smem_buf[rank] + off;
+}
+inline void st_shared_cluster_f32(void* p, uint32_t rank, float v) {
+    std::memcpy(remote_smem(p, rank, 4), &v, 4);
+}
+inline void st_shared_cluster_f2(void* p, uint32_t rank, float2 v) {
+    std::memcpy(remote_smem(p, rank, 8), &v, 8);
 }
 inline float exp2_approx(float x) { return exp2f(x); }
 inline uint32_t pack_bf16x2(float lo, float hi) {
@@ -379,6 +431,7 @@ void emu_launch_clusters(K kernel, dim3 grid, dim3 block, size_t smem, dim3 clus
         const uint3e origin{c % gx * cluster.x, c / gx % gy * cluster.y, c / (gx * gy) * cluster.z};
         emu::threads.clear();
         emu::threads.resize(per_cluster * block.x);
+        emu::cluster_arrived = emu::cluster_phase = 0;
         for (unsigned r = 0; r < per_cluster; ++r) {
             std::memset(emu::smem_buf[r], 0xff, smem);  // bf16 NaN everywhere
             const uint3e b{origin.x + r % cluster.x, origin.y + r / cluster.x % cluster.y,

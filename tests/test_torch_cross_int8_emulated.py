@@ -1,0 +1,127 @@
+"""K4's and K5's CUDA source run on the CPU, against their plain versions.
+
+The kernels themselves run only on a card (tests/test_torch_cuda.py). Here
+g++ (C++17) compiles csrc/cross_attention_int8.cu against
+tests/cuda_emu/common.cuh, which stands in for csrc/common.cuh and the CUDA
+headers (a coroutine per CUDA thread; shuffles as exchanges between warp
+barriers; cp.async copies landing at their wait_group or at once; the CTAs
+of a thread-block cluster run together, each with its own shared memory,
+poisoned with NaN when the CTA exits), so that the split over T is held
+here: chunks taken from each row's own extent n (len clipped to T, or T
+where len <= 0), ranks whose chunk is empty, the softmax statistics and the
+PV partials read through distributed shared memory between cluster
+barriers, inactive rows written as zeros without a barrier, the swapped
+halves of odd rows, the copy wave's commit groups and their waits, and the
+same bits whichever order the clusters run in, with copies landing late or
+at once and warps in step or one running ahead. The harness forces the
+split S; the Python wrappers take none. Inputs are q at scale 0.05 (as on
+the card) and int8 K|V from a numpy seed; the tolerance is K4's card
+tolerance, 1e-3 of each computed row's own max|ref|. Skips where no g++ is
+installed.
+"""
+
+import shutil
+import subprocess
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from whisperlive_tpu_torch.ops import _kernels
+from whisperlive_tpu_torch.ops import attention as tattn
+
+EMU_DIR = Path(__file__).resolve().parent / "cuda_emu"
+
+
+@pytest.fixture(scope="module")
+def cross_binary(tmp_path_factory):
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("needs g++")
+    d = tmp_path_factory.mktemp("cross_int8_emu")
+    src = (_kernels.CSRC_DIR / "cross_attention_int8.cu").read_text()
+    old = "extern __shared__ __align__(16) unsigned char smem[];"
+    assert src.count(old) == 1 and "<<<" not in src  # cudaLaunchKernelEx runs as it is
+    (d / "cross_attention_int8.cu").write_text(src.replace(old, "unsigned char* smem = emu_smem;"))
+    for name in ("common.cuh", "cross_int8_harness.cpp"):
+        shutil.copy(EMU_DIR / name, d / name)
+    subprocess.run([gxx, "-std=c++17", "-O1", "-o", str(d / "cross"),
+                    str(d / "cross_int8_harness.cpp")], check=True, capture_output=True, text=True)
+    return d / "cross"
+
+
+# (S, B, H, T, lengths, active, copies land at once, schedule). lengths None
+# is K4 without lengths; active None is K4 with lengths, else K5. The
+# lengths cover 0 (a uniform softmax over all T), 1, T, above T, and the
+# chunk boundaries of n = len: a multiple of S (equal chunks) and one past
+# it (a short last chunk), and n < S (empty ranks). T covers one position,
+# a single score pass (64), one row past it (65), K5's cap (640) and the
+# encoder context (1500, the largest chunk at S = 1). Schedule 0 keeps the
+# warps in step, 1 runs the first ahead, 2 the last; the harness reruns each
+# case with the other copy timing, the next schedule and the clusters in
+# reverse, and the bits must not change.
+CASES = [
+    (1, 2, 2, 1, None, None, False, 0),
+    (8, 2, 1, 1, None, None, True, 1),
+    (8, 2, 1, 1, [0, 1], [True, True], False, 2),
+    (2, 2, 2, 64, [64, 0], None, False, 1),
+    (4, 2, 2, 64, [3, 4], [True, True], True, 0),
+    (4, 2, 1, 65, [1, 65], [True, False], False, 2),
+    (2, 4, 1, 65, [33, 34, 32, 66], [True, True, False, True], True, 1),
+    (1, 2, 1, 640, [640, 700], None, True, 2),
+    (2, 4, 1, 640, [320, 321, 640, 0], [True] * 4, False, 0),
+    (8, 4, 1, 640, [160, 161, 159, 640], [True, False, True, True], False, 1),
+    (2, 4, 1, 640, [640, 640, 1, 0], [False] * 4, False, 2),
+    (4, 1, 2, 1500, None, None, True, 2),
+    (8, 1, 1, 1500, [1500], [True], False, 0),
+    (1, 1, 1, 1500, [1501], None, False, 1),
+]
+
+
+@pytest.mark.parametrize("s, b, h, t, lengths, active, eager, schedule", CASES)
+def test_cross_attention_int8_source_emulated(cross_binary, tmp_path, s, b, h, t, lengths,
+                                              active, eager, schedule):
+    rng = np.random.default_rng(1000 * s + 10 * t + b)
+    q = torch.from_numpy(rng.standard_normal((b, h, 64)).astype(np.float32) * 0.05).to(
+        torch.bfloat16)
+    kvp = torch.from_numpy(rng.integers(-127, 128, (b, h, t, 128)).astype(np.int8))
+    ln = torch.tensor(lengths or [t] * b, dtype=torch.int32)
+    act = torch.tensor(active or [True] * b)
+    masks = 0 if lengths is None else 1 if active is None else 2
+    (tmp_path / "in.bin").write_bytes(q.view(torch.int16).numpy().tobytes()
+                                      + kvp.numpy().tobytes() + ln.numpy().tobytes()
+                                      + act.numpy().astype(np.uint8).tobytes())
+    run = subprocess.run(
+        [str(cross_binary), *map(str, (b, h, t, s, masks, int(eager), schedule)),
+         str(tmp_path / "in.bin"), str(tmp_path / "out.bin")],
+        capture_output=True, text=True, timeout=600)
+    assert run.returncode == 0, run.stderr
+    assert run.stdout.strip() == f"rc=0 splits={s} identical=1", run.stdout
+    out = torch.frombuffer(bytearray((tmp_path / "out.bin").read_bytes()), dtype=torch.float32)
+    out = out.reshape(b, h, 64)
+    if masks == 2:
+        ref = tattn.cross_attention_int8_skip_ref(q, kvp, ln, act)
+        assert not out[~act].any(), "inactive rows must be zero"
+    else:
+        ref = tattn.cross_attention_int8_ref(q, kvp, None if masks == 0 else ln)
+    assert torch.isfinite(out).all()
+    out, ref = out[act], ref[act]
+    err = (out - ref).abs().flatten(1).amax(1)
+    tol = 1e-3 * ref.abs().flatten(1).amax(1)
+    assert bool((err <= tol).all()), (err, tol)
+
+
+# (B, H, T, S): the launcher's split at the serving shapes (the window
+# path's buckets at large-v3's 20 heads over 1500 positions; the
+# continuous pool's 8 slots at its 640 cap), and where a chunk of T must
+# fit in shared memory (T = 8192 at many rows) or stay >= 64 rows (T = 65).
+SPLITS = [(1, 20, 1500, 8), (2, 20, 1500, 8), (4, 20, 1500, 4), (8, 20, 640, 2),
+          (16, 20, 1500, 1), (16, 20, 8192, 8), (1, 1, 65, 1), (1, 1, 128, 2)]
+
+
+@pytest.mark.parametrize("b, h, t, s", SPLITS)
+def test_cross_attention_int8_split_choice(cross_binary, b, h, t, s):
+    run = subprocess.run([str(cross_binary), "splits", str(b), str(h), str(t)],
+                         capture_output=True, text=True, timeout=60, check=True)
+    assert int(run.stdout) == s

@@ -142,13 +142,23 @@ def test_int8_matmul_t_kernel_on_card(cuda_device, m):
     assert err <= 1e-5 * scale
 
 
+# K4 at the window path's batch buckets over the encoder context and the
+# reduced 512-position one (a split over T of 8, 8, 4 CTAs at T = 1500; 8,
+# 8, 4 at T = 512), unmasked and with lengths [T, 700, 1, 0] repeated and
+# cut to B; and at B = 16, whose 320 (b, h) rows take no split (one CTA a
+# row holding all 1500 positions, ~200 KB of shared memory).
+K4_CASES = [(b, t, masked) for b in (1, 2, 4) for t in (1500, 512) for masked in (False, True)]
+K4_CASES += [(16, 1500, False), (16, 1500, True)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("lengths", [None, [1500, 700, 1, 0]])
-def test_cross_attention_int8_kernel_on_card(cuda_device, lengths):
+@pytest.mark.parametrize("b, t, masked", K4_CASES)
+def test_cross_attention_int8_kernel_on_card(cuda_device, b, t, masked):
     rng = np.random.default_rng(1)
-    q = _gpu(rng, (4, 20, 64), Q_SCALE_INT8)
-    kvp = torch.from_numpy(rng.integers(-127, 128, (4, 20, 1500, 128)).astype(np.int8)).cuda()
-    ln = None if lengths is None else torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    q = _gpu(rng, (b, 20, 64), Q_SCALE_INT8)
+    kvp = torch.from_numpy(rng.integers(-127, 128, (b, 20, t, 128)).astype(np.int8)).cuda()
+    ln = (torch.tensor(([t, 700, 1, 0] * 4)[:b], dtype=torch.int32, device="cuda") if masked
+          else None)
     assert _rows_close(tattn.cross_attention_int8(q, kvp, ln),
                        tattn.cross_attention_int8_ref(q, kvp, ln), 1e-3)
 
@@ -160,8 +170,14 @@ def _k5_inputs(rng, b=8, t=640):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["mixed_lengths", "half_active", "len0_active"])
+@pytest.mark.parametrize("case", ["mixed_lengths", "half_active", "len0_active",
+                                  "chunk_boundaries", "chunk_boundaries_len0"])
 def test_cross_attention_int8_skip_kernel_on_card(cuda_device, case):
+    """K5 on the active rows. At 8 slots of 20 heads over 640 positions the
+    split over T is 2 CTAs a row, each chunk ceil(n / 2) rows of n =
+    min(len, T): the boundary cases take lengths that split evenly, one
+    past (a short last chunk), n < 2 (an empty rank) and 0 (a uniform
+    softmax over all T) next to each other."""
     rng = np.random.default_rng(3)
     q, kvp = _k5_inputs(rng)
     lengths = [640, 300, 1, 640, 512, 17, 640, 100]
@@ -170,6 +186,10 @@ def test_cross_attention_int8_skip_kernel_on_card(cuda_device, case):
         active = [i % 2 == 0 for i in range(8)]
     elif case == "len0_active":
         lengths[3] = 0
+    elif case.startswith("chunk_boundaries"):
+        lengths = [320, 321, 160, 161, 2, 3, 1, 639]
+        if case.endswith("len0"):
+            lengths[2], active[5] = 0, False
     ln = torch.tensor(lengths, dtype=torch.int32, device="cuda")
     act = torch.tensor(active, device="cuda")
     n = _kernels.launches["cross_attention_int8_skip"]
@@ -193,6 +213,21 @@ def test_cross_attention_int8_skip_all_inactive_writes_zeros(cuda_device):
     torch.cuda.synchronize()
     assert out.shape == (8, 20, 64) and out.dtype == torch.float32
     assert not out.any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b, t", [(1, 1500), (4, 1500), (8, 640)])
+def test_cross_attention_int8_kernels_same_bits_twice(cuda_device, b, t):
+    """K4 and K5 sum the cluster's partials in rank order, without atomics:
+    two calls on the same inputs give the same bits."""
+    rng = np.random.default_rng(5)
+    q, kvp = _k5_inputs(rng, b, t)
+    ln = torch.tensor([t, 700, 1, 0, 320, 321, 2, 640][:b], dtype=torch.int32, device="cuda")
+    act = torch.tensor([True, False, True, True, True, False, True, True][:b], device="cuda")
+    for call in (lambda: tattn.cross_attention_int8(q, kvp),
+                 lambda: tattn.cross_attention_int8(q, kvp, ln),
+                 lambda: tattn.cross_attention_int8_skip(q, kvp, ln, act)):
+        assert torch.equal(call(), call())
 
 
 # ---------------------------------------------------------------------------

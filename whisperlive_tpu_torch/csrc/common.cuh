@@ -134,6 +134,35 @@ __device__ __forceinline__ void cluster_sync() {
                  "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
+// The two halves of a cluster barrier with nothing ordered by it: arrive
+// early and wait late, so that the barrier's latency hides behind the work
+// between. Arrive and wait alternate in every thread. Its use: every CTA
+// of the cluster has started, so its shared memory may be written.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+    asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+    asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// Store to the address `p` has in this CTA's shared memory, in the shared
+// memory of the cluster's CTA `rank`; visible there after a cluster_sync.
+__device__ __forceinline__ void st_shared_cluster_f32(void* p, uint32_t rank, float v) {
+    uint32_t remote;
+    asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+                 : "=r"(remote) : "r"(smem_u32(p)), "r"(rank));
+    asm volatile("st.shared::cluster.f32 [%0], %1;\n" :: "r"(remote), "f"(v) : "memory");
+}
+
+__device__ __forceinline__ void st_shared_cluster_f2(void* p, uint32_t rank, float2 v) {
+    uint32_t remote;
+    asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+                 : "=r"(remote) : "r"(smem_u32(p)), "r"(rank));
+    asm volatile("st.shared::cluster.v2.f32 [%0], {%1, %2};\n"
+                 :: "r"(remote), "f"(v.x), "f"(v.y) : "memory");
+}
+
 // 16 bytes at the address `p` has in this CTA's shared memory, read from
 // the shared memory of the cluster's CTA `rank` (distributed shared memory).
 __device__ __forceinline__ float4 ld_shared_cluster_f4(const void* p, uint32_t rank) {
@@ -159,30 +188,6 @@ __device__ __forceinline__ float exp2_approx(float x) {
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
     const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
     return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// Block-wide reductions over blockDim.x threads (a multiple of 32). `buf`
-// is shared scratch of at least 32 floats; every thread gets the result.
-__device__ __forceinline__ float block_max(float v, float* buf) {
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    v = warp_max(v);
-    __syncthreads();  // buf may still be read by a previous reduction
-    if (lane == 0) buf[warp] = v;
-    __syncthreads();
-    const int n_warps = blockDim.x >> 5;
-    v = lane < n_warps ? buf[lane] : -FLT_MAX;
-    return warp_max(v);
-}
-
-__device__ __forceinline__ float block_sum(float v, float* buf) {
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    v = warp_sum(v);
-    __syncthreads();
-    if (lane == 0) buf[warp] = v;
-    __syncthreads();
-    const int n_warps = blockDim.x >> 5;
-    v = lane < n_warps ? buf[lane] : 0.0f;
-    return warp_sum(v);
 }
 
 }  // namespace wl
