@@ -8,7 +8,7 @@ a result):
 1. Require CUDA; print the card's name and power limit (nvidia-smi).
 2. Build the six CUDA sources of whisperlive_tpu_torch/csrc with nvcc
    (one process per source, in parallel): nine kernel entry points. Print
-   what `nvcc -Xptxas -v` reports for K1, K2 and the K4/K5 source
+   what `nvcc -Xptxas -v` reports for K1, K2, K3 and the K4/K5 source
    (registers, spills).
 3. Hold each kernel against its plain PyTorch version on the card at the
    serving paths' shapes (large-v3) in bf16, with the stated tolerance,
@@ -17,9 +17,14 @@ a result):
    port never calls it). K1 is also checked at the 512-position encoder
    context and, at T = 1500, with q drawn 4x larger (a peaked softmax);
    its entry carries those shapes in `other_shapes`, each with its ratio
-   to scaled_dot_product_attention (`sdpa_ratio`). K2 and K3 at the
-   window batch's M=4 and the continuous pool's M=8 (each kernel's entry
-   reports the pool's shape). K2 is also timed cold (rotating over
+   to scaled_dot_product_attention (`sdpa_ratio`). K2 at the window
+   batch's M=4 and the continuous pool's M=8 (its entry reports the
+   pool's shape). K3 at M = 1, 4, 8 (the pool's, its entry's shape), 16
+   and 40 (the 8-slot verify window), each timed warm and cold (rotating
+   over distinct embedding copies that exceed the L2) beside
+   torch._weight_int8pack_mm and, cold, torch.matmul on the embedding
+   dequantized to bf16 (`bf16_gemm_ms`); its entry carries them as
+   `other_shapes` and `cold`. K2 is also timed cold (rotating over
    distinct weight copies that exceed the L2) at each of those shapes and
    at prefill M=64, and over a decode-step sweep (the 256 K2 calls of one
    large-v3 step at M=8, 32 layers of distinct weights), each beside
@@ -53,8 +58,8 @@ a result):
    1500) behind TorchBackend; three ~10 s streaming sessions, the third
    joining 2 s late so that a window joins a running decode, one with the
    VAD gate off. A torch.profiler window over two step chunks prints the
-   launches and device time per step, and the five largest CUDA kernels
-   and K5 by device time per step.
+   launches and device time per step, and the five largest CUDA kernels,
+   K5 and K3 by device time per step.
 6. Serve the three speculative routes with a random distil-large-v3 draft
    (seed + 1) at k=4: the window route (SpeculativeDecoder on the
    BatchScheduler, one stream of lone greedy requests) and the continuous
@@ -439,6 +444,62 @@ def k2_step_sweep(randn, int8, cfg) -> dict:
     return r
 
 
+# K3's M: one row, the window batch, the continuous pool, the window path
+# at B = 16, and the 8-slot pool's verify window of k + 1 tokens a slot
+K3_ROWS = (1, BATCH, CONT_SLOTS, 16, CONT_SLOTS * (SPEC_K + 1))
+
+
+def k3_bound(m: int, d: int, v: int) -> dict:
+    return bound(m * d * 2 + v * d + v * 2 + m * v * 4, 2 * m * d * v)
+
+
+def k3_phase(randn, int8, cfg) -> dict:
+    """K3, the tied-embedding logits x [M, d] @ w8 [V, d]^T * s at each of
+    K3_ROWS: held against its plain version (f32 output over exact
+    products: 1e-5 of max|ref|) and timed warm (the same embedding call
+    after call) beside torch._weight_int8pack_mm (the same function on the
+    same [N, K] layout), then cold: a run calls it 10 times on each of
+    ceil(64 MiB / weight bytes) distinct embedding copies in turn, beside
+    the library call and, as `bf16_gemm_ms`, torch.matmul of x with the
+    embedding dequantized to bf16 beforehand (twice the bytes; the port
+    never calls it) over the same rotation. The entry reports M =
+    CONT_SLOTS (the continuous pool, the main path's shape)."""
+    d, v = cfg.n_text_state, cfg.n_vocab
+    copies = -(-COLD_BYTES // (v * d))
+    w8s, s = [int8(v, d) for _ in range(copies)], randn(v, scale=0.01).abs()
+    wbf = [w.to(torch.bfloat16) for w in w8s]
+    cold_timing = {"iters": 10, "reps": 10 * copies}
+    warm, cold = [], []
+    for m in K3_ROWS:
+        x = randn(m, d)
+        shape = f"x [{m},{d}] w8 [{v},{d}]"
+        r = compare("int8_matmul_t", shape, lambda x=x: qmm.int8_matmul_t(x, w8s[0], s),
+                    lambda x=x: qmm.int8_matmul_t_ref(x, w8s[0], s), 1e-5)
+        r["library_ms"] = library_time(
+            "_weight_int8pack_mm", lambda x=x: torch._weight_int8pack_mm(x, w8s[0], s))
+        r.update(k3_bound(m, d, v))
+        warm.append(r)
+        ms = median_ms(rotating([lambda w=w, x=x: qmm.int8_matmul_t(x, w, s) for w in w8s]),
+                       **cold_timing)
+        lib = library_time("_weight_int8pack_mm", rotating(
+            [lambda w=w, x=x: torch._weight_int8pack_mm(x, w, s) for w in w8s]), **cold_timing)
+        gemm = median_ms(rotating([lambda w=w, x=x: torch.matmul(x, w.t()) for w in wbf]),
+                         **cold_timing)
+        c = {"shape": shape, "copies": copies, "ms": ms, "library_ms": lib,
+             "bf16_gemm_ms": gemm, **k3_bound(m, d, v)}
+        c["bound_share"] = c["bound_ms"] / ms
+        cold.append(c)
+        log(f"int8_matmul_t {shape}: warm {r['ms'] * 1e3:.6g} us, cold ({copies} embedding "
+            f"copies) {ms * 1e3:.6g} us, bound {c['bound_ms'] * 1e3:.6g} us ({c['bound_by']}), "
+            f"cold bound share {c['bound_share']:.6g}; _weight_int8pack_mm warm "
+            f"{r['library_ms']} ms, cold {lib} ms; bf16_gemm cold {gemm * 1e3:.6g} us")
+    del w8s, wbf
+    torch.cuda.empty_cache()
+    main = K3_ROWS.index(CONT_SLOTS)
+    return dict(warm[main], max_abs_err=max(r["max_abs_err"] for r in warm),
+                other_shapes=warm[:main] + warm[main + 1:], cold=cold)
+
+
 def random_makers(dev: torch.device, seed: int):
     """randn(*shape, scale) -> bf16 and int8(*shape) -> codes in [-127, 127],
     drawn on the card from one generator seeded with `seed`."""
@@ -616,25 +677,7 @@ def kernel_phase(dev: torch.device) -> dict:
                                   cold=k2_cold_phase(randn, int8, d), step_sweep=k2_step_sweep(
                                       randn, int8, cfg))
 
-    # K3: tied-embedding logits at the window path's M=B and the continuous
-    # pool's M=CONT_SLOTS; f32 output and f32 sums: 1e-5 of max|ref|
-    v_ = cfg.n_vocab
-    w8, s = int8(v_, d), randn(v_, scale=0.01).abs()
-    k3 = []
-    for m in (BATCH, CONT_SLOTS):
-        x = randn(m, d)
-        r = compare(
-            "int8_matmul_t", f"x [{m},{d}] w8 [{v_},{d}]",
-            lambda x=x: qmm.int8_matmul_t(x, w8, s),
-            lambda x=x: qmm.int8_matmul_t_ref(x, w8, s), 1e-5)
-        r["library_ms"] = library_time(
-            "_weight_int8pack_mm", lambda x=x: torch._weight_int8pack_mm(x, w8, s))
-        r.update(bound(m * d * 2 + v_ * d + v_ * 2 + m * v_ * 4, 2 * m * d * v_))
-        log(f"int8_matmul_t [{m},{d}]: library (_weight_int8pack_mm) {r['library_ms']} ms, "
-            f"bound {r['bound_ms']:.6g} ms ({r['bound_by']})")
-        k3.append(r)
-    # the entry reports the continuous pool's shape (the main path's)
-    results["int8_matmul_t"] = dict(k3[1], max_abs_err=max(r["max_abs_err"] for r in k3))
+    results["int8_matmul_t"] = k3_phase(randn, int8, cfg)
 
     results["cross_attention_int8"] = k4_phase(randn, int8, dev, h, hd, t_enc)
     results["cross_attention_int8_skip"] = k5_phase(randn, int8, dev, h, hd)
@@ -1063,8 +1106,8 @@ def profile_continuous_step(cs: ContinuousScheduler, chunks: int = 2) -> None:
     """torch.profiler over `chunks` step chunks of the serving pool with
     three slots decoding: CUDA kernel launches per step, the device's
     busy share of the wall time, and the device time per step of the five
-    largest CUDA kernels by name and of K4/K5's kernel (in these steps
-    only K5 launches it: K5's share of the step where it runs). Device
+    largest CUDA kernels by name, of K4/K5's kernel (in these steps only
+    K5 launches it: K5's share of the step where it runs) and of K3's. Device
     time sums the CUDA events only (a CPU op's device time repeats its
     kernels'); a profiler that records no CUDA event is reported as not
     measured."""
@@ -1102,7 +1145,8 @@ def profile_continuous_step(cs: ContinuousScheduler, chunks: int = 2) -> None:
         f"ms per step under the profiler, {device}")
     top = sorted(on_card, key=lambda e: e.self_device_time_total, reverse=True)[:5]
     k5 = [e for e in on_card if "cross_attention_int8_kernel" in e.key]
-    for label, events in (("one of the five largest", top), ("K5", k5)):
+    k3 = [e for e in on_card if "int8_matmul_t_kernel" in e.key]
+    for label, events in (("one of the five largest", top), ("K5", k5), ("K3", k3)):
         for e in events:
             log(f"continuous step kernel ({label}): {e.self_device_time_total / n_steps:.6g} us "
                 f"per step in {e.count / n_steps:.6g} launches: {e.key[:160]}")
@@ -1605,6 +1649,8 @@ def main() -> int:
     log(f"int8_matmul.cu, nvcc -Xptxas -v: {k2_ptxas}")
     cross_ptxas = ptxas_usage("cross_attention_int8")
     log(f"cross_attention_int8.cu (K4 and K5), nvcc -Xptxas -v: {cross_ptxas}")
+    k3_ptxas = ptxas_usage("int8_matmul_t")
+    log(f"int8_matmul_t.cu, nvcc -Xptxas -v: {k3_ptxas}")
 
     from whisperlive_tpu_torch.device import resolve_device
 
@@ -1612,6 +1658,7 @@ def main() -> int:
     measured = kernel_phase(dev)
     measured["fused_attention"]["ptxas"] = k1_ptxas
     measured["int8_matmul"]["ptxas"] = k2_ptxas
+    measured["int8_matmul_t"]["ptxas"] = k3_ptxas
     for name in ("cross_attention_int8", "cross_attention_int8_skip"):
         measured[name]["ptxas"] = cross_ptxas
     # the int8 engine serves phases 4-6, an int4 engine built from the same

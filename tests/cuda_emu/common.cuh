@@ -15,8 +15,10 @@
 // at the wait_group that retires their group (or at once, with
 // emu::eager_copies), so a read that misses its wait sees that NaN. Every ldmatrix counts its bank
 // conflicts; a copy's source must lie in a range registered with
-// emu::add_global. Only what the kernels here use is defined. A launch
-// `k<<<grid, block, smem, stream>>>(args)` must be rewritten to
+// emu::add_global. Bulk copies are held on their mbarrier and land when a
+// thread waits on it (or at once, with emu::eager_copies); mbarrier waits
+// and named barriers block until woken. Only what the kernels here use is
+// defined. A launch `k<<<grid, block, smem, stream>>>(args)` must be rewritten to
 // `emu_launch(k, grid, block, smem, stream, args)` first; cudaLaunchKernelEx
 // runs as it is.
 #pragma once
@@ -30,6 +32,7 @@
 #include <cstring>
 #include <algorithm>
 #include <functional>
+#include <map>
 #include <memory>
 #include <vector>
 
@@ -56,6 +59,7 @@ inline uint2 make_uint2(unsigned a, unsigned b) { return {a, b}; }
 struct alignas(8) float2 { float x, y; };
 inline float2 make_float2(float a, float b) { return {a, b}; }
 struct alignas(16) float4 { float x, y, z, w; };
+inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
 using std::max;
 using std::min;
 
@@ -78,6 +82,16 @@ struct cudaLaunchConfig_t {
     unsigned numAttrs;
 };
 inline cudaError_t cudaGetLastError() { return 0; }
+// The device queries of a persistent launch: the H100's 132 SMs, and as many
+// CTAs an SM as its 228 KB of shared memory holds (1 KB reserved a CTA).
+constexpr int cudaDevAttrMultiProcessorCount = 16;
+inline cudaError_t cudaGetDevice(int* dev) { *dev = 0; return 0; }
+inline cudaError_t cudaDeviceGetAttribute(int* v, int, int) { *v = 132; return 0; }
+template <class F>
+inline cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F, int, size_t smem) {
+    *n = static_cast<int>(233472 / (smem + 1024));
+    return 0;
+}
 
 struct __nv_bfloat16 { uint16_t u; };
 struct __nv_bfloat162 { __nv_bfloat16 x, y; };
@@ -121,6 +135,7 @@ struct Thread {
     uint3e idx{}, block{};
     int cta = 0;  // rank of its CTA in the cluster
     bool done = false, waiting = false;
+    int named = -1;           // the named barrier it waits at
     bool on_cluster = false;  // waiting at the cluster barrier ...
     int cluster_target = 0;   // ... for its phase to reach this
     std::vector<std::vector<Copy>> groups;
@@ -131,6 +146,7 @@ inline Thread* cur = nullptr;
 inline ucontext_t scheduler;
 inline std::function<void()> body;
 inline int warp_arrived[kMaxWarps], cta_arrived[kMaxCtas], cluster_arrived;
+inline int named_arrived[kMaxCtas][16];
 inline int cluster_phase;  // completed phases of the cluster barrier
 inline const void* x_ptr[kMaxWarps][32];
 inline uint32_t x_u[kMaxWarps][32][6];
@@ -152,6 +168,34 @@ inline void check_global(const void* p, size_t n) {
     abort();
 }
 inline unsigned char* cta_smem() { return smem_buf[cur->cta]; }
+// mbarriers, by address (a CTA's barriers are initialised before use)
+struct Bulk { void* dst; const void* src; uint32_t bytes; };
+struct MBar {
+    int count = 0, pending = 0;
+    long tx = 0;
+    unsigned completed = 0;  // phases completed
+    std::vector<Bulk> copies;  // issued, not landed
+    std::vector<std::pair<Thread*, unsigned>> waiters;  // blocked, with the parity they wait for
+};
+inline std::map<const void*, MBar> mbars;
+inline MBar& mbar(const void* bar) {
+    auto it = mbars.find(bar);
+    if (it == mbars.end()) { fprintf(stderr, "mbarrier used before init\n"); abort(); }
+    return it->second;
+}
+inline void mbar_advance(MBar& b) {
+    if (b.pending != 0 || b.tx != 0) return;
+    ++b.completed, b.pending = b.count;
+    std::vector<std::pair<Thread*, unsigned>> still;
+    for (auto& [th, parity] : b.waiters)
+        if ((b.completed & 1u) != parity) th->waiting = false; else still.emplace_back(th, parity);
+    b.waiters.swap(still);
+}
+inline void mbar_land(MBar& b) {
+    for (auto& c : b.copies) std::memcpy(c.dst, c.src, c.bytes), b.tx -= c.bytes;
+    b.copies.clear();
+    mbar_advance(b);
+}
 // warp of the current thread among the cluster's warps
 inline int warp() { return (cur->cta * static_cast<int>(blockDim.x) + cur->idx.x) >> 5; }
 inline int lane() { return cur->idx.x & 31; }
@@ -236,6 +280,22 @@ inline void __syncthreads() {
     emu::barrier(emu::cta_arrived[emu::cur->cta], emu::cur->cta * n, n);
 }
 inline void __syncwarp() { emu::wsync(); }
+namespace wl {
+// bar.sync id, count: the CTA's threads waiting at barrier `id` go on once
+// `count` of them have arrived.
+inline void named_barrier_sync(int id, int count) {
+    const int n = static_cast<int>(blockDim.x), first = emu::cur->cta * n;
+    int& arrived = emu::named_arrived[emu::cur->cta][id];
+    emu::cur->named = id;
+    emu::cur->waiting = true;
+    if (++arrived == count) {
+        arrived = 0;
+        for (int i = first; i < first + n; ++i)
+            if (emu::threads[i].named == id) emu::threads[i].named = -1, emu::threads[i].waiting = false;
+    }
+    while (emu::cur->waiting) swapcontext(&emu::cur->ctx, &emu::scheduler);
+}
+}  // namespace wl
 inline float __shfl_xor_sync(unsigned, float v, int m) {
     const int w = emu::warp(), l = emu::lane();
     emu::x_f[w][l] = v;
@@ -347,6 +407,11 @@ inline void mma_bf16_16816(float d[4], const uint32_t a[4], uint32_t b0, uint32_
         d[e] = acc;
     }
 }
+// A 16-byte global store: a misaligned address aborts, as the card faults.
+inline void st_global_f4(float* p, const float4& v) {
+    if (reinterpret_cast<uintptr_t>(p) % 16) { fprintf(stderr, "st.global.v4 misaligned\n"); abort(); }
+    std::memcpy(p, &v, 16);
+}
 inline uint32_t cluster_rank() { return static_cast<uint32_t>(emu::cur->cta); }
 // The cluster barrier in halves: a thread's wait returns once every thread
 // of the cluster has arrived for the phase of its own last arrive.
@@ -402,6 +467,47 @@ inline void st_shared_cluster_f32(void* p, uint32_t rank, float v) {
 inline void st_shared_cluster_f2(void* p, uint32_t rank, float2 v) {
     std::memcpy(remote_smem(p, rank, 8), &v, 8);
 }
+// mbarriers and bulk copies: a copy is held on its barrier and lands when a
+// thread waits on that barrier (or at once, with emu::eager_copies); a phase
+// completes when its arrivals are in and its expected bytes have landed, and
+// wakes the threads blocked on it. A wait that can never complete aborts as a
+// deadlock.
+inline void mbar_init(uint64_t* bar, uint32_t count) {
+    emu::check_smem(bar, 8);
+    emu::MBar& b = emu::mbars[bar];
+    b = emu::MBar{};
+    b.count = b.pending = static_cast<int>(count);
+}
+inline void fence_mbar_init() {}
+inline void mbar_arrive(uint64_t* bar) {
+    emu::MBar& b = emu::mbar(bar);
+    if (--b.pending < 0) { fprintf(stderr, "mbarrier: too many arrivals\n"); abort(); }
+    emu::mbar_advance(b);
+}
+inline void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
+    emu::MBar& b = emu::mbar(bar);
+    b.tx += bytes;
+    if (--b.pending < 0) { fprintf(stderr, "mbarrier: too many arrivals\n"); abort(); }
+    emu::mbar_advance(b);
+}
+inline void bulk_copy_g2s(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
+    emu::check_smem(dst, bytes);
+    if (bytes % 16 || reinterpret_cast<uintptr_t>(dst) % 16 || reinterpret_cast<uintptr_t>(src) % 16) {
+        fprintf(stderr, "bulk copy misaligned\n"); abort();
+    }
+    emu::check_global(src, bytes);
+    emu::MBar& b = emu::mbar(bar);
+    b.copies.push_back({dst, src, bytes});
+    if (emu::eager_copies || !b.waiters.empty()) emu::mbar_land(b);  // a waiter would land it
+}
+inline void mbar_wait(uint64_t* bar, uint32_t parity) {
+    emu::MBar& b = emu::mbar(bar);
+    emu::mbar_land(b);
+    if ((b.completed & 1u) != parity) return;
+    emu::cur->waiting = true;  // until a completed phase wakes it
+    b.waiters.emplace_back(emu::cur, parity);
+    while (emu::cur->waiting) swapcontext(&emu::cur->ctx, &emu::scheduler);
+}
 inline float exp2_approx(float x) { return exp2f(x); }
 inline uint32_t pack_bf16x2(float lo, float hi) {
     return f2bf(lo) | (uint32_t(f2bf(hi)) << 16);
@@ -432,6 +538,7 @@ void emu_launch_clusters(K kernel, dim3 grid, dim3 block, size_t smem, dim3 clus
         emu::threads.clear();
         emu::threads.resize(per_cluster * block.x);
         emu::cluster_arrived = emu::cluster_phase = 0;
+        std::memset(emu::named_arrived, 0, sizeof emu::named_arrived);
         for (unsigned r = 0; r < per_cluster; ++r) {
             std::memset(emu::smem_buf[r], 0xff, smem);  // bf16 NaN everywhere
             const uint3e b{origin.x + r % cluster.x, origin.y + r / cluster.x % cluster.y,
@@ -450,6 +557,9 @@ void emu_launch_clusters(K kernel, dim3 grid, dim3 block, size_t smem, dim3 clus
             }
         }
         emu::run_cluster();
+        for (auto& [bar, b] : emu::mbars)
+            if (!b.copies.empty()) { fprintf(stderr, "bulk copies pending at exit\n"); abort(); }
+        emu::mbars.clear();
         for (auto& th : emu::threads) {
             for (auto& g : th.groups)
                 if (!g.empty()) { fprintf(stderr, "copies pending at exit\n"); abort(); }

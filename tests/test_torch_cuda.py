@@ -131,15 +131,49 @@ def test_int8_matmul_kernel_refuses_untiled_shapes(cuda_device, k, n):
         tqmm.int8_matmul(x, w8, s)
 
 
+def _k3_inputs(m, n, k=1280):
+    rng = np.random.default_rng(m * 7 + n)
+    x = _gpu(rng, (m, k))
+    w8 = torch.from_numpy(rng.integers(-127, 128, (n, k)).astype(np.int8)).cuda()
+    return x, w8, _gpu(rng, (n,), 0.01).abs()
+
+
+# K3 over M on the paths (decode B 1, 4, 8, 16; the verify window 40 in the
+# 8-slot pool, one full 40-row launch), the ragged n8 tiles (7, 9, 17) and
+# two launches (64 = 40 + 24, 65 = 40 + 25), at each vocab: 51866 (large-v3; even rows of out
+# 16-byte aligned, odd rows 8-byte), 51865 (odd rows only 4-byte aligned)
+# and 51864 (every row 16-byte aligned). 1e-5 of max|ref|: f32 output over
+# exact products.
+K3_ROWS = [1, 4, 7, 8, 9, 16, 17, 40, 64, 65]
+K3_VOCABS = [51866, 51865, 51864]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("m", [1, 4, 7])
-def test_int8_matmul_t_kernel_on_card(cuda_device, m):
-    rng = np.random.default_rng(m)
-    x = _gpu(rng, (m, 1280))
-    w8 = torch.from_numpy(rng.integers(-127, 128, (51866, 1280)).astype(np.int8)).cuda()
-    s = _gpu(rng, (51866,), 0.01).abs()
+@pytest.mark.parametrize("n", K3_VOCABS)
+@pytest.mark.parametrize("m", K3_ROWS)
+def test_int8_matmul_t_kernel_on_card(cuda_device, m, n):
+    x, w8, s = _k3_inputs(m, n)
+    launched = _kernels.launches["int8_matmul_t"]
     err, scale = _err(tqmm.int8_matmul_t(x, w8, s), tqmm.int8_matmul_t_ref(x, w8, s))
+    assert _kernels.launches["int8_matmul_t"] == launched + 1
     assert err <= 1e-5 * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 8, 40, 65])
+def test_int8_matmul_t_kernel_same_bits_twice(cuda_device, m):
+    """Every output is one thread's sum in a fixed order: two calls agree
+    bit for bit."""
+    x, w8, s = _k3_inputs(m, 51866)
+    first = tqmm.int8_matmul_t(x, w8, s)
+    assert torch.equal(first.view(torch.int32), tqmm.int8_matmul_t(x, w8, s).view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_int8_matmul_t_kernel_refuses_untiled_shapes(cuda_device):
+    x, w8, s = _k3_inputs(8, 51866, k=1280 + 16)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        tqmm.int8_matmul_t(x, w8, s)
 
 
 # K4 at the window path's batch buckets over the encoder context and the

@@ -1,9 +1,9 @@
 """The port stands alone: no module of whisperlive_tpu_torch, and nothing in
-chip_smoke.py or k1_variants.py, imports jax or any module of the JAX package.
+chip_smoke.py or kernel_variants.py, imports jax or any module of the JAX package.
 
 A subprocess installs a meta-path finder that refuses `jax`, `jaxlib` and
 every `whisperlive_tpu.` module, then imports every module of the port,
-chip_smoke.py and k1_variants.py. The host modules the port keeps its own copies of
+chip_smoke.py and kernel_variants.py. The host modules the port keeps its own copies of
 (tokenizer, session, VAD) are also held against the originals on a few
 inputs.
 """
@@ -48,7 +48,7 @@ _PROBE = textwrap.dedent(
     for name in names:
         importlib.import_module(name)
     importlib.import_module("chip_smoke")
-    importlib.import_module("k1_variants")
+    importlib.import_module("kernel_variants")
     bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "whisperlive_tpu"))
     assert not bad, bad
     print("IMPORTED", len(names))

@@ -118,6 +118,64 @@ __device__ __forceinline__ void mma_bf16_16816(float d[4], const uint32_t a[4], 
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// A 16-byte store to global memory; `p` must be 16-byte aligned.
+__device__ __forceinline__ void st_global_f4(float* p, const float4& v) {
+    *reinterpret_cast<float4*>(p) = v;
+}
+
+// ---- Bulk copies and transaction barriers (sm_90) ----
+
+// An mbarrier in shared memory whose phase completes after `count` arrivals
+// and every transaction byte expected in it.
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(smem_u32(bar)), "r"(count)
+                 : "memory");
+}
+
+// Makes initialised mbarriers visible to the copy engine; a __syncthreads
+// after it makes them visible to the other threads.
+__device__ __forceinline__ void fence_mbar_init() {
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// One arrival.
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(smem_u32(bar)) : "memory");
+}
+
+// One arrival that also expects `bytes` more transaction bytes this phase.
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                 :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+// Wait until the phase of parity `parity` (the barrier's uses counted from
+// 0, modulo 2) has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+    asm volatile(
+        "{\n"
+        ".reg .pred done;\n"
+        "wait:\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+        "@!done bra wait;\n"
+        "}\n" :: "r"(smem_u32(bar)), "r"(parity) : "memory");
+}
+
+// `bytes` (a multiple of 16; both addresses 16-byte aligned) from global to
+// shared memory by the copy engine, counted on `bar` as transaction bytes.
+__device__ __forceinline__ void bulk_copy_g2s(void* dst, const void* src, uint32_t bytes,
+                                              uint64_t* bar) {
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+        :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar)) : "memory");
+}
+
+// Barrier `id` (1-15; 0 is __syncthreads) of the first `count` threads to
+// arrive at it, a multiple of 32: a barrier of some of a CTA's warps.
+__device__ __forceinline__ void named_barrier_sync(int id, int count) {
+    asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(count) : "memory");
+}
+
 // ---- Thread-block clusters (sm_90) ----
 
 // This CTA's rank in its cluster.

@@ -32,6 +32,12 @@ def int8_matmul_t_ref(x: torch.Tensor, w8: torch.Tensor, s: torch.Tensor) -> tor
 # K2 (csrc/int8_matmul.cu) tiles K and N by 64: 64 k a pipeline stage,
 # 64 output columns a CTA.
 K2_TILE = 64
+# K3 (csrc/int8_matmul_t.cu) splits K into 32-k step pairs over eight
+# warps that hold their pairs of x in registers: K a multiple of 64 and at
+# most 1280 (every d_model of Whisper). The vocab's ragged last tile is
+# masked, so N is free.
+K3_K_TILE = 64
+K3_MAX_K = 1280
 
 
 def _check(x: torch.Tensor, w8: torch.Tensor, s: torch.Tensor, k: int, n: int) -> None:
@@ -73,7 +79,8 @@ def int8_matmul_t(x: torch.Tensor, w8: torch.Tensor, s: torch.Tensor) -> torch.T
         return int8_matmul_t_ref(x, w8, s)
     n, k = w8.shape
     _check(x, w8, s, k, n)
-    require(k % 16 == 0, f"K={k} must be a multiple of 16")
+    require(k % K3_K_TILE == 0 and k <= K3_MAX_K,
+            f"K={k} must be a multiple of {K3_K_TILE} and at most {K3_MAX_K}")
     out = torch.empty((x.shape[0], n), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         _kernels.launch(
