@@ -6,10 +6,12 @@ Phases (any failure exits non-zero; without CUDA it exits 1 before printing
 a result):
 
 1. Require CUDA; print the card's name and power limit (nvidia-smi).
-2. Build the six CUDA sources of whisperlive_tpu_torch/csrc with nvcc
+2. Build the five CUDA sources of whisperlive_tpu_torch/csrc with nvcc
    (one process per source, in parallel): nine kernel entry points. Print
-   what `nvcc -Xptxas -v` reports for K1, K2, K3 and the K4/K5 source
-   (registers, spills).
+   what `nvcc -Xptxas -v` reports for K1, K2, K3 and for each Tq
+   instantiation of the int8 cross-attention source (K4 and K5 at Tq = 1,
+   K6 and K5's window form at 2..8; registers, spills); any spill there
+   fails the phase.
 3. Hold each kernel against its plain PyTorch version on the card at the
    serving paths' shapes (large-v3) in bf16, with the stated tolerance,
    and time both (CUDA events, median of 20 runs of 10 calls), plus one
@@ -34,18 +36,19 @@ a result):
    lengths [1500,700,1,0]; K5 at [8,20,64] x [8,20,640,128] with mixed
    lengths, half the rows active, an active row of length 0, lengths on
    and past the chunk boundaries of its split over T, and 8/8, 4/8 and
-   1/8 rows active. K4 (every case) and K5 (the three occupancies) are
-   also timed cold (rotating over distinct K/V copies that exceed the L2),
-   each beside scaled_dot_product_attention at Tq = 1 on K and V
-   dequantized to bf16 (`sdpa_bf16_ms`; the port never calls it); their
-   entries carry the other cases as `other_shapes` and `cold`. The
-   speculative verify's kernels at k=4 (a window of 5 queries): K6 at
-   [1,20,5,64] x [1,20,1500,128] (and Tq=8, the shared-memory limit case);
-   K5's window form at [8,20,5,64] x [8,20,640,128] like K5; K7 at
-   [4,20,64] x 2x[4,20,1500,32] and [8,20,64] x 2x[8,20,640,32]; K8 at
-   [8,20,5,64] x 2x[8,20,640,32]. The cross-attention kernels' tolerance
-   is a share of each batch row's own max|ref|. The window kernel is also
-   timed at Tq=1 beside K4 and K5.
+   1/8 rows active. The speculative verify's kernels at k=4 (a window of 5
+   queries): K6 at [1,20,5,64] x [1,20,1500,128] and at Tq=8, each
+   unmasked and with lengths; K5's window form at [8,20,5,64] x
+   [8,20,640,128] in K5's cases but the chunk boundaries, and at Tq=8 with
+   8/8 active; K7 at [4,20,64] x 2x[4,20,1500,32] and [8,20,64] x
+   2x[8,20,640,32], unmasked and with lengths; K8 at [8,20,5,64] x
+   2x[8,20,640,32], unmasked and with lengths. Every case of K4 and K6-K8,
+   and K5's three occupancies, is also timed cold (rotating over distinct
+   K/V copies that exceed the L2), beside scaled_dot_product_attention at
+   the same Tq on K and V dequantized to bf16 (`sdpa_bf16_ms`; the port
+   never calls it); the entries carry the other cases as `other_shapes`
+   and `cold`. The cross-attention kernels' tolerance is a share of each
+   batch row's own max|ref|.
    Then the encoder forward: one encode call (32 layers) at mel
    [4,3000,128] and at the insert bucket's [8,1024,128] on the host clock,
    beside 32 x K1's time as K1's share, printed as {"encoder_forward": ...}.
@@ -69,7 +72,11 @@ a result):
    from the same parameters. Acceptance and committed tokens per round are
    printed. Each path's launch counters are reset just before its sessions
    and read after its schedulers stopped; every kernel of the path must
-   have launched, and the slot state must lie on the card.
+   have launched, and the slot state must lie on the card. A torch.profiler
+   window over two verify rounds prints the device time a round and the
+   verify kernel's share: K6 on the window route (one decode of two rounds
+   less one of none), K5's window form in an `all` pool of one round a
+   chunk.
 7. Check the output against a reference: the window path's encoder states
    and teacher-forced logits, the continuous step (decode_step_masked
    on an 8-slot pool with per-slot cross_len and free rows, teacher
@@ -92,6 +99,7 @@ from __future__ import annotations
 import asyncio
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -157,11 +165,10 @@ KERNELS = {
                              "whisperlive_tpu/ops/attention.py:158"),
     "cross_attention_int8_skip": ("whisperlive_tpu_torch/csrc/cross_attention_int8.cu",
                                   "whisperlive_tpu/ops/attention.py:212"),
-    "cross_attention_int8_window": ("whisperlive_tpu_torch/csrc/cross_attention_int8_window.cu",
+    "cross_attention_int8_window": ("whisperlive_tpu_torch/csrc/cross_attention_int8.cu",
                                     "whisperlive_tpu/ops/attention.py:409"),
-    "cross_attention_int8_skip_window": (
-        "whisperlive_tpu_torch/csrc/cross_attention_int8_window.cu",
-        "whisperlive_tpu/ops/attention.py:294"),
+    "cross_attention_int8_skip_window": ("whisperlive_tpu_torch/csrc/cross_attention_int8.cu",
+                                         "whisperlive_tpu/ops/attention.py:294"),
     "cross_attention_int4": ("whisperlive_tpu_torch/csrc/cross_attention_int4.cu",
                              "whisperlive_tpu/ops/attention.py:53"),
     "cross_attention_int4_window": ("whisperlive_tpu_torch/csrc/cross_attention_int4.cu",
@@ -245,13 +252,34 @@ def ptxas_summary(nvcc_stderr: str) -> str:
                      if "registers" in line or "spill" in line)
 
 
-def ptxas_usage(kernel: str) -> str:
-    """ptxas_summary of one kernel source compiled with the build's own flags."""
+def ptxas_stderr(kernel: str) -> str:
+    """What `nvcc -Xptxas -v` reports for one kernel source compiled with
+    the build's own flags."""
     src = _kernels.CSRC_DIR / f"{kernel}.cu"
     flags = [f for f in _kernels.NVCC_FLAGS if f != "-shared"]
-    run = subprocess.run([_kernels._nvcc(), *flags, "-Xptxas", "-v", "-c", "-o", os.devnull,
-                          str(src)], capture_output=True, text=True, check=True)
-    return ptxas_summary(run.stderr)
+    return subprocess.run([_kernels._nvcc(), *flags, "-Xptxas", "-v", "-c", "-o", os.devnull,
+                           str(src)], capture_output=True, text=True, check=True).stderr
+
+
+def ptxas_usage(kernel: str) -> str:
+    """ptxas_summary of one kernel source compiled with the build's own flags."""
+    return ptxas_summary(ptxas_stderr(kernel))
+
+
+def ptxas_by_tq(nvcc_stderr: str) -> dict[str, str]:
+    """ptxas_summary of each entry function of the int8 cross-attention
+    source, keyed "Tq=<n>" by its instantiation (a function that is no
+    template instantiation counts as Tq=1)."""
+    out, key = {}, None
+    for line in nvcc_stderr.splitlines():
+        entry = re.search(r"Compiling entry function '([^']+)'", line)
+        if entry:
+            tq = re.search(r"ILi(\d+)E", entry.group(1))
+            key = f"Tq={tq.group(1) if tq else 1}"
+            out[key] = []
+        elif key and ("registers" in line or "spill" in line):
+            out[key].append(line.split(":", 1)[-1].strip())
+    return {k: "; ".join(v) for k, v in sorted(out.items())}
 
 
 def bound(n_bytes: float, n_flops: float) -> dict:
@@ -525,25 +553,36 @@ def cross_int8_work(h: int, hd: int, used: list[int], n_rows: int, masked: bool)
     return n_bytes + (5 * n_rows if masked else 0), sum(4 * h * n * hd for n in used)
 
 
-def cross_int8_cold(label: str, call, q, kvp, rows, work: tuple) -> dict:
-    """`call(kvp)` with cold K/V: a run calls it once on each of
-    ceil(COLD_BYTES / n_bytes) distinct copies of kvp (n_bytes: what one
-    call reads), as a decode step finds each layer's cross-KV behind the
-    other layers' weights (`work`: its bytes and operations, from
-    cross_int8_work). Beside it, over as many copies dequantized to
-    bf16 beforehand, `sdpa_bf16_ms`: scaled_dot_product_attention at
-    Tq = 1 on the computed `rows` over all T positions (twice the bytes
-    and not the function; the port never calls it)."""
+def int8_kv_bf16(kvp):
+    """Packed int8 K|V [..., 128] -> K and V [..., 64] in bf16."""
+    hd = kvp.shape[-1] // 2
+    return kvp[..., :hd].to(torch.bfloat16), kvp[..., hd:].to(torch.bfloat16)
+
+
+def int4_kv_bf16(k4, v4):
+    """int4 K and V [..., 32] -> [..., 64] in bf16."""
+    return (attn_ops.unpack_int4(k4).to(torch.bfloat16),
+            attn_ops.unpack_int4(v4).to(torch.bfloat16))
+
+
+def cross_cold(label: str, call, kv: tuple, q, rows, work: tuple, to_bf16) -> dict:
+    """`call(*kv)` with cold K/V: a run calls it once on each of
+    ceil(COLD_BYTES / n_bytes) distinct copies of the K/V tensors `kv`
+    (n_bytes: what one call reads), as a decode step or a verify round
+    finds each layer's cross-KV behind the other layers' weights (`work`:
+    its bytes and operations). Beside it, over as many copies dequantized
+    to bf16 beforehand (`to_bf16(*kv)` -> K, V), `sdpa_bf16_ms`:
+    scaled_dot_product_attention of q's queries (Tq = 1 for a [B, H, 64]
+    q, else q's window) on the computed `rows` over all T positions (more
+    bytes and not the function; the port never calls it)."""
     copies = -(-COLD_BYTES // work[0])
-    kvps = [kvp] + [kvp.clone() for _ in range(copies - 1)]
-    ms = median_ms(rotating([lambda k=k: call(k) for k in kvps]), iters=10, reps=copies)
-    hd = q.shape[-1]
-    q4 = q[rows].unsqueeze(2)
-    kv_bf16 = [(k[rows][..., :hd].to(torch.bfloat16), k[rows][..., hd:].to(torch.bfloat16))
-               for k in kvps]
-    del kvps
+    sets = [kv] + [tuple(t.clone() for t in kv) for _ in range(copies - 1)]
+    ms = median_ms(rotating([lambda s=s: call(*s) for s in sets]), iters=10, reps=copies)
+    qs = q[rows] if q.dim() == 4 else q[rows].unsqueeze(2)
+    kv_bf16 = [to_bf16(*(t[rows] for t in s)) for s in sets]
+    del sets
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    sdpa_ms = median_ms(rotating([lambda k=k, v=v: sdpa(q4, k, v) for k, v in kv_bf16]),
+    sdpa_ms = median_ms(rotating([lambda k=k, v=v: sdpa(qs, k, v) for k, v in kv_bf16]),
                         iters=10, reps=copies)
     del kv_bf16
     torch.cuda.empty_cache()
@@ -559,7 +598,7 @@ def k4_phase(randn, int8, dev, h: int, hd: int, t_enc: int) -> dict:
     """K4, the window path's decode cross-attention, at q [B,H,64] x kvp
     [B,H,T,128] for the window path's batch buckets B = 1, 2, 4 over the
     full context, and at B = 4 with lengths [T, 700, 1, 0]; each timed warm
-    (the same K/V call after call) and cold (cross_int8_cold). f32 output;
+    (the same K/V call after call) and cold (cross_cold). f32 output;
     a probability that rounds to the other bf16 neighbour moves the output
     by ~2^-9 of it: 1e-3 of each row's max|ref|. The entry reports B = 4
     unmasked (its launches come from the window path at B <= 4)."""
@@ -577,10 +616,10 @@ def k4_phase(randn, int8, dev, h: int, hd: int, t_enc: int) -> dict:
         work = cross_int8_work(h, hd, used, b, lens is not None)
         r.update(bound(*work))
         warm.append(r)
-        cold.append(cross_int8_cold(
+        cold.append(cross_cold(
             "cross_attention_int8 " + label,
-            lambda k, q=q, ln=ln: attn_ops.cross_attention_int8(q, k, ln), q, kvp,
-            slice(None), work))
+            lambda k, q=q, ln=ln: attn_ops.cross_attention_int8(q, k, ln), (kvp,), q,
+            slice(None), work, int8_kv_bf16))
     log("cross_attention_int8 warm / cold (us): " + ", ".join(
         f"{w['shape']} {w['ms'] * 1e3:.6g} / {c['ms'] * 1e3:.6g}" for w, c in zip(warm, cold)))
     return dict(warm[2], max_abs_err=max(r["max_abs_err"] for r in warm), library_ms=None,
@@ -615,9 +654,10 @@ def k5_phase(randn, int8, dev, h: int, hd: int) -> dict:
         r.update(bound(*work))
         log(f"cross_attention_int8_skip {label}: bound {r['bound_ms']:.6g} ms ({r['bound_by']})")
         if time_cold:
-            cold.append(cross_int8_cold(
+            cold.append(cross_cold(
                 "cross_attention_int8_skip " + label,
-                lambda k: attn_ops.cross_attention_int8_skip(q, k, ln, ac), q, kvp, ac, work))
+                lambda k: attn_ops.cross_attention_int8_skip(q, k, ln, ac), (kvp,), q, ac, work,
+                int8_kv_bf16))
         return r
 
     mixed = [640, 300, 1, 640, 512, 17, 640, 100]
@@ -681,142 +721,155 @@ def kernel_phase(dev: torch.device) -> dict:
 
     results["cross_attention_int8"] = k4_phase(randn, int8, dev, h, hd, t_enc)
     results["cross_attention_int8_skip"] = k5_phase(randn, int8, dev, h, hd)
-    b5, t5 = CONT_SLOTS, K5_T
-
-    # The window kernel (cross_attention_window.cuh) at Tq = 1 against K4
-    # and K5 at their serving shapes: whether the window template could
-    # replace the single-query source. Held against the plain version; not
-    # an entry of the kernels line.
-    q, kvp = randn(BATCH, h, 1, hd, scale=0.05), int8(BATCH, h, t_enc, 2 * hd)
-    w4 = compare("cross_attention_int8_window at Tq=1",
-                 f"q [{BATCH},{h},1,{hd}] kvp [{BATCH},{h},{t_enc},{2 * hd}] (K4's shape)",
-                 lambda: attn_ops.cross_attention_int8_window(q, kvp),
-                 lambda: attn_ops.cross_attention_int8_window_ref(q, kvp), 2.0**-6, per_row=True)
-    q, kvp = randn(b5, h, 1, hd, scale=0.05), int8(b5, h, t5, 2 * hd)
-    ln = torch.full((b5,), t5, dtype=torch.int32, device=dev)
-    ac = torch.ones(b5, dtype=torch.bool, device=dev)
-    w5 = compare("cross_attention_int8_window at Tq=1",
-                 f"q [{b5},{h},1,{hd}] kvp [{b5},{h},{t5},{2 * hd}] 8/8 active (K5's shape)",
-                 lambda: attn_ops.cross_attention_int8_window(q, kvp, ln, ac),
-                 lambda: attn_ops.cross_attention_int8_skip_window_ref(q, kvp, ln, ac), 2.0**-6,
-                 per_row=True)
-    log(f"window kernel at Tq=1: {w4['ms']:.6g} ms vs K4 {results['cross_attention_int8']['ms']:.6g}"
-        f" ms; {w5['ms']:.6g} ms vs K5 {results['cross_attention_int8_skip']['ms']:.6g} ms")
     results.update(window_kernel_phase(randn, int8, dev, h, hd, t_enc))
     return results
 
 
 def window_kernel_phase(randn, int8, dev, h: int, hd: int, t_enc: int) -> dict:
     """K6, K5's window form, K7 and K8 at the speculative routes' shapes (a
-    verify window of SPEC_K + 1 queries). Tolerance as K4's family on the
-    card: 2^-6 of each active row's max|ref| (a probability may round to
-    the other bf16 neighbour; sums run in another order). No single
-    PyTorch call attends over int8 or int4 codes: library_ms is null."""
+    verify window of SPEC_K + 1 queries; K6 and K5's window form also at
+    Tq = 8, the most), each held against its plain version and timed warm
+    (the same K/V call after call) and cold (cross_cold, beside sdpa at the
+    same Tq). Tolerance as K4's family on the card: 2^-6 of each active
+    row's max|ref| (a probability may round to the other bf16 neighbour;
+    sums run in another order). No single PyTorch call attends over int8
+    or int4 codes: library_ms is null."""
     results = {}
     tq = SPEC_K + 1
+    b5, t5 = CONT_SLOTS, K5_T
+    mixed = [640, 300, 1, 640, 512, 17, 640, 100]
 
     def row_bytes(t, tq_, kv_bytes_per_pos):
         # K/V of one (b, h) row read once, the bf16 queries and f32 outputs
         return h * (t * kv_bytes_per_pos + tq_ * hd * (2 + 4))
 
+    def work(used, tq_, kv_bytes_per_pos, extra=0):
+        """(bytes, operations) of one call over rows of `used` positions."""
+        return (sum(row_bytes(n, tq_, kv_bytes_per_pos) for n in used) + extra,
+                sum(4 * h * tq_ * n * hd for n in used))
+
+    def summary(name, warm, cold):
+        log(f"{name} warm / cold (us): " + ", ".join(
+            f"{w['shape']} {w['ms'] * 1e3:.6g} / {c['ms'] * 1e3:.6g} (bound "
+            f"{c['bound_ms'] * 1e3:.6g}, sdpa_bf16 {c['sdpa_bf16_ms'] * 1e3:.6g})"
+            for w, c in zip(warm, cold)))
+
     # K6: the window route verifies one request over the full context
-    k6 = []
+    k6, k6_cold = [], []
     for tq_ in (tq, 8):
         q, kvp = randn(1, h, tq_, hd, scale=0.05), int8(1, h, t_enc, 2 * hd)
         full = torch.tensor([t_enc], dtype=torch.int32, device=dev)
         for ln in (None, full):
+            label = (f"q [1,{h},{tq_},{hd}] kvp [1,{h},{t_enc},{2 * hd}]"
+                     + ("" if ln is None else " lengths"))
             r = compare(
-                "cross_attention_int8_window",
-                f"q [1,{h},{tq_},{hd}] kvp [1,{h},{t_enc},{2 * hd}]"
-                + ("" if ln is None else " lengths"),
+                "cross_attention_int8_window", label,
                 lambda q=q, kvp=kvp, ln=ln: attn_ops.cross_attention_int8_window(q, kvp, ln),
                 lambda q=q, kvp=kvp, ln=ln: attn_ops.cross_attention_int8_window_ref(q, kvp, ln),
                 2.0**-6, per_row=True)
-            r.update(bound(row_bytes(t_enc, tq_, 2 * hd), 4 * h * tq_ * t_enc * hd))
+            w = work([t_enc], tq_, 2 * hd, 0 if ln is None else 4)
+            r.update(bound(*w))
             k6.append(r)
-    log(f"cross_attention_int8_window [1,{h},{tq},{hd}] x [1,{h},{t_enc}]: bound "
-        f"{k6[0]['bound_ms']:.6g} ms ({k6[0]['bound_by']})")
+            k6_cold.append(cross_cold(
+                "cross_attention_int8_window " + label,
+                lambda k, q=q, ln=ln: attn_ops.cross_attention_int8_window(q, k, ln), (kvp,), q,
+                slice(None), w, int8_kv_bf16))
+    summary("cross_attention_int8_window", k6, k6_cold)
     results["cross_attention_int8_window"] = dict(
-        k6[0], max_abs_err=max(r["max_abs_err"] for r in k6), library_ms=None)
+        k6[0], max_abs_err=max(r["max_abs_err"] for r in k6), library_ms=None,
+        other_shapes=k6[1:], cold=k6_cold)
 
-    # K5's window form: the continuous verify at the smoke pool's shape
-    b5, t5 = CONT_SLOTS, K5_T
-    q, kvp = randn(b5, h, tq, hd, scale=0.05), int8(b5, h, t5, 2 * hd)
+    # K5's window form: the continuous verify at the smoke pool's shape, in
+    # K5's cases, and at Tq = 8 with every row active
+    kvp = int8(b5, h, t5, 2 * hd)
+    qs = {tq_: randn(b5, h, tq_, hd, scale=0.05) for tq_ in (tq, 8)}
+    k5w, k5w_cold = [], []
 
-    def k5w_case(label, lens, act):
+    def k5w_case(label, lens, act, tq_=tq):
+        q = qs[tq_]
         ln = torch.tensor(lens, dtype=torch.int32, device=dev)
         ac = torch.tensor(act, device=dev)
+        label = f"q [{b5},{h},{tq_},{hd}] kvp [{b5},{h},{t5},{2 * hd}] {label}"
         r = compare(
-            "cross_attention_int8_skip_window",
-            f"q [{b5},{h},{tq},{hd}] kvp [{b5},{h},{t5},{2 * hd}] {label}",
+            "cross_attention_int8_skip_window", label,
             lambda: attn_ops.cross_attention_int8_window(q, kvp, ln, ac),
             lambda: attn_ops.cross_attention_int8_skip_window_ref(q, kvp, ln, ac), 2.0**-6,
             rows=ac, per_row=True)
         out = attn_ops.cross_attention_int8_window(q, kvp, ln, ac)
         check(not out[~ac].any(), f"cross_attention_int8_skip_window {label}: inactive rows "
               "must be zero")
-        n_bytes = sum(row_bytes(min(n, t5) or t5, tq, 2 * hd) for n, a in zip(lens, act) if a)
-        n_flops = sum(4 * h * tq * (min(n, t5) or t5) * hd for n, a in zip(lens, act) if a)
-        r.update(bound(n_bytes + b5 * 5, n_flops))
+        w = work([min(n, t5) or t5 for n, a in zip(lens, act) if a], tq_, 2 * hd, b5 * 5)
+        r.update(bound(*w))
+        k5w.append(r)
+        k5w_cold.append(cross_cold(
+            "cross_attention_int8_skip_window " + label,
+            lambda k: attn_ops.cross_attention_int8_window(q, k, ln, ac), (kvp,), q, ac, w,
+            int8_kv_bf16))
         return r
 
-    mixed = [640, 300, 1, 640, 512, 17, 640, 100]
-    k5w = [k5w_case("all active, lengths mixed", mixed, [True] * b5),
-           k5w_case("half active", mixed, [i % 2 == 0 for i in range(b5)]),
-           k5w_case("one active row, len 0", [0] + mixed[1:], [True] + [False] * (b5 - 1))]
-    occupancy = {n_act: k5w_case(f"{n_act}/{b5} active, len {t5}", [t5] * b5,
-                                 [i < n_act for i in range(b5)]) for n_act in (8, 4, 1)}
-    log("cross_attention_int8_skip_window occupancy: " + ", ".join(
-        f"{n}/{b5} active {r['ms']:.6g} ms (bound {r['bound_ms']:.6g})"
-        for n, r in occupancy.items()))
+    entry = k5w_case(f"8/{b5} active, len {t5}", [t5] * b5, [True] * b5)
+    for n_act in (4, 1):
+        k5w_case(f"{n_act}/{b5} active, len {t5}", [t5] * b5, [i < n_act for i in range(b5)])
+    k5w_case("all active, lengths mixed", mixed, [True] * b5)
+    k5w_case("half active", mixed, [i % 2 == 0 for i in range(b5)])
+    k5w_case("one active row, len 0", [0] + mixed[1:], [True] + [False] * (b5 - 1))
+    k5w_case(f"8/{b5} active, len {t5}", [t5] * b5, [True] * b5, tq_=8)
+    summary("cross_attention_int8_skip_window", k5w, k5w_cold)
     results["cross_attention_int8_skip_window"] = dict(
-        occupancy[8], max_abs_err=max(r["max_abs_err"] for r in k5w + list(occupancy.values())),
-        library_ms=None)
+        entry, max_abs_err=max(r["max_abs_err"] for r in k5w), library_ms=None,
+        other_shapes=k5w[1:], cold=k5w_cold)
 
     # K7: int4 decode steps, the window batch over the full context and the
     # continuous pool at its cross cap (the mixed route's shape, reported)
-    k7 = []
-    for b, t, lens in ((BATCH, t_enc, [t_enc, 700, 1, 0]),
-                       (CONT_SLOTS, t5, [640, 300, 1, 640, 512, 17, 640, 100])):
+    k7, k7_cold = [], []
+    for b, t, lens in ((BATCH, t_enc, [t_enc, 700, 1, 0]), (b5, t5, mixed)):
         q = randn(b, h, hd, scale=Q_SCALE_INT4)
         k4, v4 = int8(b, h, t, hd // 2), int8(b, h, t, hd // 2)
         for ln in (None, torch.tensor(lens, dtype=torch.int32, device=dev)):
+            label = (f"q [{b},{h},{hd}] k4/v4 [{b},{h},{t},{hd // 2}]"
+                     + ("" if ln is None else f" lengths {lens}"))
             r = compare(
-                "cross_attention_int4",
-                f"q [{b},{h},{hd}] k4/v4 [{b},{h},{t},{hd // 2}]"
-                + ("" if ln is None else f" lengths {lens}"),
+                "cross_attention_int4", label,
                 lambda q=q, k4=k4, v4=v4, ln=ln: attn_ops.cross_attention_int4(q, k4, v4, ln),
                 lambda q=q, k4=k4, v4=v4, ln=ln: attn_ops.cross_attention_int4_ref(q, k4, v4, ln),
                 2.0**-6, per_row=True)
             used = [t] * b if ln is None else [min(n, t) or t for n in lens]
-            r.update(bound(sum(row_bytes(n, 1, hd) for n in used) + (0 if ln is None else 4 * b),
-                           sum(4 * h * n * hd for n in used)))
+            w = work(used, 1, hd, 0 if ln is None else 4 * b)
+            r.update(bound(*w))
             k7.append(r)
-    log(f"cross_attention_int4 [{CONT_SLOTS},{h},{hd}] x [{CONT_SLOTS},{h},{t5}] lengths: bound "
-        f"{k7[3]['bound_ms']:.6g} ms ({k7[3]['bound_by']})")
+            k7_cold.append(cross_cold(
+                "cross_attention_int4 " + label,
+                lambda k, v, q=q, ln=ln: attn_ops.cross_attention_int4(q, k, v, ln), (k4, v4), q,
+                slice(None), w, int4_kv_bf16))
+    summary("cross_attention_int4", k7, k7_cold)
     results["cross_attention_int4"] = dict(
-        k7[3], max_abs_err=max(r["max_abs_err"] for r in k7), library_ms=None)
+        k7[3], max_abs_err=max(r["max_abs_err"] for r in k7), library_ms=None,
+        other_shapes=k7[:3], cold=k7_cold)
 
     # K8: the int4 verify of the continuous speculative pool
     q = randn(b5, h, tq, hd, scale=Q_SCALE_INT4)
     k4, v4 = int8(b5, h, t5, hd // 2), int8(b5, h, t5, hd // 2)
-    k8 = []
+    k8, k8_cold = [], []
     for ln in (None, torch.tensor(mixed, dtype=torch.int32, device=dev)):
+        label = (f"q [{b5},{h},{tq},{hd}] k4/v4 [{b5},{h},{t5},{hd // 2}]"
+                 + ("" if ln is None else f" lengths {mixed}"))
         r = compare(
-            "cross_attention_int4_window",
-            f"q [{b5},{h},{tq},{hd}] k4/v4 [{b5},{h},{t5},{hd // 2}]"
-            + ("" if ln is None else f" lengths {mixed}"),
+            "cross_attention_int4_window", label,
             lambda ln=ln: attn_ops.cross_attention_int4_window(q, k4, v4, ln),
             lambda ln=ln: attn_ops.cross_attention_int4_window_ref(q, k4, v4, ln), 2.0**-6,
             per_row=True)
         used = [t5] * b5 if ln is None else [min(n, t5) or t5 for n in mixed]
-        r.update(bound(sum(row_bytes(n, tq, hd) for n in used),
-                       sum(4 * h * tq * n * hd for n in used)))
+        w = work(used, tq, hd, 0 if ln is None else 4 * b5)
+        r.update(bound(*w))
         k8.append(r)
-    log(f"cross_attention_int4_window [{b5},{h},{tq},{hd}] x [{b5},{h},{t5}] lengths: bound "
-        f"{k8[1]['bound_ms']:.6g} ms ({k8[1]['bound_by']})")
+        k8_cold.append(cross_cold(
+            "cross_attention_int4_window " + label,
+            lambda k, v, ln=ln: attn_ops.cross_attention_int4_window(q, k, v, ln), (k4, v4), q,
+            slice(None), w, int4_kv_bf16))
+    summary("cross_attention_int4_window", k8, k8_cold)
     results["cross_attention_int4_window"] = dict(
-        k8[1], max_abs_err=max(r["max_abs_err"] for r in k8), library_ms=None)
+        k8[1], max_abs_err=max(r["max_abs_err"] for r in k8), library_ms=None,
+        other_shapes=k8[:1], cold=k8_cold)
     return results
 
 
@@ -1098,22 +1151,54 @@ def continuous_phase(engine: WhisperEngine) -> dict:
           steps * engine.cfg.n_text_layer, "K5 must launch once per decoder layer per step")
     check_sockets(sockets)
     check(any("language" in m for m in sockets[1].sent), "detected language never sent")
-    profile_continuous_step(cs)
+    profile_pool("continuous step", cs.cb, 2, "step",
+                 {"K5": int8_cross_kernel(1), "K3": re.compile("int8_matmul_t_kernel")})
     return launches
 
 
-def profile_continuous_step(cs: ContinuousScheduler, chunks: int = 2) -> None:
-    """torch.profiler over `chunks` step chunks of the serving pool with
-    three slots decoding: CUDA kernel launches per step, the device's
-    busy share of the wall time, and the device time per step of the five
-    largest CUDA kernels by name, of K4/K5's kernel (in these steps only
-    K5 launches it: K5's share of the step where it runs) and of K3's. Device
-    time sums the CUDA events only (a CPU op's device time repeats its
-    kernels'); a profiler that records no CUDA event is reported as not
-    measured."""
-    cb = cs.cb
+def cuda_profile(fn) -> tuple[list, float, int]:
+    """fn() under torch.profiler: (the CUDA events of key_averages(), wall
+    seconds, kernel launches). A CPU op's device time repeats its kernels',
+    so device time sums the CUDA events only."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        fn()
+        wall = time.monotonic() - t0
+    events = prof.key_averages()
+    launch_keys = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                   "cuLaunchKernelEx")
+    n_launch = sum(e.count for e in events if e.key in launch_keys)
+    return ([e for e in events if e.device_type == torch.autograd.DeviceType.CUDA], wall,
+            n_launch)
+
+
+def int8_cross_kernel(tq: int) -> re.Pattern:
+    """The CUDA event names of the int8 cross-attention kernel at Tq
+    queries: cross_attention_int8_kernel<Tq> (a single-query kernel
+    without template arguments counts as Tq = 1), or a window kernel over
+    the packed int8 row (Int8Packed) at Tq."""
+    single = r"|cross_attention_int8_kernel\(" if tq == 1 else ""
+    return re.compile(rf"cross_attention_int8_kernel<{tq}>|Int8Packed, {tq}>{single}")
+
+
+def device_us(events, pattern: re.Pattern | None = None) -> float:
+    return sum(e.self_device_time_total for e in events
+               if pattern is None or pattern.search(e.key))
+
+
+def profile_pool(label: str, cb, chunks: int, unit: str, named: dict) -> None:
+    """torch.profiler over `chunks` chunks of the pool `cb` with three
+    slots decoding 6 s windows: CUDA kernel launches per `unit` (a
+    decode step, or a verify round of a speculative pool:
+    cb.steps_per_chunk a chunk), the device's busy share of the wall time,
+    and the device time per unit of the five largest CUDA kernels by name
+    and of the kernels `named` ({label: name pattern}), each beside its
+    share of the device time. A profiler that records no CUDA event is
+    reported as not measured."""
     cb.init_state()
-    prompt, sot = cs.engine.build_prompt(
+    prompt, sot = cb.eng.build_prompt(
         backends_mod.transcribe_options_from_session(SessionOptions(language="en")),
         language="en")
     windows = np.zeros((3, 480000), np.float32)
@@ -1122,34 +1207,23 @@ def profile_continuous_step(cs: ContinuousScheduler, chunks: int = 2) -> None:
     cb.insert(windows, [prompt] * 3, [sot] * 3, [True] * 3, [0, 1, 2], [0.0] * 3, [True] * 3,
               [1.0] * 3, [cb.ring - 1] * 3, enc_ctx=512)
     cb.step()  # warm
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.monotonic()
-        for _ in range(chunks):
-            cb.step()
-        wall = time.monotonic() - t0
-    events = prof.key_averages()
-    launch_keys = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
-                   "cuLaunchKernelEx")
-    n_launch = sum(e.count for e in events if e.key in launch_keys)
-    on_card = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
-    device_us = sum(e.self_device_time_total for e in on_card)
-    n_steps = chunks * cb.steps_per_chunk
-    device = (f"device time {device_us / 1e3 / n_steps:.6g} ms per step in "
-              f"{len(on_card)} kinds of CUDA event, device busy share "
-              f"{device_us / 1e6 / wall:.6g}" if on_card
+    on_card, wall, n_launch = cuda_profile(lambda: [cb.step() for _ in range(chunks)])
+    n = chunks * cb.steps_per_chunk
+    total = device_us(on_card)
+    device = (f"device time {total / 1e3 / n:.6g} ms per {unit} in {len(on_card)} kinds of "
+              f"CUDA event, device busy share {total / 1e6 / wall:.6g}" if on_card
               else "device time not measured (no CUDA events recorded)")
-    log(f"continuous step profile ({n_steps} steps, 3 of {cb.n_slots} slots decoding): "
-        f"{n_launch / n_steps:.6g} kernel launches per step, wall {wall / n_steps * 1e3:.6g} "
-        f"ms per step under the profiler, {device}")
+    log(f"{label} profile ({n} {unit}s, 3 of {cb.n_slots} slots decoding): "
+        f"{n_launch / n:.6g} kernel launches per {unit}, wall {wall / n * 1e3:.6g} "
+        f"ms per {unit} under the profiler, {device}")
     top = sorted(on_card, key=lambda e: e.self_device_time_total, reverse=True)[:5]
-    k5 = [e for e in on_card if "cross_attention_int8_kernel" in e.key]
-    k3 = [e for e in on_card if "int8_matmul_t_kernel" in e.key]
-    for label, events in (("one of the five largest", top), ("K5", k5), ("K3", k3)):
+    groups = [("one of the five largest", top)] + [
+        (name, [e for e in on_card if pattern.search(e.key)]) for name, pattern in named.items()]
+    for name, events in groups:
         for e in events:
-            log(f"continuous step kernel ({label}): {e.self_device_time_total / n_steps:.6g} us "
-                f"per step in {e.count / n_steps:.6g} launches: {e.key[:160]}")
+            log(f"{label} kernel ({name}): {e.self_device_time_total / n:.6g} us per {unit} "
+                f"(share {e.self_device_time_total / max(total, 1e-9):.6g}) in "
+                f"{e.count / n:.6g} launches: {e.key[:160]}")
 
 
 # ---------------------------------------------------------------------------
@@ -1218,7 +1292,42 @@ def spec_window_phase(engine: WhisperEngine, draft: WhisperEngine) -> dict:
           "K6 must launch once per target layer per verify round")
     check_sockets(sockets)
     check(any("language" in m for m in sockets[0].sent), "detected language never sent")
+    profile_spec_decode(engine, spec)
     return launches
+
+
+def profile_spec_decode(engine: WhisperEngine, spec: SpeculativeDecoder) -> None:
+    """Device time a verify round of the window route: torch.profiler over
+    one speculative greedy decode of max_new_tokens 3 (both prefills and
+    the rounds for two tokens) less one of max_new_tokens 1 (both prefills
+    alone), on the same window, over the rounds the decoder counted; K6's
+    device time a round beside it, as its share."""
+    audio = np.zeros((1, 480000), np.float32)
+    audio[0, :96000] = speech_like(6.0, 50)
+    enc, cross = engine.prepare(audio)
+    cross_d = spec.cross_from_enc(enc)
+
+    def decode(max_new):
+        opts = TranscribeOptions(language="en", temperatures=(0.0,), max_new_tokens=max_new,
+                                 log_prob_threshold=None, no_speech_threshold=None,
+                                 compression_ratio_threshold=None)
+        prompt, sot = engine.build_prompt(opts, language="en")
+        before = spec.stats["iterations"]
+        on_card, _, _ = cuda_profile(lambda: spec.decode(cross, cross_d, prompt, sot, opts))
+        return on_card, spec.stats["iterations"] - before
+
+    decode(3)  # warm
+    (with_rounds, rounds), (prefill, _) = decode(3), decode(1)
+    if rounds < 1 or not with_rounds:
+        log("speculative window route profile: device time not measured "
+            f"({rounds} rounds, {len(with_rounds)} CUDA events)")
+        return
+    k6 = int8_cross_kernel(SPEC_K + 1)
+    per_round = (device_us(with_rounds) - device_us(prefill)) / rounds
+    k6_round = (device_us(with_rounds, k6) - device_us(prefill, k6)) / rounds
+    log(f"speculative window route profile ({rounds} verify rounds): device time "
+        f"{per_round / 1e3:.6g} ms per round, K6 {k6_round:.6g} us per round (share "
+        f"{k6_round / per_round:.6g})")
 
 
 def spec_pool(engine: WhisperEngine, draft: WhisperEngine, n_slots: int,
@@ -1278,6 +1387,13 @@ def spec_continuous_phase(engine: WhisperEngine, draft: WhisperEngine) -> dict:
                   "cross_attention_int8_skip_window")
     check_path("continuous spec route (all)", launches, SPEC_ALL_PATH)
     check_sockets(sockets)
+    # two verify rounds: a pool of the same shape at one round a chunk
+    profiled = ContinuousEngine(engine, n_slots=CONT_SLOTS, prompt_pad=cs.cb.prompt_pad,
+                                ring=SPEC_RING, steps_per_chunk=1, cross_ctx=640,
+                                enc_buckets=(512, 1500), draft_engine=draft, spec_k=SPEC_K)
+    profile_pool("continuous spec pool (all)", profiled, 2, "verify round",
+                 {"K5's window form": int8_cross_kernel(SPEC_K + 1),
+                  "K5 in the draft steps": int8_cross_kernel(1)})
     return launches
 
 
@@ -1647,8 +1763,13 @@ def main() -> int:
     k1_ptxas, k2_ptxas = ptxas_usage("fused_attention"), ptxas_usage("int8_matmul")
     log(f"fused_attention.cu, nvcc -Xptxas -v: {k1_ptxas}")
     log(f"int8_matmul.cu, nvcc -Xptxas -v: {k2_ptxas}")
-    cross_ptxas = ptxas_usage("cross_attention_int8")
-    log(f"cross_attention_int8.cu (K4 and K5), nvcc -Xptxas -v: {cross_ptxas}")
+    cross_ptxas = ptxas_by_tq(ptxas_stderr("cross_attention_int8"))
+    for tq, usage in cross_ptxas.items():
+        serves = "K4 and K5" if tq == "Tq=1" else "K6 and K5's window form"
+        log(f"cross_attention_int8.cu at {tq} ({serves}), nvcc -Xptxas -v: {usage}")
+    spills = [tq for tq, usage in cross_ptxas.items()
+              if any(int(n) for n in re.findall(r"(\d+) bytes spill", usage))]
+    check(not spills, f"cross_attention_int8.cu spills registers at {spills}")
     k3_ptxas = ptxas_usage("int8_matmul_t")
     log(f"int8_matmul_t.cu, nvcc -Xptxas -v: {k3_ptxas}")
 
@@ -1660,7 +1781,10 @@ def main() -> int:
     measured["int8_matmul"]["ptxas"] = k2_ptxas
     measured["int8_matmul_t"]["ptxas"] = k3_ptxas
     for name in ("cross_attention_int8", "cross_attention_int8_skip"):
-        measured[name]["ptxas"] = cross_ptxas
+        measured[name]["ptxas"] = cross_ptxas.get("Tq=1")
+    window_ptxas = {tq: u for tq, u in cross_ptxas.items() if tq != "Tq=1"}
+    for name in ("cross_attention_int8_window", "cross_attention_int8_skip_window"):
+        measured[name]["ptxas"] = window_ptxas or None
     # the int8 engine serves phases 4-6, an int4 engine built from the same
     # parameters the mixed route; each has a distil-large-v3 draft of its
     # cross-KV width (random weights from SEED + 1)

@@ -1,6 +1,6 @@
 """Time design variants of one hand-written kernel side by side on one card.
 
-    python3 kernel_variants.py k1|k2|k3
+    python3 kernel_variants.py k1|k2|k3|k6
 
 Each variant is a text edit of the kernel's committed source in
 whisperlive_tpu_torch/csrc/; "as built" is the source itself. One nvcc
@@ -32,6 +32,20 @@ k3  K3 (int8_matmul_t.cu) at chip_smoke's M = 1, 4, 8, 16, 40 against the
     streams every tile through the ring and the other warps only release
     the stages: the floor of K3's own copy mechanism in this timing) and
     "no stores" (everything but the stores of out).
+k6  K6 and K5's window form (cross_attention_int8.cu at Tq > 1) at the
+    window route's [1,20,Tq,64] x [1,20,1500,128] with lengths and the
+    8-slot pool's [8,20,Tq,64] x [8,20,640,128] with 8/8 active, at Tq = 5
+    (the verify window at k = 4) and 8, and at Tq = 1 (K4's and K5's
+    instantiation at the same B and T), timed cold as chip_smoke times the
+    cross-attention kernels (2^-6 of each row's max|ref|), beside the
+    bound. "no math" computes no output and is not checked: it keeps the
+    copy wave, the softmax's statistics over zero scores and the two
+    exchanges, and drops the score and PV products, the floor of this
+    design. "S / 2" and "S x 2" take half and twice the split that
+    splits_for picks (twice needs clusters of 16, the non-portable size);
+    "2 CTAs an SM" lets a window's instantiation take 128 registers; the
+    others change how many queries a score or PV pass takes and how many
+    independent sums a query's score takes.
 """
 
 from __future__ import annotations
@@ -62,9 +76,9 @@ class Built(NamedTuple):
     path: Path
 
 
-def build_all(source: str, entry: str, variants: dict) -> dict[str, Built]:
+def build_all(source: str, entries: tuple[str, ...], variants: dict) -> dict[str, Built]:
     """Compile every variant of csrc/<source> (in parallel) and load its C
-    entry point `entry`; a variant that fails to build is reported and
+    entry points `entries`; a variant that fails to build is reported and
     left out."""
     src = (_kernels.CSRC_DIR / source).read_text()
     procs = {}
@@ -88,9 +102,10 @@ def build_all(source: str, entry: str, variants: dict) -> dict[str, Built]:
             print(f"variant {name!r} failed to build:\n{err}", flush=True)
             continue
         lib = ctypes.CDLL(str(d / "lib.so"))
-        fn = getattr(lib, entry)
-        fn.argtypes = _kernels._SIGNATURES[entry]
-        fn.restype = ctypes.c_int
+        for entry in entries:
+            fn = getattr(lib, entry)
+            fn.argtypes = _kernels._SIGNATURES[entry]
+            fn.restype = ctypes.c_int
         built[name] = Built(lib, chip_smoke.ptxas_summary(err), d / "lib.so")
     if "as built" not in built:
         raise RuntimeError("the committed source failed to build")
@@ -338,10 +353,107 @@ def run_k3(built: dict[str, Built]) -> dict:
             "read_us": read_ms * 1e3, "variants": each_variant(built, run)}
 
 
+# ---------------------------------------------------------------------------
+# K6 and K5's window form: the speculative verify's int8 cross-attention
+# ---------------------------------------------------------------------------
+
+K6_SPLITS = "> kMaxChunkOf[tq]) s *= 2;\n    return s;"
+K6_SPLIT_CHECK = "(S != 1 && S != 2 && S != 4 && S != 8)"
+K6_RAISED = "if (raised != cudaSuccess) return static_cast<int>(raised);"
+K6_PV_TQ = "constexpr int kPvTq = kTq <= 5 ? kTq : (kTq + 1) / 2;"
+K6_SCORE_TQ = "constexpr int kScoreTq = kTq <= 6 ? kTq : (kTq + 1) / 2;"
+K6_BOUNDS = "kTq == 1 ? 1 : 3)"
+K6_CLUSTERS_OF_16 = [  # splits_for's own choice stays within 8
+    ("constexpr int kMaxSplits = 8;", "constexpr int kMaxSplits = 16;"),
+    ("while (s < kMaxSplits && bh * s", "while (s < 8 && bh * s"),
+    ("while (s < kMaxSplits && (T + s", "while (s < 8 && (T + s"),
+    (K6_SPLIT_CHECK, "(S != 1 && S != 2 && S != 4 && S != 8 && S != 16)"),
+    (K6_RAISED, K6_RAISED + " cudaFuncSetAttribute(cross_attention_int8_kernel<kTq>, "
+     "cudaFuncAttributeNonPortableClusterSizeAllowed, 1);"),
+]
+K6_VARIANTS = {
+    "as built": [],
+    "no math": [("            float dot[kTq];\n            score_of(j, dot);",
+                 "            float dot[kTq];\n            for (int t = 0; t < kTq; ++t) "
+                 "dot[t] = r0 + j < len ? 0.0f : wl::kNegInf;"),
+                ("if (j < rows) score_of(j, dot);",
+                 "if (j < rows) dot[0] = r0 + j < len ? 0.0f : wl::kNegInf;"),
+                ("for (int j = pr; j < rows; j += kPvLanes)",
+                 "for (int j = pr; j < rows - (1 << 30); j += kPvLanes)")],
+    "S / 2": [(K6_SPLITS, "> kMaxChunkOf[tq]) s *= 2;\n    return s > 1 ? s / 2 : 1;")],
+    "S x 2": K6_CLUSTERS_OF_16 + [(K6_SPLITS, "> kMaxChunkOf[tq]) s *= 2;\n    return 2 * s;")],
+    "2 CTAs an SM": [(K6_BOUNDS, "kTq == 1 ? 1 : 2)")],
+    "one score pass at every Tq": [(K6_SCORE_TQ, "constexpr int kScoreTq = kTq;")],
+    "PV in one pass": [(K6_PV_TQ, "constexpr int kPvTq = kTq;")],
+    "four score sums a query": [("constexpr int kChains = kTq == 1 ? 4 : kTq == 2 ? 2 : 1;",
+                                 "constexpr int kChains = 4;")],
+}
+K6_NO_OUTPUT = ("no math",)
+K6_ENTRIES = ("wl_cross_attention_int8_window", "wl_cross_attention_int8_skip_window")
+
+
+def k6_window(lib: ctypes.CDLL, q, kvp, ln, act) -> torch.Tensor:
+    """The wrappers' launch with this library: K6 without `act`, else K5's
+    window form."""
+    b, h, tq, hd = q.shape
+    t = kvp.shape[2]
+    out = torch.empty((b, h, tq, hd), dtype=torch.float32, device=q.device)
+    if act is None:
+        check_rc(lib.wl_cross_attention_int8_window(q.data_ptr(), kvp.data_ptr(), ln.data_ptr(),
+                                                    out.data_ptr(), b, h, t, tq, hd**-0.5,
+                                                    stream()))
+    else:
+        check_rc(lib.wl_cross_attention_int8_skip_window(
+            q.data_ptr(), kvp.data_ptr(), ln.data_ptr(), act.data_ptr(), out.data_ptr(), b, h, t,
+            tq, hd**-0.5, stream()))
+    return out
+
+
+def run_k6(built: dict[str, Built]) -> dict:
+    cfg = wmod.WHISPER_CONFIGS[chip_smoke.MODEL]
+    h, hd, t_enc = cfg.n_audio_head, cfg.head_dim, cfg.n_audio_ctx
+    b5, t5 = chip_smoke.CONT_SLOTS, chip_smoke.K5_T
+    randn, int8 = chip_smoke.random_makers(torch.device("cuda"), chip_smoke.SEED)
+    cases = []
+    for b, t, masked in ((1, t_enc, False), (b5, t5, True)):
+        ln = torch.full((b,), t, dtype=torch.int32, device="cuda")
+        act = torch.ones(b, dtype=torch.bool, device="cuda") if masked else None
+        n_bytes = b * h * t * 2 * hd
+        copies = -(-chip_smoke.COLD_BYTES // n_bytes)
+        kvps = [int8(b, h, t, 2 * hd) for _ in range(copies)]
+        for tq in (1, chip_smoke.SPEC_K + 1, 8):
+            q = randn(b, h, tq, hd, scale=0.05)
+            ref = attn_ops.cross_attention_int8_window_ref(q, kvps[0], ln)
+            work = (n_bytes + b * h * tq * hd * 6 + b * 5, 4 * b * h * tq * t * hd)
+            cases.append((f"[{b},{h},{tq},{hd}] x [{b},{h},{t},{2 * hd}]", q, kvps, ln, act, ref,
+                          chip_smoke.bound(*work)["bound_ms"] * 1e3))
+
+    def run(name: str, variant: Built) -> dict:
+        row = {"checked": name not in K6_NO_OUTPUT, "cold_us": {}, "max_abs_err": {}}
+        for label, q, kvps, ln, act, ref, _ in cases:
+            out = k6_window(variant.lib, q, kvps[0], ln, act)
+            if row["checked"]:
+                err = (out - ref).abs().flatten(1).amax(1)
+                tol = 2.0**-6 * ref.abs().flatten(1).amax(1)
+                if not bool((err <= tol).all()):
+                    raise RuntimeError(f"{label}: error {err.tolist()} over 2^-6 of each row's "
+                                       "max|ref|")
+                row["max_abs_err"][label] = err.max().item()
+            row["cold_us"][label] = chip_smoke.median_ms(chip_smoke.rotating(
+                [lambda k=k, q=q, ln=ln, act=act: k6_window(variant.lib, q, k, ln, act)
+                 for k in kvps]), iters=10, reps=len(kvps)) * 1e3
+        print(f"{name:14s} cold " + ", ".join(f"{label} {us:.6g} us"
+                                               for label, us in row["cold_us"].items()),
+              flush=True)
+        return row
+    return {"bound_us": {c[0]: c[6] for c in cases}, "variants": each_variant(built, run)}
+
+
 KERNELS = {
-    "k1": ("fused_attention.cu", "wl_fused_attention", K1_VARIANTS, run_k1),
-    "k2": ("int8_matmul.cu", "wl_int8_matmul", K2_VARIANTS, run_k2),
-    "k3": ("int8_matmul_t.cu", "wl_int8_matmul_t", K3_VARIANTS, run_k3),
+    "k1": ("fused_attention.cu", ("wl_fused_attention",), K1_VARIANTS, run_k1),
+    "k2": ("int8_matmul.cu", ("wl_int8_matmul",), K2_VARIANTS, run_k2),
+    "k3": ("int8_matmul_t.cu", ("wl_int8_matmul_t",), K3_VARIANTS, run_k3),
+    "k6": ("cross_attention_int8.cu", K6_ENTRIES, K6_VARIANTS, run_k6),
 }
 
 
@@ -352,12 +464,12 @@ def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("kernel_variants: needs a CUDA card", file=sys.stderr)
         return 1
-    source, entry, variants, run = KERNELS[argv[0]]
+    source, entries, variants, run = KERNELS[argv[0]]
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True)
     card = smi.stdout.strip().splitlines()[0]
     print(card, flush=True)
-    built = build_all(source, entry, variants)
+    built = build_all(source, entries, variants)
     for name, variant in built.items():
         print(f"{name}: {variant.ptxas}", flush=True)
     print(json.dumps({"card": card, "kernel": argv[0], **run(built)}))

@@ -1,40 +1,41 @@
-// Runs K4/K5 (csrc/cross_attention_int8.cu) on the CPU through common.cuh's
-// emulation.
+// Runs K4, K5, K6 and K5's window form (csrc/cross_attention_int8.cu) on
+// the CPU through common.cuh's emulation.
 //
-//   cross_int8_harness B H T S masks eager schedule in out
-//   cross_int8_harness splits B H T
+//   cross_int8_harness B H T Tq S masks eager schedule in out
+//   cross_int8_harness splits B H T Tq
 //
-// `in` holds q (bf16 [B, H, 64]), then kvp (int8 [B, H, T, 128]), then
-// lengths (int32 [B]) and active (uint8 [B]); `masks` is 0 (K4 without
-// lengths), 1 (K4 with lengths) or 2 (K5: lengths and active). `out`
-// receives the f32 [B, H, 64] output. `S` is the split over T (0: the
-// launcher's own choice). The kernel runs twice: with copies landing at
-// their wait (`eager` 0) or at once (1), `schedule` an emu::Schedule and
-// the clusters in launch order; then with the other copy timing, the next
-// schedule and the clusters in reverse. A copy from a K|V row the kernel
-// need not read (past a row's length, or of an inactive row) aborts. Prints the launcher's return code,
-// the split and whether the two outputs are equal bit for bit. The second
-// form prints the launcher's split for B*H rows of T positions.
+// `in` holds q (bf16 [B, H, Tq, 64]), then kvp (int8 [B, H, T, 128]), then
+// lengths (int32 [B]) and active (uint8 [B]); `masks` is 0 (no lengths: K4,
+// or K6 at Tq > 1), 1 (with lengths) or 2 (lengths and active: K5, or its
+// window form at Tq > 1). `out` receives the f32 [B, H, Tq, 64] output.
+// `S` is the split over T (0: the launcher's own choice). The kernel runs
+// twice: with copies landing at their wait (`eager` 0) or at once (1),
+// `schedule` an emu::Schedule and the clusters in launch order; then with
+// the other copy timing, the next schedule and the clusters in reverse. A
+// copy from a K|V row the kernel need not read (past a row's length, or of
+// an inactive row) aborts. Prints the launcher's return code, the split
+// and whether the two outputs are equal bit for bit. The second form
+// prints the launcher's split for B*H rows of T positions and Tq queries.
 #include "cross_attention_int8.cu"
 
 #include <fstream>
 #include <iterator>
 
 int main(int argc, char** argv) {
-    if (argc == 5 && std::strcmp(argv[1], "splits") == 0) {
-        printf("%d\n", splits_for(atoi(argv[2]) * atoi(argv[3]), atoi(argv[4])));
+    if (argc == 6 && std::strcmp(argv[1], "splits") == 0) {
+        printf("%d\n", splits_for(atoi(argv[2]) * atoi(argv[3]), atoi(argv[4]), atoi(argv[5])));
         return 0;
     }
-    if (argc != 10) {
-        fprintf(stderr, "usage: cross_int8_harness B H T S masks eager schedule in out\n");
+    if (argc != 11) {
+        fprintf(stderr, "usage: cross_int8_harness B H T Tq S masks eager schedule in out\n");
         return 2;
     }
-    const int B = atoi(argv[1]), H = atoi(argv[2]), T = atoi(argv[3]);
-    const int S = atoi(argv[4]) ? atoi(argv[4]) : splits_for(B * H, T);
-    const int masks = atoi(argv[5]), eager = atoi(argv[6]), schedule = atoi(argv[7]);
-    std::ifstream in(argv[8], std::ios::binary);
+    const int B = atoi(argv[1]), H = atoi(argv[2]), T = atoi(argv[3]), Tq = atoi(argv[4]);
+    const int S = atoi(argv[5]) ? atoi(argv[5]) : splits_for(B * H, T, Tq);
+    const int masks = atoi(argv[6]), eager = atoi(argv[7]), schedule = atoi(argv[8]);
+    std::ifstream in(argv[9], std::ios::binary);
     const std::vector<char> bytes((std::istreambuf_iterator<char>(in)), {});
-    const size_t q_bytes = size_t(B) * H * 128, kv_bytes = size_t(B) * H * T * 128;
+    const size_t q_bytes = size_t(B) * H * Tq * 128, kv_bytes = size_t(B) * H * T * 128;
     if (bytes.size() != q_bytes + kv_bytes + size_t(B) * 5) {
         fprintf(stderr, "input size\n");
         return 2;
@@ -63,12 +64,12 @@ int main(int argc, char** argv) {
         emu::eager_copies = (eager != 0) != (run == 1);
         emu::schedule = static_cast<emu::Schedule>((schedule + run) % 3);
         emu::reverse_ctas = run == 1;
-        out[run].assign(size_t(B) * H * 64, NAN);
+        out[run].assign(size_t(B) * H * Tq * 64, NAN);
         rc |= launch(qb.data(), kvb.data(), masks ? lb.data() : nullptr,
-                     masks == 2 ? ab.data() : nullptr, out[run].data(), B, H, T, 0.125f, S,
+                     masks == 2 ? ab.data() : nullptr, out[run].data(), B, H, T, Tq, 0.125f, S,
                      nullptr);
     }
-    std::ofstream(argv[9], std::ios::binary)
+    std::ofstream(argv[10], std::ios::binary)
         .write(reinterpret_cast<const char*>(out[0].data()), out[0].size() * 4);
     const bool same = std::memcmp(out[0].data(), out[1].data(), out[0].size() * 4) == 0;
     printf("rc=%d splits=%d identical=%d\n", rc, S, int(same));

@@ -12,8 +12,8 @@ version before it), K2 2^-7 (bf16 output, f32 sums in another order), K3
 1e-5 (f32 output), K4 1e-3 (a probability may round to the other bf16
 neighbour), K5 2^-6 on the active rows (K4's arithmetic; the loop stops
 at each row's length, so sums run in another order), K6, K5's window
-form, K7 and K8 2^-6 (the same arithmetic over a window of queries or
-int4 nibbles). The cross-attention kernels (K4-K8) are held per batch row,
+form (K4's source over a window of queries), K7 and K8 2^-6 (the same
+arithmetic over int4 nibbles). The cross-attention kernels (K4-K8) are held per batch row,
 against that row's own max|ref|: a length-1 row copies one V row and would
 otherwise set the tolerance of rows that average many. q is drawn at
 scale 0.05 against random int8 codes and 16x larger against int4 nibbles
@@ -266,8 +266,9 @@ def test_cross_attention_int8_kernels_same_bits_twice(cuda_device, b, t):
 
 # ---------------------------------------------------------------------------
 # K6, K5's window form, K7 and K8. Tolerances as K4's family on the card:
-# 2^-6 of max|ref| (K4's bf16 probability rounding, sums in another order,
-# and for a window one shared-memory score row per query)
+# 2^-6 of max|ref| (K4's bf16 probability rounding, sums in another order).
+# K6 and K5's window form are K4's source at Tq > 1 (split over T across a
+# cluster); K7 and K8 keep one shared-memory score row per query.
 # ---------------------------------------------------------------------------
 
 
@@ -276,11 +277,11 @@ def _int8(rng, shape):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("tq", [1, 2, 5, 8])
+@pytest.mark.parametrize("tq", range(1, 9))
 @pytest.mark.parametrize("lengths", [None, [1500]], ids=["unmasked", "lengths"])
 def test_cross_attention_int8_window_kernel_on_card(cuda_device, tq, lengths):
     """K6 at the window route's shape: one request over the full 1500-position
-    context, Tq = 8 included (48,000 bytes of score rows)."""
+    context (a split over T of 8 CTAs of 188 rows), at every Tq."""
     rng = np.random.default_rng(tq)
     q, kvp = _gpu(rng, (1, 20, tq, 64), Q_SCALE_INT8), _int8(rng, (1, 20, 1500, 128))
     ln = None if lengths is None else torch.tensor(lengths, dtype=torch.int32, device="cuda")
@@ -288,6 +289,52 @@ def test_cross_attention_int8_window_kernel_on_card(cuda_device, tq, lengths):
     out = tattn.cross_attention_int8_window(q, kvp, ln)
     assert _kernels.launches["cross_attention_int8_window"] == n + 1
     assert _rows_close(out, tattn.cross_attention_int8_window_ref(q, kvp, ln), 2.0**-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tq", [2, 8])
+def test_cross_attention_int8_window_kernel_at_8192_positions(cuda_device, tq):
+    """K6 at the wrappers' largest T: 8 CTAs a row of 1024 rows each, the
+    most a CTA holds at Tq = 8 (beside its 8 score rows), with lengths
+    past the chunk boundaries and 0."""
+    rng = np.random.default_rng(20 + tq)
+    q, kvp = _gpu(rng, (2, 4, tq, 64), Q_SCALE_INT8), _int8(rng, (2, 4, 8192, 128))
+    for ln in (None, torch.tensor([8192 - 1023, 0], dtype=torch.int32, device="cuda")):
+        assert _rows_close(tattn.cross_attention_int8_window(q, kvp, ln),
+                           tattn.cross_attention_int8_window_ref(q, kvp, ln), 2.0**-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tq", range(2, 9))
+def test_cross_attention_int8_skip_window_kernel_at_every_tq(cuda_device, tq):
+    """K5's window form at the 8-slot pool's shape (2 CTAs a row of 320
+    rows), mixed lengths with a 0 and half the rows active, at every Tq."""
+    rng = np.random.default_rng(30 + tq)
+    q, kvp = _gpu(rng, (8, 20, tq, 64), Q_SCALE_INT8), _int8(rng, (8, 20, 640, 128))
+    ln = torch.tensor([640, 300, 1, 0, 512, 17, 321, 100], dtype=torch.int32, device="cuda")
+    act = torch.tensor([i % 2 == 0 or i == 3 for i in range(8)], device="cuda")
+    n = _kernels.launches["cross_attention_int8_skip_window"]
+    out = tattn.cross_attention_int8_window(q, kvp, ln, act)
+    ref = tattn.cross_attention_int8_skip_window_ref(q, kvp, ln, act)
+    assert _kernels.launches["cross_attention_int8_skip_window"] == n + 1
+    assert torch.isfinite(out).all() and not out[~act].any()
+    assert _rows_close(out[act], ref[act], 2.0**-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tq", [2, 5, 8])
+def test_cross_attention_int8_window_kernels_same_bits_twice(cuda_device, tq):
+    """K6 and K5's window form sum the cluster's partials in rank order,
+    without atomics: two calls on the same inputs give the same bits."""
+    rng = np.random.default_rng(40 + tq)
+    q1, kv1 = _gpu(rng, (1, 20, tq, 64), Q_SCALE_INT8), _int8(rng, (1, 20, 1500, 128))
+    q8, kv8 = _gpu(rng, (8, 20, tq, 64), Q_SCALE_INT8), _int8(rng, (8, 20, 640, 128))
+    ln = torch.tensor([640, 300, 1, 0, 320, 321, 2, 640], dtype=torch.int32, device="cuda")
+    act = torch.tensor([True, False, True, True, True, False, True, True], device="cuda")
+    for call in (lambda: tattn.cross_attention_int8_window(q1, kv1),
+                 lambda: tattn.cross_attention_int8_window(q1, kv1, ln[:1]),
+                 lambda: tattn.cross_attention_int8_window(q8, kv8, ln, act)):
+        assert torch.equal(call(), call())
 
 
 @pytest.mark.cuda

@@ -64,6 +64,23 @@ def test_k6_plain_version_matches_pallas(lengths, tq):
                                    atol=1e-4, rtol=1e-5)
 
 
+def test_k6_plain_version_matches_pallas_full_window_over_the_encoder_context():
+    """Tq = 8 (the largest window) over T = 1500 positions, one row of
+    full length and one of length 0 (every query a uniform softmax)."""
+    q, kvp = window_inputs(8, b=2, h=2, tq=8, t=1500)
+    lengths = [1500, 0]
+    ref = jattn.cross_attention_int8_window(jnp.asarray(q), jnp.asarray(kvp),
+                                            lengths=jnp.asarray(lengths, jnp.int32),
+                                            interpret=True)
+    out = tattn.cross_attention_int8_window(torch.from_numpy(q), torch.from_numpy(kvp),
+                                            torch.tensor(lengths, dtype=torch.int32))
+    assert out.dtype == torch.float32 and out.shape == q.shape
+    assert_close(out, ref)
+    v = kvp[1, :, :, 64:].astype(np.float32).mean(axis=1)
+    np.testing.assert_allclose(out[1].numpy(), np.broadcast_to(v[:, None], (2, 8, 64)),
+                               atol=1e-4, rtol=1e-5)
+
+
 @pytest.mark.parametrize("case", ["mixed_lengths", "half_active", "len0_active"])
 def test_k5_window_form_plain_version_matches_pallas(case):
     q, kvp = window_inputs(11, b=6, tq=5, t=64)
@@ -150,4 +167,6 @@ def test_cpu_tensors_take_the_plain_path_without_counting():
     assert {"cross_attention_int8_window", "cross_attention_int8_skip_window",
             "cross_attention_int4", "cross_attention_int4_window"} <= set(_kernels.KERNELS)
     names = {p.name for p in _kernels.sources()}
-    assert {"cross_attention_int8_window.cu", "cross_attention_int4.cu"} <= names
+    # K6 and K5's window form are instantiations of K4's source
+    assert {"cross_attention_int8.cu", "cross_attention_int4.cu"} <= names
+    assert "cross_attention_int8_window.cu" not in names

@@ -1,32 +1,43 @@
-// K4 and K5: single-query cross-attention over packed int8 K|V, output f32,
-// each (b, h) split over T across a thread-block cluster.
+// K4, K5, K6 and K5's window form: cross-attention of Tq <= 8 queries over
+// packed int8 K|V, output f32, each (b, h) split over T across a
+// thread-block cluster.
 //
-// Replaces two TPU kernels of whisperlive_tpu/ops/attention.py:
+// Replaces four TPU kernels of whisperlive_tpu/ops/attention.py:
 // - _cross_attn_int8_kernel (:158), behind cross_attention_int8 (:354):
 //   every decode step of the window path and the language-ID prefill
-//   (Tq = 1), with optional lengths. Entry: wl_cross_attention_int8.
+//   (Tq = 1), with optional lengths. Entry: wl_cross_attention_int8 (K4).
 // - _cross_attn_int8_dma_kernel (:212), behind _cross_attention_int8_skip
 //   (:314): the continuous scheduler's lockstep step, with per-slot lengths
-//   and an active mask. Entry: wl_cross_attention_int8_skip.
-// Both attend q [B, H, 64] (per-channel K scales folded in by the caller)
-// over kvp [B, H, T, 128] int8, each 128-byte row holding K in bytes
-// [0, 64) and V in [64, 128). Scores and softmax are f32; positions >=
-// len[b] count as f32-min, so a row whose every position is masked (len <=
-// 0) gives a uniform softmax over all T; the normalised probabilities are
-// cast to bf16 (q's dtype) before the PV sum, where the reference rounds
-// them; the output is f32 and the V scales are applied by the caller. Rows
-// whose active[b] is 0 (done lanes, free slots) read no K/V and are written
-// as zeros (the TPU kernel left them unwritten; zeros keep NaN out of the
-// caller's later arithmetic).
+//   and an active mask. Entry: wl_cross_attention_int8_skip (K5).
+// - _cross_attn_int8_window_kernel (:409), behind
+//   cross_attention_int8_window (:443): the window route's speculative
+//   verify, a window of Tq <= 8 queries with optional lengths. Entry:
+//   wl_cross_attention_int8_window (K6).
+// - the window form of _cross_attention_int8_skip (a 4-D q, :294-311): the
+//   continuous pool's verify, with lengths and an active mask. Entry:
+//   wl_cross_attention_int8_skip_window (K5's window form).
+// All attend q [B, H, Tq, 64] ([B, H, 64] at Tq = 1; per-channel K scales
+// folded in by the caller) over kvp [B, H, T, 128] int8, each 128-byte row
+// holding K in bytes [0, 64) and V in [64, 128). Scores and softmax are
+// f32; positions >= len[b] count as f32-min, so a row whose every position
+// is masked (len <= 0) gives every query a uniform softmax over all T; the
+// normalised probabilities are cast to bf16 (q's dtype) before the PV sum,
+// where the reference rounds them; the output is f32 and the V scales are
+// applied by the caller. Rows whose active[b] is 0 (done lanes, free slots)
+// read no K/V and are written as zeros (the TPU kernels left them
+// unwritten; zeros keep NaN out of the caller's later arithmetic).
 //
 // What bounds it on the card: the K|V bytes of the rows it must read, n x
 // 128 bytes a (b, h), where n = min(len[b], T), or T without lengths or
 // where len[b] <= 0 (positions >= len have probability exactly 0
-// otherwise), at about one FLOP a byte: 15.4 MB per layer at large-v3,
-// B = 4, T = 1500, or 4.6 us at 3.35 TB/s. The card needs ~3 MB of loads in
-// flight to stream at that rate, while a (b, h) row is 80-192 KB: one CTA a
-// row (80 CTAs at B = 4, 20 at B = 1) can neither fill the card nor hide
-// the latency of HBM. The design:
+// otherwise), read once a window and not once a query, which is the point
+// of the TPU's window kernel; about Tq FLOP a byte beside them. 15.4 MB per
+// layer at large-v3, B = 4, T = 1500 (K4), or 4.6 us at 3.35 TB/s; 3.84 MB
+// for the window route's one request of 20 heads (K6), 1.15 us. The card
+// needs ~3 MB of loads in flight to stream at that rate, while a (b, h) row
+// is 80-192 KB: one CTA a row (80 CTAs at B = 4, 20 at B = 1) can neither
+// fill the card nor hide the latency of HBM. The design, one instantiation
+// of the kernel for each Tq (kTq = 1 serves K4 and K5):
 //
 // - A thread-block cluster of S CTAs per (b, h), S in {1, 2, 4, 8} from B*H
 //   and T (splits_for): enough that B*H*S reaches 2 CTAs per SM of the
@@ -39,29 +50,45 @@
 //   and V halves together, into shared memory (the 8 pieces of a row
 //   XOR-swizzled by the row's index mod 8), then commits once and waits
 //   once: one pass over HBM with all of it in flight.
-// - Scores: one thread a row, over the whole K half in four independent FMA
-//   chains, q as f32 in shared memory (every lane reads the same address);
-//   int8 becomes f32 without the I2F pipe (a prmt into the mantissa of
-//   2^23, then a subtraction, both exact). A thread keeps its scores (at
-//   most kRowsPerThread) in registers; the CTA forms its max m_r, then its
-//   sum l_r = sum exp(s - m_r) (an empty chunk: m_r = -inf, l_r = 0).
-// - Exchange 1: each CTA stores (m_r, l_r) into every rank's shared memory
-//   (distributed shared memory); after a cluster barrier each forms m = max
-//   m_r and total = sum l_r exp(m_r - m) in rank order. An empty chunk adds
-//   exactly 0 (m is finite, since n >= 1 and masked scores are f32-min).
-//   Each thread then writes p_t = bf16(exp(s_t - m) / total) over its
-//   scores in shared memory.
+// - Scores: one thread a row, the row's K half read once from HBM (from
+//   shared memory twice at Tq = 7 and 8, half the queries each time, to
+//   stay within the registers) and scored against every query of the
+//   window, in four independent FMA chains a query at Tq = 1 (two at Tq =
+//   2, one above), q as f32 in shared memory (every lane reads the same
+//   address); int8 becomes
+//   f32 without the I2F pipe (a prmt into the mantissa of 2^23, then a
+//   subtraction, both exact). At Tq = 1 a thread keeps its scores (at most
+//   kRowsPerThread) in registers and the CTA forms the max m_r, then the sum
+//   l_r = sum exp(s - m_r); a window writes its Tq score rows to shared
+//   memory and warp t forms query t's (m_r, l_r) over row t, so that no
+//   thread holds Tq x rows scores or computes another query's exponentials
+//   (an empty chunk: m_r = -inf, l_r = 0 for every query).
+// - Exchange 1: each CTA stores its kTq pairs (m_r, l_r) into every rank's
+//   shared memory (distributed shared memory); after a cluster barrier,
+//   m = max m_r and total = sum l_r exp(m_r - m) over the ranks, in rank
+//   order at Tq = 1 (every thread) and by warp t's lanes in a fixed
+//   butterfly for query t of a window. An empty chunk adds exactly 0 (m is
+//   finite, since n >= 1 and masked scores are f32-min). Then p_t =
+//   bf16(exp(s_t - m) / total) goes into the query's score row in shared
+//   memory.
 // - PV from shared memory, 32 position lanes x 8 groups of 8 channels (the
 //   two position lanes of a half-warp on rows 4 apart, so that the swizzle
-//   keeps their reads on distinct banks), shuffles and a block sum into a
-//   64-float partial. Exchange 2: each CTA stores its partial's channels
-//   [64r/S, 64(r+1)/S) into rank r's shared memory; after a second cluster
-//   barrier rank r sums them in rank order and writes them. Every remote
+//   keeps their reads on distinct banks), each V row read once for up to 5
+//   queries (a window of 6-8 in two passes: at most 5 x 8 sums a thread),
+//   shuffles and a block sum into a kTq x 64-float partial. Exchange 2:
+//   each CTA stores output i of its partial (i = query x 64 + channel) into
+//   the shared memory of rank i / (kTq*64/S); after a second cluster
+//   barrier rank r sums its share in rank order and writes it. Every remote
 //   store precedes a barrier that its target passes before it reads or
 //   exits, and a cluster barrier arrived at the start (and waited on before
 //   the first remote store) ensures every target has started. No
 //   workspace, no atomics, no host synchronisation: two calls give the same
 //   bits.
+// - The rows a CTA can hold shrink as Tq grows (its Tq score rows and the
+//   tail share the 227 KB): 1536 up to Tq = 3, 1280 up to 7, 1024 at 8, so
+//   T <= 8192 fits at S = 8 for every Tq. A window's instantiation keeps to
+//   80 registers a thread, so that three CTAs share an SM: the 8-slot pool's
+//   verify (320 CTAs of 320 rows) then runs in one wave of the 396 places.
 #include "common.cuh"
 
 namespace {
@@ -74,25 +101,46 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kPvLanes = kThreads / 8;  // PV position lanes, 8 channels a thread
 constexpr int kMaxSplits = 8;           // the portable cluster size
+constexpr int kMaxTq = 8;               // queries a window at most
 constexpr int kTargetCtas = 264;        // 2 per SM of the H100's 132
 constexpr int kMinChunk = 64;           // rows a further split must leave a CTA
-constexpr int kMaxChunk = 1536;         // rows a CTA can hold (~200 KB)
-constexpr int kRowsPerThread = kMaxChunk / kThreads;  // score rows a thread at most
+constexpr size_t kSmemLimit = 232448;   // dynamic shared memory a CTA may have
 constexpr float kLog2e = 1.4426950408889634f;
 
-// Shared memory after the chunk's rows and scores.
+// Shared memory after the chunk's rows, score rows and the PV sums of every
+// rank (S x kTq x 64 floats: this rank's share of each).
+template <int kTq>
 struct Tail {
-    float qf[kHd];                   // q in f32
-    float2 stats[kMaxSplits];        // (m_r, l_r) of every rank, stored by each
-    float parts[kMaxSplits][kHd];    // PV sums of every rank (this rank's share)
-    float warp_part[kWarps][kHd];    // PV sums of each warp
-    float red_max[kWarps], red_sum[kWarps];
+    float qf[kTq][kHd];                     // q in f32
+    float2 stats[kMaxSplits][kTq];          // (m_r, l_r) of every rank, stored by each
+    float warp_part[kWarps][kTq * kHd];     // PV sums of each warp
+    float red_max[kWarps], red_sum[kWarps];  // the CTA's reductions at Tq = 1
 };
 
-__host__ __device__ inline size_t smem_bytes(int cap) {
-    return static_cast<size_t>(cap) * kRow + (static_cast<size_t>(cap) * 4 + 15) / 16 * 16 +
-           sizeof(Tail);
+template <int kTq>
+__host__ __device__ inline size_t parts_at(int cap) {
+    return static_cast<size_t>(cap) * kRow + (static_cast<size_t>(cap) * 4 * kTq + 15) / 16 * 16;
 }
+
+template <int kTq>
+__host__ __device__ inline size_t smem_bytes(int cap, int S) {
+    return parts_at<kTq>(cap) + static_cast<size_t>(S) * kTq * kHd * 4 + sizeof(Tail<kTq>);
+}
+
+// Rows a CTA can hold at kTq queries: whole passes of kThreads rows whose
+// K|V, score rows, partial sums (at S = kMaxSplits) and tail fit in
+// kSmemLimit, at most 1536 (~200 KB at Tq = 1).
+template <int kTq>
+constexpr int max_chunk() {
+    const int fit = static_cast<int>(
+        (kSmemLimit - sizeof(Tail<kTq>) - kMaxSplits * kTq * kHd * 4 - 15) / (kRow + 4 * kTq));
+    return fit / kThreads * kThreads < 1536 ? fit / kThreads * kThreads : 1536;
+}
+template <int kTq>
+constexpr int kMaxChunk = max_chunk<kTq>();
+constexpr int kMaxChunkOf[kMaxTq + 1] = {0, kMaxChunk<1>, kMaxChunk<2>, kMaxChunk<3>,
+                                         kMaxChunk<4>, kMaxChunk<5>, kMaxChunk<6>,
+                                         kMaxChunk<7>, kMaxChunk<8>};
 
 // Byte offset in shared memory of 16-byte piece p of row r: the pieces of
 // a row are XOR-swizzled by r % 8, so that 8 lanes reading the same piece
@@ -139,20 +187,25 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
 }
 
 // Grid (S * B * H), clusters of S CTAs: cluster bh is row (bh / H, bh % H).
-__global__ void __launch_bounds__(kThreads)
+// A window keeps to 80 registers (three CTAs an SM).
+template <int kTq>
+__global__ void __launch_bounds__(kThreads, kTq == 1 ? 1 : 3)
 cross_attention_int8_kernel(const bf16* __restrict__ q, const int8_t* __restrict__ kvp,
                             const int* __restrict__ lengths, const uint8_t* __restrict__ active,
                             float* __restrict__ out, int H, int T, int S, float scale) {
+    constexpr int kRowsPerThread = kMaxChunk<kTq> / kThreads;  // score rows a thread at most
+    constexpr int kOut = kTq * kHd;                            // outputs of a (b, h)
+    constexpr int kPvTq = kTq <= 5 ? kTq : (kTq + 1) / 2;      // queries a PV pass
     extern __shared__ __align__(16) unsigned char smem[];
     const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
     const int rank = static_cast<int>(wl::cluster_rank());
     const long long bh = blockIdx.x / S;
     const int b = static_cast<int>(bh / H);
-    const int share = kHd / S;  // output channels this rank writes
-    float* o = out + bh * kHd + rank * share;
+    const int share = kOut / S;  // outputs this rank writes
+    float* o = out + bh * kOut + rank * share;
     if (active != nullptr && !active[b]) {
         // a cluster is one (b, h): every rank returns here, before any barrier
-        if (tid < share) o[tid] = 0.0f;
+        for (int i = tid; i < share; i += kThreads) o[i] = 0.0f;
         return;
     }
     wl::cluster_arrive_relaxed();  // this CTA has started; waited on before any remote store
@@ -163,157 +216,247 @@ cross_attention_int8_kernel(const bf16* __restrict__ q, const int8_t* __restrict
     const int r0 = min(n, rank * c);
     const int rows = min(n, r0 + c) - r0;  // this CTA's chunk; empty when rank * c >= n
     unsigned char* kv = smem;  // [cap][kRow], pieces swizzled (piece_at)
-    float* score = reinterpret_cast<float*>(smem + cap * kRow);
-    Tail& tl = *reinterpret_cast<Tail*>(smem + smem_bytes(cap) - sizeof(Tail));
+    float* score = reinterpret_cast<float*>(smem + cap * kRow);     // [kTq][cap]
+    float* parts = reinterpret_cast<float*>(smem + parts_at<kTq>(cap));  // [S][kOut]
+    Tail<kTq>& tl =
+        *reinterpret_cast<Tail<kTq>*>(smem + smem_bytes<kTq>(cap, S) - sizeof(Tail<kTq>));
 
     // The copy wave: one commit, one wait.
     const int8_t* src = kvp + (bh * T + r0) * kRow;
     for (int i = tid; i < rows * 8; i += kThreads)
         wl::cp_async_16(kv + piece_at(i >> 3, i & 7), src + i * 16, true);
     wl::cp_async_commit();
-    if (tid < kHd) tl.qf[tid] = __bfloat162float(q[bh * kHd + tid]);
+    for (int i = tid; i < kOut; i += kThreads)
+        tl.qf[i / kHd][i % kHd] = __bfloat162float(q[bh * kOut + i]);
     wl::cp_async_wait<0>();
     __syncthreads();  // the chunk and q landed for every thread
 
     // Scores: thread t takes rows t, t + kThreads, ..., the whole K half of
-    // each, in four independent sums; q is read from shared memory (every
+    // each against kScoreTq queries a pass, in four independent sums
+    // (kChains) a query at Tq = 1, two at Tq = 2 and one above, where the
+    // queries' sums are independent; q is read from shared memory (every
     // lane the same address).
-    auto score_of = [&](int j) {
-        float d[4];
+    constexpr int kChains = kTq == 1 ? 4 : kTq == 2 ? 2 : 1;
+    constexpr int kScoreTq = kTq <= 6 ? kTq : (kTq + 1) / 2;
+    auto score_of = [&](int j, float (&dot)[kTq]) {
 #pragma unroll
-        for (int p = 0; p < 4; ++p) {
-            const uint4 w = *reinterpret_cast<const uint4*>(kv + piece_at(j, p));
-            float kf[16];
-            i8x4_to_f32(w.x, kf);
-            i8x4_to_f32(w.y, kf + 4);
-            i8x4_to_f32(w.z, kf + 8);
-            i8x4_to_f32(w.w, kf + 12);
-            d[p] = 0.0f;
+        for (int t0 = 0; t0 < kTq; t0 += kScoreTq) {
+            float d[kScoreTq][kChains];
 #pragma unroll
-            for (int i = 0; i < 16; i += 4) {
-                const float4 qv = *reinterpret_cast<const float4*>(&tl.qf[16 * p + i]);
-                d[p] = fmaf(qv.x, kf[i], d[p]);
-                d[p] = fmaf(qv.y, kf[i + 1], d[p]);
-                d[p] = fmaf(qv.z, kf[i + 2], d[p]);
-                d[p] = fmaf(qv.w, kf[i + 3], d[p]);
+            for (int t = 0; t < kScoreTq; ++t) {
+#pragma unroll
+                for (int h = 0; h < kChains; ++h) d[t][h] = 0.0f;
+            }
+#pragma unroll
+            for (int p = 0; p < 4; ++p) {
+                const uint4 w = *reinterpret_cast<const uint4*>(kv + piece_at(j, p));
+                float kf[16];
+                i8x4_to_f32(w.x, kf);
+                i8x4_to_f32(w.y, kf + 4);
+                i8x4_to_f32(w.z, kf + 8);
+                i8x4_to_f32(w.w, kf + 12);
+#pragma unroll
+                for (int t = 0; t < kScoreTq; ++t) {
+                    if (t0 + t >= kTq) continue;
+                    float& acc = d[t][p % kChains];
+#pragma unroll
+                    for (int i = 0; i < 16; i += 4) {
+                        const float4 qv =
+                            *reinterpret_cast<const float4*>(&tl.qf[t0 + t][16 * p + i]);
+                        acc = fmaf(qv.x, kf[i], acc);
+                        acc = fmaf(qv.y, kf[i + 1], acc);
+                        acc = fmaf(qv.z, kf[i + 2], acc);
+                        acc = fmaf(qv.w, kf[i + 3], acc);
+                    }
+                }
+            }
+#pragma unroll
+            for (int t = 0; t < kScoreTq; ++t) {
+                if (t0 + t >= kTq) continue;
+                float dot_t = d[t][0];
+                if constexpr (kChains == 4) dot_t = (d[t][0] + d[t][1]) + (d[t][2] + d[t][3]);
+                if constexpr (kChains == 2) dot_t = d[t][0] + d[t][1];
+                dot[t0 + t] = r0 + j < len ? dot_t * scale : wl::kNegInf;
             }
         }
-        const float dot = (d[0] + d[1]) + (d[2] + d[3]);
-        return r0 + j < len ? dot * scale : wl::kNegInf;
     };
-    float sc[kRowsPerThread];
-    float m_t = -INFINITY;
+    if constexpr (kTq == 1) {
+        // A thread keeps its scores; the CTA forms (m_r, l_r).
+        float sc[kRowsPerThread];
+        float m_t = -INFINITY;
 #pragma unroll
-    for (int k = 0; k < kRowsPerThread; ++k) {
-        const int j = tid + k * kThreads;
-        sc[k] = j < rows ? score_of(j) : -INFINITY;
-        m_t = fmaxf(m_t, sc[k]);
-    }
-    const float m_r = block_max(m_t, tl.red_max);
-    float l_t = 0.0f;
-    if (m_r != -INFINITY) {  // an empty chunk has no score and sums to 0
+        for (int k = 0; k < kRowsPerThread; ++k) {
+            const int j = tid + k * kThreads;
+            float dot[1] = {-INFINITY};
+            if (j < rows) score_of(j, dot);
+            sc[k] = dot[0];
+            m_t = fmaxf(m_t, sc[k]);
+        }
+        const float m_r = block_max(m_t, tl.red_max);
+        float l_t = 0.0f;
+        if (m_r != -INFINITY) {  // an empty chunk has no score and sums to 0
 #pragma unroll
-        for (int k = 0; k < kRowsPerThread; ++k) l_t += exp_minus(sc[k], m_r);
-    }
-    const float l_r = block_sum(l_t, tl.red_sum);
+            for (int k = 0; k < kRowsPerThread; ++k) l_t += exp_minus(sc[k], m_r);
+        }
+        const float l_r = block_sum(l_t, tl.red_sum);
 
-    // Exchange 1: (m_r, l_r) into every rank's slot `rank`; then m = max m_r
-    // and total = sum l_r exp(m_r - m) in rank order (an empty chunk's
-    // exp(-inf - m) is 0, m being finite).
-    wl::cluster_wait();  // every CTA of the cluster has started
-    if (tid < S) wl::st_shared_cluster_f2(&tl.stats[rank], tid, float2{m_r, l_r});
-    wl::cluster_sync();
-    float m = -INFINITY, total = 0.0f;
+        // Exchange 1: (m_r, l_r) into every rank's slot `rank`; then m = max
+        // m_r and total = sum l_r exp(m_r - m) in rank order (an empty
+        // chunk's exp(-inf - m) is 0, m being finite).
+        wl::cluster_wait();  // every CTA of the cluster has started
+        if (tid < S) wl::st_shared_cluster_f2(&tl.stats[rank][0], tid, float2{m_r, l_r});
+        wl::cluster_sync();
+        float m = -INFINITY, total = 0.0f;
 #pragma unroll
-    for (int z = 0; z < kMaxSplits; ++z)
-        if (z < S) m = fmaxf(m, tl.stats[z].x);
+        for (int z = 0; z < kMaxSplits; ++z)
+            if (z < S) m = fmaxf(m, tl.stats[z][0].x);
 #pragma unroll
-    for (int z = 0; z < kMaxSplits; ++z)
-        if (z < S) total += tl.stats[z].y * exp_minus(tl.stats[z].x, m);
-    const float inv = 1.0f / total;
+        for (int z = 0; z < kMaxSplits; ++z)
+            if (z < S) total += tl.stats[z][0].y * exp_minus(tl.stats[z][0].x, m);
+        const float inv = 1.0f / total;
 #pragma unroll
-    for (int k = 0; k < kRowsPerThread; ++k) {
-        const int j = tid + k * kThreads;
-        if (j < rows) score[j] = __bfloat162float(__float2bfloat16(exp_minus(sc[k], m) * inv));
+        for (int k = 0; k < kRowsPerThread; ++k) {
+            const int j = tid + k * kThreads;
+            if (j < rows) score[j] = __bfloat162float(__float2bfloat16(exp_minus(sc[k], m) * inv));
+        }
+    } else {
+        // The Tq score rows into shared memory; warp t forms query t's
+        // (m_r, l_r) over row t.
+        for (int j = tid; j < rows; j += kThreads) {
+            float dot[kTq];
+            score_of(j, dot);
+#pragma unroll
+            for (int t = 0; t < kTq; ++t) score[t * cap + j] = dot[t];
+        }
+        __syncthreads();
+        const float* row = score + warp * cap;
+        float m_r = -INFINITY, l_r = 0.0f;
+        if (warp < kTq) {
+            for (int j = lane; j < rows; j += 32) m_r = fmaxf(m_r, row[j]);
+            m_r = wl::warp_max(m_r);
+            if (m_r != -INFINITY) {  // an empty chunk has no score and sums to 0
+                for (int j = lane; j < rows; j += 32) l_r += exp_minus(row[j], m_r);
+            }
+            l_r = wl::warp_sum(l_r);
+        }
+
+        // Exchange 1: lane z of warp t stores query t's (m_r, l_r) into rank
+        // z's slot `rank`; then lane z holds rank z's pair, and the warp
+        // forms m = max m_r and total = sum l_r exp(m_r - m) (an empty
+        // chunk's exp(-inf - m) is 0, m being finite) in a butterfly whose
+        // order is fixed.
+        wl::cluster_wait();  // every CTA of the cluster has started
+        if (warp < kTq && lane < S)
+            wl::st_shared_cluster_f2(&tl.stats[rank][warp], lane, float2{m_r, l_r});
+        wl::cluster_sync();
+        if (warp < kTq) {
+            const float2 st = lane < S ? tl.stats[lane][warp] : float2{-INFINITY, 0.0f};
+            const float m = wl::warp_max(st.x);
+            const float total = wl::warp_sum(lane < S ? st.y * exp_minus(st.x, m) : 0.0f);
+            const float inv = 1.0f / total;
+            float* prow = score + warp * cap;
+            for (int j = lane; j < rows; j += 32)
+                prow[j] = __bfloat162float(__float2bfloat16(exp_minus(prow[j], m) * inv));
+        }
     }
     __syncthreads();
 
-    // PV over the V halves: 32 position lanes x 8 groups of 8 channels. Lane
-    // P takes rows 32i + (P & 24) + 4 (P & 1) + (P >> 1 & 3): the two
-    // position lanes of a half-warp read rows 4 apart.
+    // PV over the V halves: 32 position lanes x 8 groups of 8 channels, each
+    // V row once for kPvTq queries a pass. Lane P takes rows 32i + (P & 24)
+    // + 4 (P & 1) + (P >> 1 & 3): the two position lanes of a half-warp
+    // read rows 4 apart. Lane = (P % 4) * 8 + cg: a warp's sums over its 4
+    // position lanes go to warp_part.
     const int cg = tid & 7, pl = tid >> 3;
     const int pr = (pl & 24) | ((pl & 1) << 2) | ((pl >> 1) & 3);
-    float acc[8];
 #pragma unroll
-    for (int i = 0; i < 8; ++i) acc[i] = 0.0f;
+    for (int t0 = 0; t0 < kTq; t0 += kPvTq) {
+        float acc[kPvTq][8];
+#pragma unroll
+        for (int t = 0; t < kPvTq; ++t) {
+#pragma unroll
+            for (int i = 0; i < 8; ++i) acc[t][i] = 0.0f;
+        }
 #pragma unroll 2
-    for (int j = pr; j < rows; j += kPvLanes) {
-        const float p = score[j];
-        const uint2 w = *reinterpret_cast<const uint2*>(kv + piece_at(j, 4 + (cg >> 1)) +
-                                                        ((cg & 1) << 3));
-        float vf[8];
-        i8x4_to_f32(w.x, vf);
-        i8x4_to_f32(w.y, vf + 4);
+        for (int j = pr; j < rows; j += kPvLanes) {
+            const uint2 w = *reinterpret_cast<const uint2*>(kv + piece_at(j, 4 + (cg >> 1)) +
+                                                            ((cg & 1) << 3));
+            float vf[8];
+            i8x4_to_f32(w.x, vf);
+            i8x4_to_f32(w.y, vf + 4);
 #pragma unroll
-        for (int i = 0; i < 8; ++i) acc[i] = fmaf(p, vf[i], acc[i]);
-    }
-    // lane = (P % 4) * 8 + cg: sum over the warp's 4 position lanes
+            for (int t = 0; t < kPvTq; ++t) {
+                if (t0 + t < kTq) {
+                    const float p = score[(t0 + t) * cap + j];
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-        acc[i] += __shfl_xor_sync(0xffffffffu, acc[i], 8);
-        acc[i] += __shfl_xor_sync(0xffffffffu, acc[i], 16);
-    }
-    if (lane < 8) {
+                    for (int i = 0; i < 8; ++i) acc[t][i] = fmaf(p, vf[i], acc[t][i]);
+                }
+            }
+        }
 #pragma unroll
-        for (int i = 0; i < 8; ++i) tl.warp_part[warp][lane * 8 + i] = acc[i];
+        for (int t = 0; t < kPvTq; ++t) {
+            if (t0 + t < kTq) {
+#pragma unroll
+                for (int i = 0; i < 8; ++i) {
+                    acc[t][i] += __shfl_xor_sync(0xffffffffu, acc[t][i], 8);
+                    acc[t][i] += __shfl_xor_sync(0xffffffffu, acc[t][i], 16);
+                }
+                if (lane < 8) {
+#pragma unroll
+                    for (int i = 0; i < 8; ++i)
+                        tl.warp_part[warp][(t0 + t) * kHd + lane * 8 + i] = acc[t][i];
+                }
+            }
+        }
     }
     __syncthreads();
 
-    // Exchange 2: channel ch of this CTA's partial into the slot `rank` of
-    // rank ch / share, which sums its share over the ranks in rank order.
-    if (tid < kHd) {
+    // Exchange 2: output i of this CTA's partial into the slot `rank` of
+    // rank i / share, which sums its share over the ranks in rank order.
+    for (int i = tid; i < kOut; i += kThreads) {
         float s = 0.0f;
 #pragma unroll
-        for (int w = 0; w < kWarps; ++w) s += tl.warp_part[w][tid];
-        wl::st_shared_cluster_f32(&tl.parts[rank][tid], tid / share, s);
+        for (int w = 0; w < kWarps; ++w) s += tl.warp_part[w][i];
+        wl::st_shared_cluster_f32(&parts[rank * kOut + i], i / share, s);
     }
     wl::cluster_sync();
-    if (tid < share) {
+    for (int i = tid; i < share; i += kThreads) {
         float s = 0.0f;
 #pragma unroll
         for (int z = 0; z < kMaxSplits; ++z)
-            if (z < S) s += tl.parts[z][rank * share + tid];
-        o[tid] = s;
+            if (z < S) s += parts[z * kOut + rank * share + i];
+        o[i] = s;
     }
 }
 
-// The split over T: the fewest CTAs a (b, h), doubling while B*H*S is short
-// of kTargetCtas and a chunk of T keeps >= kMinChunk rows, then as many as
-// a chunk of T needs to fit in shared memory.
-int splits_for(int bh, int T) {
+// The split over T for Tq queries (1..kMaxTq): the fewest CTAs a (b, h),
+// doubling while B*H*S is short of kTargetCtas and a chunk of T keeps >=
+// kMinChunk rows, then as many as a chunk of T needs to fit in shared
+// memory.
+int splits_for(int bh, int T, int tq) {
     int s = 1;
     while (s < kMaxSplits && bh * s < kTargetCtas && (T + 2 * s - 1) / (2 * s) >= kMinChunk)
         s *= 2;
-    while (s < kMaxSplits && (T + s - 1) / s > kMaxChunk) s *= 2;
+    while (s < kMaxSplits && (T + s - 1) / s > kMaxChunkOf[tq]) s *= 2;
     return s;
 }
 
-// The launch with an explicit split S in {1, 2, 4, 8}; `lengths` and
-// `active` may be null.
-int launch(const void* q, const void* kvp, const void* lengths, const void* active, void* out,
-           int B, int H, int T, float scale, int S, cudaStream_t stream) {
+template <int kTq>
+int launch_tq(const void* q, const void* kvp, const void* lengths, const void* active,
+              void* out, int B, int H, int T, float scale, int S, cudaStream_t stream) {
     const int cap = (T + S - 1) / S;
-    if (B < 1 || H < 1 || T < 1 || (S != 1 && S != 2 && S != 4 && S != 8) || cap > kMaxChunk)
+    if (B < 1 || H < 1 || T < 1 || (S != 1 && S != 2 && S != 4 && S != 8) ||
+        cap > kMaxChunk<kTq>)
         return static_cast<int>(cudaErrorInvalidValue);
     // above 48 KB of dynamic shared memory only by opting in, once a process
+    // for each Tq
     static const cudaError_t raised = cudaFuncSetAttribute(
-        cross_attention_int8_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem_bytes(kMaxChunk)));
+        cross_attention_int8_kernel<kTq>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem_bytes<kTq>(kMaxChunk<kTq>, kMaxSplits)));
     if (raised != cudaSuccess) return static_cast<int>(raised);
     cudaLaunchConfig_t config = {};
     config.gridDim = dim3(S * B * H);
     config.blockDim = dim3(kThreads);
-    config.dynamicSmemBytes = smem_bytes(cap);
+    config.dynamicSmemBytes = smem_bytes<kTq>(cap, S);
     config.stream = stream;
     cudaLaunchAttribute cluster = {};
     cluster.id = cudaLaunchAttributeClusterDimension;
@@ -323,9 +466,28 @@ int launch(const void* q, const void* kvp, const void* lengths, const void* acti
     config.attrs = &cluster;
     config.numAttrs = 1;
     return static_cast<int>(cudaLaunchKernelEx(
-        &config, cross_attention_int8_kernel, static_cast<const bf16*>(q),
+        &config, cross_attention_int8_kernel<kTq>, static_cast<const bf16*>(q),
         static_cast<const int8_t*>(kvp), static_cast<const int*>(lengths),
         static_cast<const uint8_t*>(active), static_cast<float*>(out), H, T, S, scale));
+}
+
+// The launch of a window of Tq queries (1..kMaxTq) with the split S in
+// {1, 2, 4, 8}, or splits_for's where S is 0; `lengths` and `active` may be
+// null.
+int launch(const void* q, const void* kvp, const void* lengths, const void* active, void* out,
+           int B, int H, int T, int Tq, float scale, int S, cudaStream_t stream) {
+    if (Tq < 1 || Tq > kMaxTq) return static_cast<int>(cudaErrorInvalidValue);
+    if (S == 0) S = splits_for(B * H, T, Tq);
+    switch (Tq) {
+        case 1: return launch_tq<1>(q, kvp, lengths, active, out, B, H, T, scale, S, stream);
+        case 2: return launch_tq<2>(q, kvp, lengths, active, out, B, H, T, scale, S, stream);
+        case 3: return launch_tq<3>(q, kvp, lengths, active, out, B, H, T, scale, S, stream);
+        case 4: return launch_tq<4>(q, kvp, lengths, active, out, B, H, T, scale, S, stream);
+        case 5: return launch_tq<5>(q, kvp, lengths, active, out, B, H, T, scale, S, stream);
+        case 6: return launch_tq<6>(q, kvp, lengths, active, out, B, H, T, scale, S, stream);
+        case 7: return launch_tq<7>(q, kvp, lengths, active, out, B, H, T, scale, S, stream);
+        default: return launch_tq<8>(q, kvp, lengths, active, out, B, H, T, scale, S, stream);
+    }
 }
 
 }  // namespace
@@ -334,7 +496,7 @@ int launch(const void* q, const void* kvp, const void* lengths, const void* acti
 extern "C" int wl_cross_attention_int8(const void* q, const void* kvp, const void* lengths,
                                        void* out, int B, int H, int T, float scale,
                                        void* stream) {
-    return launch(q, kvp, lengths, nullptr, out, B, H, T, scale, splits_for(B * H, T),
+    return launch(q, kvp, lengths, nullptr, out, B, H, T, 1, scale, 0,
                   static_cast<cudaStream_t>(stream));
 }
 
@@ -342,6 +504,24 @@ extern "C" int wl_cross_attention_int8(const void* q, const void* kvp, const voi
 extern "C" int wl_cross_attention_int8_skip(const void* q, const void* kvp, const void* lengths,
                                             const void* active, void* out, int B, int H, int T,
                                             float scale, void* stream) {
-    return launch(q, kvp, lengths, active, out, B, H, T, scale, splits_for(B * H, T),
+    return launch(q, kvp, lengths, active, out, B, H, T, 1, scale, 0,
+                  static_cast<cudaStream_t>(stream));
+}
+
+// K6: a window of Tq <= 8 queries a row; `lengths` may be null.
+extern "C" int wl_cross_attention_int8_window(const void* q, const void* kvp, const void* lengths,
+                                              void* out, int B, int H, int T, int Tq, float scale,
+                                              void* stream) {
+    return launch(q, kvp, lengths, nullptr, out, B, H, T, Tq, scale, 0,
+                  static_cast<cudaStream_t>(stream));
+}
+
+// K5's window form: K6 with lengths and an active mask; rows whose active[b]
+// is 0 read no K/V and are written as zeros.
+extern "C" int wl_cross_attention_int8_skip_window(const void* q, const void* kvp,
+                                                   const void* lengths, const void* active,
+                                                   void* out, int B, int H, int T, int Tq,
+                                                   float scale, void* stream) {
+    return launch(q, kvp, lengths, active, out, B, H, T, Tq, scale, 0,
                   static_cast<cudaStream_t>(stream));
 }

@@ -1,8 +1,6 @@
-// The cross-attention kernel shared by K6 and K5's window form
-// (cross_attention_int8_window.cu) and by K7 and K8 (cross_attention_int4.cu):
-// q [B, H, Tq, 64] (Tq <= 8, K scales folded in) attends one (b, h) row of
-// quantised K and V. The two sources differ only in how a K and a V row are
-// stored, which a Codec describes:
+// The cross-attention kernel of K7 and K8 (cross_attention_int4.cu): q
+// [B, H, Tq, 64] (Tq <= 8, K scales folded in) attends one (b, h) row of
+// quantised K and V, stored as a Codec describes:
 //
 //   kRowBytes               bytes from one position to the next in K and V
 //   score<kTq>(krow, qf, dot)  dot[j] += q_j . k over the 64 channels
@@ -23,7 +21,9 @@
 // window, not once per query. Positions past len[b] have exactly zero
 // probability, so both loops stop there; a row with len[b] = 0 masks every
 // position, and the reference then gives a uniform softmax over all T: the
-// loops run over T for such a row and match it.
+// loops run over T for such a row and match it. The int8 windows (K6 and
+// K5's window form) are instantiations of K4's source, which splits each
+// (b, h) over T across a thread-block cluster; K7 and K8 are not split.
 #pragma once
 
 #include "common.cuh"

@@ -186,8 +186,9 @@ def cross_attention_int8_skip(
 # Windows of Tq <= 8 queries (speculative verify) and int4 K/V
 # ---------------------------------------------------------------------------
 
-# the window kernels keep one f32 score row per query in shared memory
 MAX_WINDOW = 8
+# the int4 kernels (K7, K8) keep one f32 score row a query over all T in
+# shared memory; the int8 kernels split T across a cluster and hold T <= 8192
 MAX_WINDOW_SMEM = 200 * 1024
 
 
@@ -217,9 +218,12 @@ def _check_window(q: torch.Tensor, b: int, h: int, t: int) -> int:
     require(1 <= tq <= MAX_WINDOW, f"Tq={tq} outside the kernel's 1..{MAX_WINDOW} queries")
     require(q.dtype == torch.bfloat16, f"q must be bfloat16, got {q.dtype}")
     require(q.is_contiguous(), "q must be contiguous")
-    require(tq * t * 4 <= MAX_WINDOW_SMEM,
-            f"Tq={tq} x T={t} score rows exceed the kernel's shared memory")
     return tq
+
+
+def _check_int4_smem(tq: int, t: int) -> None:
+    require(tq * t * 4 <= MAX_WINDOW_SMEM,
+            f"Tq={tq} x T={t} score rows exceed the int4 kernel's shared memory")
 
 
 def _check_lengths(lengths: torch.Tensor | None, b: int) -> None:
@@ -265,10 +269,11 @@ def cross_attention_int8_window(
     active: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Cross-attention of a Tq <= 8 query window over packed int8 K|V, each
-    K/V byte read once per window (K6). q [B, H, Tq, 64] bf16, kvp
-    [B, H, T, 128] int8, lengths optional [B] int32; returns [B, H, Tq, 64]
-    float32. `active` ([B] bool, requires `lengths`) routes to K5's window
-    form, cross_attention_int8_skip_window: inactive rows read no K/V."""
+    K/V byte read once per window (K6, an instantiation of K4's source:
+    T <= 8192 at every Tq). q [B, H, Tq, 64] bf16, kvp [B, H, T, 128] int8,
+    lengths optional [B] int32; returns [B, H, Tq, 64] float32. `active`
+    ([B] bool, requires `lengths`) routes to K5's window form,
+    cross_attention_int8_skip_window: inactive rows read no K/V."""
     if active is not None:
         if lengths is None:
             raise ValueError("active-slot skipping requires per-slot lengths")
@@ -369,7 +374,7 @@ def cross_attention_int4(
     if runs_on_cpu(*tensors):
         return cross_attention_int4_ref(q, k4, v4, lengths)
     b, h, t = _check_int4(k4, v4, lengths)
-    _check_window(q[:, :, None], b, h, t)
+    _check_int4_smem(_check_window(q[:, :, None], b, h, t), t)
     len_ptr = 0 if lengths is None else lengths.data_ptr()
     out = torch.empty((b, h, HEAD_DIM), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
@@ -392,6 +397,7 @@ def cross_attention_int4_window(
         return cross_attention_int4_window_ref(q, k4, v4, lengths)
     b, h, t = _check_int4(k4, v4, lengths)
     tq = _check_window(q, b, h, t)
+    _check_int4_smem(tq, t)
     len_ptr = 0 if lengths is None else lengths.data_ptr()
     out = torch.empty((b, h, tq, HEAD_DIM), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
