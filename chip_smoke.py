@@ -8,10 +8,10 @@ a result):
 1. Require CUDA; print the card's name and power limit (nvidia-smi).
 2. Build the five CUDA sources of whisperlive_tpu_torch/csrc with nvcc
    (one process per source, in parallel): nine kernel entry points. Print
-   what `nvcc -Xptxas -v` reports for K1, K2, K3 and for each Tq
-   instantiation of the int8 cross-attention source (K4 and K5 at Tq = 1,
-   K6 and K5's window form at 2..8; registers, spills); any spill there
-   fails the phase.
+   what `nvcc -Xptxas -v` reports for K1, K2, K3 and for each codec and Tq
+   instantiation of the cross-attention source (Int8Packed: K4 and K5 at
+   Tq = 1, K6 and K5's window form at 2..8; Int4Halves: K7 at Tq = 1, K8
+   at 2..8; registers, spills); any spill there fails the phase.
 3. Hold each kernel against its plain PyTorch version on the card at the
    serving paths' shapes (large-v3) in bf16, with the stated tolerance,
    and time both (CUDA events, median of 20 runs of 10 calls), plus one
@@ -46,8 +46,10 @@ a result):
    and K5's three occupancies, is also timed cold (rotating over distinct
    K/V copies that exceed the L2), beside scaled_dot_product_attention at
    the same Tq on K and V dequantized to bf16 (`sdpa_bf16_ms`; the port
-   never calls it); the entries carry the other cases as `other_shapes`
-   and `cold`. The cross-attention kernels' tolerance is a share of each
+   never calls it); each case of K7 and K8 also beside the int8 kernel
+   (K4's entry at Tq = 1, K6's above) at the same [B,H,T], Tq and lengths
+   on int8 K|V (`int8_ms`); the entries carry the other cases as
+   `other_shapes` and `cold`. The cross-attention kernels' tolerance is a share of each
    batch row's own max|ref|.
    Then the encoder forward: one encode call (32 layers) at mel
    [4,3000,128] and at the insert bucket's [8,1024,128] on the host clock,
@@ -75,8 +77,8 @@ a result):
    have launched, and the slot state must lie on the card. A torch.profiler
    window over two verify rounds prints the device time a round and the
    verify kernel's share: K6 on the window route (one decode of two rounds
-   less one of none), K5's window form in an `all` pool of one round a
-   chunk.
+   less one of none), K5's window form in an `all` pool and K8 in an int4
+   speculative pool, each of one round a chunk.
 7. Check the output against a reference: the window path's encoder states
    and teacher-forced logits, the continuous step (decode_step_masked
    on an 8-slot pool with per-slot cross_len and free rows, teacher
@@ -154,6 +156,9 @@ BF16_FLOPS = 989e12
 # moves which positions dominate the softmax.
 Q_SCALE_INT4 = 0.05 * 16
 
+# K4-K8: one source, instantiated for each row codec and Tq
+CROSS_SOURCE = "whisperlive_tpu_torch/csrc/cross_attention.cu"
+CODECS = ("Int8Packed", "Int4Halves")
 KERNELS = {
     "fused_attention": ("whisperlive_tpu_torch/csrc/fused_attention.cu",
                         "whisperlive_tpu/ops/attention.py:583"),
@@ -161,18 +166,12 @@ KERNELS = {
                     "whisperlive_tpu/ops/quant_matmul.py:29"),
     "int8_matmul_t": ("whisperlive_tpu_torch/csrc/int8_matmul_t.cu",
                       "whisperlive_tpu/ops/quant_matmul.py:40"),
-    "cross_attention_int8": ("whisperlive_tpu_torch/csrc/cross_attention_int8.cu",
-                             "whisperlive_tpu/ops/attention.py:158"),
-    "cross_attention_int8_skip": ("whisperlive_tpu_torch/csrc/cross_attention_int8.cu",
-                                  "whisperlive_tpu/ops/attention.py:212"),
-    "cross_attention_int8_window": ("whisperlive_tpu_torch/csrc/cross_attention_int8.cu",
-                                    "whisperlive_tpu/ops/attention.py:409"),
-    "cross_attention_int8_skip_window": ("whisperlive_tpu_torch/csrc/cross_attention_int8.cu",
-                                         "whisperlive_tpu/ops/attention.py:294"),
-    "cross_attention_int4": ("whisperlive_tpu_torch/csrc/cross_attention_int4.cu",
-                             "whisperlive_tpu/ops/attention.py:53"),
-    "cross_attention_int4_window": ("whisperlive_tpu_torch/csrc/cross_attention_int4.cu",
-                                    "whisperlive_tpu/ops/attention.py:490"),
+    "cross_attention_int8": (CROSS_SOURCE, "whisperlive_tpu/ops/attention.py:158"),
+    "cross_attention_int8_skip": (CROSS_SOURCE, "whisperlive_tpu/ops/attention.py:212"),
+    "cross_attention_int8_window": (CROSS_SOURCE, "whisperlive_tpu/ops/attention.py:409"),
+    "cross_attention_int8_skip_window": (CROSS_SOURCE, "whisperlive_tpu/ops/attention.py:294"),
+    "cross_attention_int4": (CROSS_SOURCE, "whisperlive_tpu/ops/attention.py:53"),
+    "cross_attention_int4_window": (CROSS_SOURCE, "whisperlive_tpu/ops/attention.py:490"),
 }
 # the kernels each serving path must launch
 WINDOW_PATH = ("fused_attention", "int8_matmul", "int8_matmul_t", "cross_attention_int8")
@@ -267,15 +266,17 @@ def ptxas_usage(kernel: str) -> str:
 
 
 def ptxas_by_tq(nvcc_stderr: str) -> dict[str, str]:
-    """ptxas_summary of each entry function of the int8 cross-attention
-    source, keyed "Tq=<n>" by its instantiation (a function that is no
-    template instantiation counts as Tq=1)."""
+    """ptxas_summary of each entry function of the cross-attention source,
+    keyed "<codec> Tq=<n>" by its instantiation (cross_attention_kernel<
+    Codec, n>: the mangled name holds the codec's name, then Li<n>E)."""
     out, key = {}, None
     for line in nvcc_stderr.splitlines():
         entry = re.search(r"Compiling entry function '([^']+)'", line)
         if entry:
-            tq = re.search(r"ILi(\d+)E", entry.group(1))
-            key = f"Tq={tq.group(1) if tq else 1}"
+            name = entry.group(1)
+            codec = next((c for c in CODECS if c in name), "?")
+            tq = re.search(r"Li(\d+)E", name)
+            key = f"{codec} Tq={tq.group(1) if tq else '?'}"
             out[key] = []
         elif key and ("registers" in line or "spill" in line):
             out[key].append(line.split(":", 1)[-1].strip())
@@ -565,6 +566,24 @@ def int4_kv_bf16(k4, v4):
             attn_ops.unpack_int4(v4).to(torch.bfloat16))
 
 
+def cold_ms(call, sets: list[tuple]) -> float:
+    """Device time of `call(*s)` over the K/V sets `sets` in turn (median_ms
+    of 10 runs, each one call on every set)."""
+    return median_ms(rotating([lambda s=s: call(*s) for s in sets]), iters=10, reps=len(sets))
+
+
+def int8_beside(label: str, call, shape: tuple, n_bytes: int, int8) -> float:
+    """The int8 kernel's cold time (`call(kvp)`) at an int4 case's [B,H,T]:
+    ceil(COLD_BYTES / n_bytes) random int8 K|V copies of `shape`, n_bytes
+    of them read a call."""
+    sets = [(int8(*shape),) for _ in range(-(-COLD_BYTES // n_bytes))]
+    ms = cold_ms(call, sets)
+    del sets
+    torch.cuda.empty_cache()
+    log(f"cold {label}: int8 kernel at the same [B,H,T], Tq and lengths {ms * 1e3:.6g} us")
+    return ms
+
+
 def cross_cold(label: str, call, kv: tuple, q, rows, work: tuple, to_bf16) -> dict:
     """`call(*kv)` with cold K/V: a run calls it once on each of
     ceil(COLD_BYTES / n_bytes) distinct copies of the K/V tensors `kv`
@@ -577,7 +596,7 @@ def cross_cold(label: str, call, kv: tuple, q, rows, work: tuple, to_bf16) -> di
     bytes and not the function; the port never calls it)."""
     copies = -(-COLD_BYTES // work[0])
     sets = [kv] + [tuple(t.clone() for t in kv) for _ in range(copies - 1)]
-    ms = median_ms(rotating([lambda s=s: call(*s) for s in sets]), iters=10, reps=copies)
+    ms = cold_ms(call, sets)
     qs = q[rows] if q.dim() == 4 else q[rows].unsqueeze(2)
     kv_bf16 = [to_bf16(*(t[rows] for t in s)) for s in sets]
     del sets
@@ -751,7 +770,8 @@ def window_kernel_phase(randn, int8, dev, h: int, hd: int, t_enc: int) -> dict:
     def summary(name, warm, cold):
         log(f"{name} warm / cold (us): " + ", ".join(
             f"{w['shape']} {w['ms'] * 1e3:.6g} / {c['ms'] * 1e3:.6g} (bound "
-            f"{c['bound_ms'] * 1e3:.6g}, sdpa_bf16 {c['sdpa_bf16_ms'] * 1e3:.6g})"
+            f"{c['bound_ms'] * 1e3:.6g}, sdpa_bf16 {c['sdpa_bf16_ms'] * 1e3:.6g}"
+            + (f", int8 {c['int8_ms'] * 1e3:.6g})" if "int8_ms" in c else ")")
             for w, c in zip(warm, cold)))
 
     # K6: the window route verifies one request over the full context
@@ -841,6 +861,10 @@ def window_kernel_phase(randn, int8, dev, h: int, hd: int, t_enc: int) -> dict:
                 "cross_attention_int4 " + label,
                 lambda k, v, q=q, ln=ln: attn_ops.cross_attention_int4(q, k, v, ln), (k4, v4), q,
                 slice(None), w, int4_kv_bf16))
+            k7_cold[-1]["int8_ms"] = int8_beside(
+                "cross_attention_int4 " + label,
+                lambda kvp, q=q, ln=ln: attn_ops.cross_attention_int8(q, kvp, ln),
+                (b, h, t, 2 * hd), work(used, 1, 2 * hd)[0], int8)
     summary("cross_attention_int4", k7, k7_cold)
     results["cross_attention_int4"] = dict(
         k7[3], max_abs_err=max(r["max_abs_err"] for r in k7), library_ms=None,
@@ -866,6 +890,10 @@ def window_kernel_phase(randn, int8, dev, h: int, hd: int, t_enc: int) -> dict:
             "cross_attention_int4_window " + label,
             lambda k, v, ln=ln: attn_ops.cross_attention_int4_window(q, k, v, ln), (k4, v4), q,
             slice(None), w, int4_kv_bf16))
+        k8_cold[-1]["int8_ms"] = int8_beside(
+            "cross_attention_int4_window " + label,
+            lambda kvp, ln=ln: attn_ops.cross_attention_int8_window(q, kvp, ln),
+            (b5, h, t5, 2 * hd), work(used, tq, 2 * hd)[0], int8)
     summary("cross_attention_int4_window", k8, k8_cold)
     results["cross_attention_int4_window"] = dict(
         k8[1], max_abs_err=max(r["max_abs_err"] for r in k8), library_ms=None,
@@ -1152,7 +1180,7 @@ def continuous_phase(engine: WhisperEngine) -> dict:
     check_sockets(sockets)
     check(any("language" in m for m in sockets[1].sent), "detected language never sent")
     profile_pool("continuous step", cs.cb, 2, "step",
-                 {"K5": int8_cross_kernel(1), "K3": re.compile("int8_matmul_t_kernel")})
+                 {"K5": cross_kernel("Int8Packed", 1), "K3": re.compile("int8_matmul_t_kernel")})
     return launches
 
 
@@ -1174,13 +1202,10 @@ def cuda_profile(fn) -> tuple[list, float, int]:
             n_launch)
 
 
-def int8_cross_kernel(tq: int) -> re.Pattern:
-    """The CUDA event names of the int8 cross-attention kernel at Tq
-    queries: cross_attention_int8_kernel<Tq> (a single-query kernel
-    without template arguments counts as Tq = 1), or a window kernel over
-    the packed int8 row (Int8Packed) at Tq."""
-    single = r"|cross_attention_int8_kernel\(" if tq == 1 else ""
-    return re.compile(rf"cross_attention_int8_kernel<{tq}>|Int8Packed, {tq}>{single}")
+def cross_kernel(codec: str, tq: int) -> re.Pattern:
+    """The CUDA event names of the cross-attention kernel over the row codec
+    `codec` at Tq queries: cross_attention_kernel<codec, Tq>."""
+    return re.compile(rf"cross_attention_kernel<[\w:() ]*{codec}, {tq}>")
 
 
 def device_us(events, pattern: re.Pattern | None = None) -> float:
@@ -1322,7 +1347,7 @@ def profile_spec_decode(engine: WhisperEngine, spec: SpeculativeDecoder) -> None
         log("speculative window route profile: device time not measured "
             f"({rounds} rounds, {len(with_rounds)} CUDA events)")
         return
-    k6 = int8_cross_kernel(SPEC_K + 1)
+    k6 = cross_kernel("Int8Packed", SPEC_K + 1)
     per_round = (device_us(with_rounds) - device_us(prefill)) / rounds
     k6_round = (device_us(with_rounds, k6) - device_us(prefill, k6)) / rounds
     log(f"speculative window route profile ({rounds} verify rounds): device time "
@@ -1392,8 +1417,8 @@ def spec_continuous_phase(engine: WhisperEngine, draft: WhisperEngine) -> dict:
                                 ring=SPEC_RING, steps_per_chunk=1, cross_ctx=640,
                                 enc_buckets=(512, 1500), draft_engine=draft, spec_k=SPEC_K)
     profile_pool("continuous spec pool (all)", profiled, 2, "verify round",
-                 {"K5's window form": int8_cross_kernel(SPEC_K + 1),
-                  "K5 in the draft steps": int8_cross_kernel(1)})
+                 {"K5's window form": cross_kernel("Int8Packed", SPEC_K + 1),
+                  "K5 in the draft steps": cross_kernel("Int8Packed", 1)})
     return launches
 
 
@@ -1434,6 +1459,14 @@ def mixed_phase(engine4: WhisperEngine, draft4: WhisperEngine) -> dict:
                   "cross_attention_int4_window")
     check_path("mixed route (int4)", launches, MIXED_INT4_PATH, absent=INT8_CROSS)
     check_sockets(sockets)
+    # two verify rounds: a speculative pool of the same shape at one round a
+    # chunk
+    profiled = ContinuousEngine(engine4, n_slots=CONT_SLOTS, prompt_pad=cs.cb.prompt_pad,
+                                ring=SPEC_RING, steps_per_chunk=1, cross_ctx=640,
+                                enc_buckets=(512, 1500), draft_engine=draft4, spec_k=SPEC_K)
+    profile_pool("mixed spec pool (int4)", profiled, 2, "verify round",
+                 {"K8": cross_kernel("Int4Halves", SPEC_K + 1),
+                  "K7 in the draft steps": cross_kernel("Int4Halves", 1)})
     return launches
 
 
@@ -1763,13 +1796,17 @@ def main() -> int:
     k1_ptxas, k2_ptxas = ptxas_usage("fused_attention"), ptxas_usage("int8_matmul")
     log(f"fused_attention.cu, nvcc -Xptxas -v: {k1_ptxas}")
     log(f"int8_matmul.cu, nvcc -Xptxas -v: {k2_ptxas}")
-    cross_ptxas = ptxas_by_tq(ptxas_stderr("cross_attention_int8"))
-    for tq, usage in cross_ptxas.items():
-        serves = "K4 and K5" if tq == "Tq=1" else "K6 and K5's window form"
-        log(f"cross_attention_int8.cu at {tq} ({serves}), nvcc -Xptxas -v: {usage}")
-    spills = [tq for tq, usage in cross_ptxas.items()
+    cross_ptxas = ptxas_by_tq(ptxas_stderr("cross_attention"))
+    serves = {"Int8Packed Tq=1": "K4 and K5", "Int4Halves Tq=1": "K7"}
+    for key, usage in cross_ptxas.items():
+        window = "K8" if key.startswith("Int4Halves") else "K6 and K5's window form"
+        log(f"cross_attention.cu at {key} ({serves.get(key, window)}), nvcc -Xptxas -v: "
+            f"{usage}")
+    check(len(cross_ptxas) == len(CODECS) * 8, f"cross_attention.cu: ptxas reported "
+          f"{sorted(cross_ptxas)}, not every codec at Tq = 1..8")
+    spills = [key for key, usage in cross_ptxas.items()
               if any(int(n) for n in re.findall(r"(\d+) bytes spill", usage))]
-    check(not spills, f"cross_attention_int8.cu spills registers at {spills}")
+    check(not spills, f"cross_attention.cu spills registers at {spills}")
     k3_ptxas = ptxas_usage("int8_matmul_t")
     log(f"int8_matmul_t.cu, nvcc -Xptxas -v: {k3_ptxas}")
 
@@ -1780,11 +1817,15 @@ def main() -> int:
     measured["fused_attention"]["ptxas"] = k1_ptxas
     measured["int8_matmul"]["ptxas"] = k2_ptxas
     measured["int8_matmul_t"]["ptxas"] = k3_ptxas
-    for name in ("cross_attention_int8", "cross_attention_int8_skip"):
-        measured[name]["ptxas"] = cross_ptxas.get("Tq=1")
-    window_ptxas = {tq: u for tq, u in cross_ptxas.items() if tq != "Tq=1"}
-    for name in ("cross_attention_int8_window", "cross_attention_int8_skip_window"):
-        measured[name]["ptxas"] = window_ptxas or None
+    for codec, single, windows in (
+            ("Int8Packed", ("cross_attention_int8", "cross_attention_int8_skip"),
+             ("cross_attention_int8_window", "cross_attention_int8_skip_window")),
+            ("Int4Halves", ("cross_attention_int4",), ("cross_attention_int4_window",))):
+        for name in single:
+            measured[name]["ptxas"] = cross_ptxas[f"{codec} Tq=1"]
+        for name in windows:
+            measured[name]["ptxas"] = {k: u for k, u in cross_ptxas.items()
+                                       if k.startswith(codec) and k != f"{codec} Tq=1"}
     # the int8 engine serves phases 4-6, an int4 engine built from the same
     # parameters the mixed route; each has a distil-large-v3 draft of its
     # cross-KV width (random weights from SEED + 1)

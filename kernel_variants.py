@@ -1,6 +1,6 @@
 """Time design variants of one hand-written kernel side by side on one card.
 
-    python3 kernel_variants.py k1|k2|k3|k6
+    python3 kernel_variants.py k1|k2|k3|k6|k7
 
 Each variant is a text edit of the kernel's committed source in
 whisperlive_tpu_torch/csrc/; "as built" is the source itself. One nvcc
@@ -32,7 +32,7 @@ k3  K3 (int8_matmul_t.cu) at chip_smoke's M = 1, 4, 8, 16, 40 against the
     streams every tile through the ring and the other warps only release
     the stages: the floor of K3's own copy mechanism in this timing) and
     "no stores" (everything but the stores of out).
-k6  K6 and K5's window form (cross_attention_int8.cu at Tq > 1) at the
+k6  K6 and K5's window form (cross_attention.cu, Int8Packed at Tq > 1) at the
     window route's [1,20,Tq,64] x [1,20,1500,128] with lengths and the
     8-slot pool's [8,20,Tq,64] x [8,20,640,128] with 8/8 active, at Tq = 5
     (the verify window at k = 4) and 8, and at Tq = 1 (K4's and K5's
@@ -46,6 +46,12 @@ k6  K6 and K5's window form (cross_attention_int8.cu at Tq > 1) at the
     "2 CTAs an SM" lets a window's instantiation take 128 registers; the
     others change how many queries a score or PV pass takes and how many
     independent sums a query's score takes.
+k7  K7 and K8 (cross_attention.cu, Int4Halves) at K7's window-path
+    [4,20,64] x 2x[4,20,1500,32] unmasked and the 8-slot pool's
+    [8,20,64] x 2x[8,20,640,32] with mixed lengths, and K8 at the pool's
+    [8,20,Tq,64] with mixed lengths at Tq = 5 and 8, timed cold as k6
+    times them (2^-6 of each row's max|ref|), beside the bound: "as built",
+    "no math" (the floor of the design, as in k6), "S / 2" and "S x 2".
 """
 
 from __future__ import annotations
@@ -357,7 +363,7 @@ def run_k3(built: dict[str, Built]) -> dict:
 # K6 and K5's window form: the speculative verify's int8 cross-attention
 # ---------------------------------------------------------------------------
 
-K6_SPLITS = "> kMaxChunkOf[tq]) s *= 2;\n    return s;"
+K6_SPLITS = "> kMaxChunkOf<Codec>[tq]) s *= 2;\n    return s;"
 K6_SPLIT_CHECK = "(S != 1 && S != 2 && S != 4 && S != 8)"
 K6_RAISED = "if (raised != cudaSuccess) return static_cast<int>(raised);"
 K6_PV_TQ = "constexpr int kPvTq = kTq <= 5 ? kTq : (kTq + 1) / 2;"
@@ -368,7 +374,7 @@ K6_CLUSTERS_OF_16 = [  # splits_for's own choice stays within 8
     ("while (s < kMaxSplits && bh * s", "while (s < 8 && bh * s"),
     ("while (s < kMaxSplits && (T + s", "while (s < 8 && (T + s"),
     (K6_SPLIT_CHECK, "(S != 1 && S != 2 && S != 4 && S != 8 && S != 16)"),
-    (K6_RAISED, K6_RAISED + " cudaFuncSetAttribute(cross_attention_int8_kernel<kTq>, "
+    (K6_RAISED, K6_RAISED + " cudaFuncSetAttribute(cross_attention_kernel<Codec, kTq>, "
      "cudaFuncAttributeNonPortableClusterSizeAllowed, 1);"),
 ]
 K6_VARIANTS = {
@@ -380,8 +386,8 @@ K6_VARIANTS = {
                  "if (j < rows) dot[0] = r0 + j < len ? 0.0f : wl::kNegInf;"),
                 ("for (int j = pr; j < rows; j += kPvLanes)",
                  "for (int j = pr; j < rows - (1 << 30); j += kPvLanes)")],
-    "S / 2": [(K6_SPLITS, "> kMaxChunkOf[tq]) s *= 2;\n    return s > 1 ? s / 2 : 1;")],
-    "S x 2": K6_CLUSTERS_OF_16 + [(K6_SPLITS, "> kMaxChunkOf[tq]) s *= 2;\n    return 2 * s;")],
+    "S / 2": [(K6_SPLITS, K6_SPLITS.replace("return s;", "return s > 1 ? s / 2 : 1;"))],
+    "S x 2": K6_CLUSTERS_OF_16 + [(K6_SPLITS, K6_SPLITS.replace("return s;", "return 2 * s;"))],
     "2 CTAs an SM": [(K6_BOUNDS, "kTq == 1 ? 1 : 2)")],
     "one score pass at every Tq": [(K6_SCORE_TQ, "constexpr int kScoreTq = kTq;")],
     "PV in one pass": [(K6_PV_TQ, "constexpr int kPvTq = kTq;")],
@@ -449,11 +455,80 @@ def run_k6(built: dict[str, Built]) -> dict:
     return {"bound_us": {c[0]: c[6] for c in cases}, "variants": each_variant(built, run)}
 
 
+# ---------------------------------------------------------------------------
+# K7 and K8: the int4 cross-attention, the same source over the Int4Halves
+# codec
+# ---------------------------------------------------------------------------
+
+K7_VARIANTS = {name: K6_VARIANTS[name] for name in ("as built", "no math", "S / 2", "S x 2")}
+K7_NO_OUTPUT = ("no math",)
+K7_ENTRIES = ("wl_cross_attention_int4", "wl_cross_attention_int4_window")
+
+
+def k7_int4(lib: ctypes.CDLL, q, k4, v4, ln) -> torch.Tensor:
+    """The wrappers' launch with this library: K7 for a [B, H, 64] q, else
+    K8; `ln` may be None."""
+    b, h, t = k4.shape[:3]
+    out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    len_ptr = None if ln is None else ln.data_ptr()
+    args = (q.data_ptr(), k4.data_ptr(), v4.data_ptr(), len_ptr, out.data_ptr(), b, h, t)
+    if q.dim() == 3:
+        check_rc(lib.wl_cross_attention_int4(*args, HEAD_DIM**-0.5, stream()))
+    else:
+        check_rc(lib.wl_cross_attention_int4_window(*args, q.shape[2], HEAD_DIM**-0.5, stream()))
+    return out
+
+
+def run_k7(built: dict[str, Built]) -> dict:
+    cfg = wmod.WHISPER_CONFIGS[chip_smoke.MODEL]
+    h, hd, t_enc = cfg.n_audio_head, cfg.head_dim, cfg.n_audio_ctx
+    b5, t5 = chip_smoke.CONT_SLOTS, chip_smoke.K5_T
+    mixed = [640, 300, 1, 640, 512, 17, 640, 100]
+    randn, int8 = chip_smoke.random_makers(torch.device("cuda"), chip_smoke.SEED)
+    cases = []
+    for b, t, tq, lens in ((chip_smoke.BATCH, t_enc, 1, None), (b5, t5, 1, mixed),
+                           (b5, t5, chip_smoke.SPEC_K + 1, mixed), (b5, t5, 8, mixed)):
+        used = [t] * b if lens is None else [min(n, t) or t for n in lens]
+        n_bytes = sum(h * n * hd for n in used)  # the K and V rows one call reads
+        copies = -(-chip_smoke.COLD_BYTES // n_bytes)
+        kvs = [(int8(b, h, t, hd // 2), int8(b, h, t, hd // 2)) for _ in range(copies)]
+        ln = None if lens is None else torch.tensor(lens, dtype=torch.int32, device="cuda")
+        q = randn(*((b, h, hd) if tq == 1 else (b, h, tq, hd)), scale=chip_smoke.Q_SCALE_INT4)
+        ref = (attn_ops.cross_attention_int4_ref(q, *kvs[0], ln) if tq == 1 else
+               attn_ops.cross_attention_int4_window_ref(q, *kvs[0], ln))
+        work = (n_bytes + b * h * tq * hd * 6 + (0 if ln is None else 4 * b),
+                sum(4 * h * tq * n * hd for n in used))
+        label = (f"[{b},{h},{tq},{hd}] x 2x[{b},{h},{t},{hd // 2}]"
+                 + ("" if lens is None else " lengths mixed"))
+        cases.append((label, q, kvs, ln, ref, chip_smoke.bound(*work)["bound_ms"] * 1e3))
+
+    def run(name: str, variant: Built) -> dict:
+        row = {"checked": name not in K7_NO_OUTPUT, "cold_us": {}, "max_abs_err": {}}
+        for label, q, kvs, ln, ref, _ in cases:
+            out = k7_int4(variant.lib, q, *kvs[0], ln)
+            if row["checked"]:
+                err = (out - ref).abs().flatten(1).amax(1)
+                tol = 2.0**-6 * ref.abs().flatten(1).amax(1)
+                if not bool((err <= tol).all()):
+                    raise RuntimeError(f"{label}: error {err.tolist()} over 2^-6 of each row's "
+                                       "max|ref|")
+                row["max_abs_err"][label] = err.max().item()
+            row["cold_us"][label] = chip_smoke.median_ms(chip_smoke.rotating(
+                [lambda kv=kv, q=q, ln=ln: k7_int4(variant.lib, q, *kv, ln) for kv in kvs]),
+                iters=10, reps=len(kvs)) * 1e3
+        print(f"{name:10s} cold " + ", ".join(f"{label} {us:.6g} us"
+                                               for label, us in row["cold_us"].items()),
+              flush=True)
+        return row
+    return {"bound_us": {c[0]: c[5] for c in cases}, "variants": each_variant(built, run)}
+
+
 KERNELS = {
     "k1": ("fused_attention.cu", ("wl_fused_attention",), K1_VARIANTS, run_k1),
     "k2": ("int8_matmul.cu", ("wl_int8_matmul",), K2_VARIANTS, run_k2),
     "k3": ("int8_matmul_t.cu", ("wl_int8_matmul_t",), K3_VARIANTS, run_k3),
-    "k6": ("cross_attention_int8.cu", K6_ENTRIES, K6_VARIANTS, run_k6),
+    "k6": ("cross_attention.cu", K6_ENTRIES, K6_VARIANTS, run_k6),
+    "k7": ("cross_attention.cu", K7_ENTRIES, K7_VARIANTS, run_k7),
 }
 
 

@@ -1,5 +1,5 @@
-// Runs K4, K5, K6 and K5's window form (csrc/cross_attention_int8.cu) on
-// the CPU through common.cuh's emulation.
+// Runs K4, K5, K6 and K5's window form (csrc/cross_attention.cu's Int8Packed
+// instantiations) on the CPU through common.cuh's emulation.
 //
 //   cross_int8_harness B H T Tq S masks eager schedule in out
 //   cross_int8_harness splits B H T Tq
@@ -16,14 +16,15 @@
 // an inactive row) aborts. Prints the launcher's return code, the split
 // and whether the two outputs are equal bit for bit. The second form
 // prints the launcher's split for B*H rows of T positions and Tq queries.
-#include "cross_attention_int8.cu"
+#include "cross_attention.cu"
 
 #include <fstream>
 #include <iterator>
 
 int main(int argc, char** argv) {
     if (argc == 6 && std::strcmp(argv[1], "splits") == 0) {
-        printf("%d\n", splits_for(atoi(argv[2]) * atoi(argv[3]), atoi(argv[4]), atoi(argv[5])));
+        printf("%d\n", splits_for<Int8Packed>(atoi(argv[2]) * atoi(argv[3]), atoi(argv[4]),
+                                              atoi(argv[5])));
         return 0;
     }
     if (argc != 11) {
@@ -31,7 +32,7 @@ int main(int argc, char** argv) {
         return 2;
     }
     const int B = atoi(argv[1]), H = atoi(argv[2]), T = atoi(argv[3]), Tq = atoi(argv[4]);
-    const int S = atoi(argv[5]) ? atoi(argv[5]) : splits_for(B * H, T, Tq);
+    const int S = atoi(argv[5]) ? atoi(argv[5]) : splits_for<Int8Packed>(B * H, T, Tq);
     const int masks = atoi(argv[6]), eager = atoi(argv[7]), schedule = atoi(argv[8]);
     std::ifstream in(argv[9], std::ios::binary);
     const std::vector<char> bytes((std::istreambuf_iterator<char>(in)), {});
@@ -65,9 +66,9 @@ int main(int argc, char** argv) {
         emu::schedule = static_cast<emu::Schedule>((schedule + run) % 3);
         emu::reverse_ctas = run == 1;
         out[run].assign(size_t(B) * H * Tq * 64, NAN);
-        rc |= launch(qb.data(), kvb.data(), masks ? lb.data() : nullptr,
-                     masks == 2 ? ab.data() : nullptr, out[run].data(), B, H, T, Tq, 0.125f, S,
-                     nullptr);
+        rc |= launch<Int8Packed>(qb.data(), kvb.data(), nullptr, masks ? lb.data() : nullptr,
+                                 masks == 2 ? ab.data() : nullptr, out[run].data(), B, H, T, Tq,
+                                 0.125f, S, nullptr);
     }
     std::ofstream(argv[10], std::ios::binary)
         .write(reinterpret_cast<const char*>(out[0].data()), out[0].size() * 4);

@@ -2,8 +2,8 @@
 against their plain versions.
 
 The kernels themselves run only on a card (tests/test_torch_cuda.py). Here
-g++ (C++17) compiles csrc/cross_attention_int8.cu (every instantiation, Tq
-= 1 for K4 and K5 and 2..8 for the windows) against
+g++ (C++17) compiles csrc/cross_attention.cu (every Int8Packed
+instantiation, Tq = 1 for K4 and K5 and 2..8 for the windows) against
 tests/cuda_emu/common.cuh, which stands in for csrc/common.cuh and the CUDA
 headers (a coroutine per CUDA thread; shuffles as exchanges between warp
 barriers; cp.async copies landing at their wait_group or at once; the CTAs
@@ -43,14 +43,20 @@ def cross_binary(tmp_path_factory):
     if gxx is None:
         pytest.skip("needs g++")
     d = tmp_path_factory.mktemp("cross_int8_emu")
-    src = (_kernels.CSRC_DIR / "cross_attention_int8.cu").read_text()
+    return build_emulated(gxx, d, "cross_int8_harness.cpp")
+
+
+def build_emulated(gxx, d, harness):
+    """g++ builds `harness` (tests/cuda_emu) over csrc/cross_attention.cu,
+    its dynamic shared memory taken from the emulator, into d/cross."""
+    src = (_kernels.CSRC_DIR / "cross_attention.cu").read_text()
     old = "extern __shared__ __align__(16) unsigned char smem[];"
     assert src.count(old) == 1 and "<<<" not in src  # cudaLaunchKernelEx runs as it is
-    (d / "cross_attention_int8.cu").write_text(src.replace(old, "unsigned char* smem = emu_smem;"))
-    for name in ("common.cuh", "cross_int8_harness.cpp"):
+    (d / "cross_attention.cu").write_text(src.replace(old, "unsigned char* smem = emu_smem;"))
+    for name in ("common.cuh", harness):
         shutil.copy(EMU_DIR / name, d / name)
-    subprocess.run([gxx, "-std=c++17", "-O1", "-o", str(d / "cross"),
-                    str(d / "cross_int8_harness.cpp")], check=True, capture_output=True, text=True)
+    subprocess.run([gxx, "-std=c++17", "-O1", "-o", str(d / "cross"), str(d / harness)],
+                   check=True, capture_output=True, text=True)
     return d / "cross"
 
 

@@ -389,6 +389,48 @@ def test_cross_attention_int4_window_kernel_on_card(cuda_device, tq):
                            tattn.cross_attention_int4_window_ref(q, k4, v4, lengths), 2.0**-6)
 
 
+def _int4_call(q, k4, v4, ln):
+    """K7 for a [B, H, 64] q, else K8; -> (output, plain version, kernel name)."""
+    if q.dim() == 3:
+        return (tattn.cross_attention_int4(q, k4, v4, ln),
+                tattn.cross_attention_int4_ref(q, k4, v4, ln), "cross_attention_int4")
+    return (tattn.cross_attention_int4_window(q, k4, v4, ln),
+            tattn.cross_attention_int4_window_ref(q, k4, v4, ln), "cross_attention_int4_window")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tq", [1, 5, 8])
+def test_cross_attention_int4_kernels_at_8192_positions(cuda_device, tq):
+    """K7 and K8 at the wrappers' largest T: 8 CTAs a row of 1024 rows
+    each, at every Tq (a CTA holds 1536 int4 rows beside 8 score rows),
+    unmasked and with lengths past the chunk boundaries and 0; each call
+    is one launch of its kernel."""
+    rng = np.random.default_rng(50 + tq)
+    q = _gpu(rng, (2, 4, 64) if tq == 1 else (2, 4, tq, 64), Q_SCALE_INT4)
+    k4, v4 = _int8(rng, (2, 4, 8192, 32)), _int8(rng, (2, 4, 8192, 32))
+    for ln in (None, torch.tensor([8192 - 1023, 0], dtype=torch.int32, device="cuda")):
+        before = dict(_kernels.launches)
+        out, ref, name = _int4_call(q, k4, v4, ln)
+        assert {k: n - before[k] for k, n in _kernels.launches.items() if n != before[k]} == {
+            name: 1}
+        assert _rows_close(out, ref, 2.0**-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tq", [1, 5, 8])
+def test_cross_attention_int4_kernels_same_bits_twice(cuda_device, tq):
+    """K7 and K8 sum the cluster's partials in rank order, without atomics:
+    two calls on the same inputs give the same bits, at the window path's
+    [4,20,1500] (4 CTAs a row) and the pool's [8,20,640] (2 a row)."""
+    rng = np.random.default_rng(60 + tq)
+    for b, t, lengths in ((4, 1500, [1500, 700, 1, 0]), (8, 640, [640, 300, 1, 0, 320, 321, 2,
+                                                                  640])):
+        q = _gpu(rng, (b, 20, 64) if tq == 1 else (b, 20, tq, 64), Q_SCALE_INT4)
+        k4, v4 = _int8(rng, (b, 20, t, 32)), _int8(rng, (b, 20, t, 32))
+        for ln in (None, torch.tensor(lengths, dtype=torch.int32, device="cuda")):
+            assert torch.equal(_int4_call(q, k4, v4, ln)[0], _int4_call(q, k4, v4, ln)[0])
+
+
 @pytest.mark.cuda
 def test_cuda_tensors_never_reach_the_plain_versions(cuda_device, monkeypatch):
     """Each new wrapper launches its kernel for CUDA tensors: its plain

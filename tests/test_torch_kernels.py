@@ -120,4 +120,4 @@ def test_kernel_library_is_named_by_its_sources():
     assert path.name.startswith("libwl_kernels-") and path.suffix == ".so"
     names = {p.name for p in _kernels.sources()}
     assert names >= {"fused_attention.cu", "int8_matmul.cu", "int8_matmul_t.cu",
-                     "cross_attention_int8.cu"}
+                     "cross_attention.cu"}

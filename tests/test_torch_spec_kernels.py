@@ -127,10 +127,14 @@ def test_k7_plain_version_matches_pallas(lengths):
     assert_close(out, ref)
 
 
-@pytest.mark.parametrize("lengths", [None, [80, 33, 1, 0]], ids=["unmasked", "lengths"])
+# T = 1500 is the encoder context, with a row of length 0 (a uniform
+# softmax over all T)
+@pytest.mark.parametrize("t, lengths", [(80, None), (80, [80, 33, 1, 0]),
+                                        (1500, [1500, 700, 1, 0])],
+                         ids=["unmasked", "lengths", "t1500-len0"])
 @pytest.mark.parametrize("tq", [2, 8])
-def test_k8_plain_version_matches_pallas(lengths, tq):
-    rng, k4, v4 = int4_inputs(4 + tq)
+def test_k8_plain_version_matches_pallas(t, lengths, tq):
+    rng, k4, v4 = int4_inputs(4 + tq, t=t)
     q = (rng.standard_normal((4, 2, tq, 64)) * Q_SCALE_INT4).astype(np.float32)
     jlen = None if lengths is None else jnp.asarray(lengths, jnp.int32)
     ref = jattn.cross_attention_int4_window(jnp.asarray(q), jnp.asarray(k4), jnp.asarray(v4),
@@ -167,6 +171,7 @@ def test_cpu_tensors_take_the_plain_path_without_counting():
     assert {"cross_attention_int8_window", "cross_attention_int8_skip_window",
             "cross_attention_int4", "cross_attention_int4_window"} <= set(_kernels.KERNELS)
     names = {p.name for p in _kernels.sources()}
-    # K6 and K5's window form are instantiations of K4's source
-    assert {"cross_attention_int8.cu", "cross_attention_int4.cu"} <= names
-    assert "cross_attention_int8_window.cu" not in names
+    # K5's window form, K6, K7 and K8 are instantiations of K4's source
+    assert "cross_attention.cu" in names
+    assert not names & {"cross_attention_int8.cu", "cross_attention_int8_window.cu",
+                        "cross_attention_int4.cu"}

@@ -187,9 +187,6 @@ def cross_attention_int8_skip(
 # ---------------------------------------------------------------------------
 
 MAX_WINDOW = 8
-# the int4 kernels (K7, K8) keep one f32 score row a query over all T in
-# shared memory; the int8 kernels split T across a cluster and hold T <= 8192
-MAX_WINDOW_SMEM = 200 * 1024
 
 
 def window_attention_ref(
@@ -219,11 +216,6 @@ def _check_window(q: torch.Tensor, b: int, h: int, t: int) -> int:
     require(q.dtype == torch.bfloat16, f"q must be bfloat16, got {q.dtype}")
     require(q.is_contiguous(), "q must be contiguous")
     return tq
-
-
-def _check_int4_smem(tq: int, t: int) -> None:
-    require(tq * t * 4 <= MAX_WINDOW_SMEM,
-            f"Tq={tq} x T={t} score rows exceed the int4 kernel's shared memory")
 
 
 def _check_lengths(lengths: torch.Tensor | None, b: int) -> None:
@@ -367,14 +359,14 @@ def _check_int4(k4, v4, lengths):
 def cross_attention_int4(
     q: torch.Tensor, k4: torch.Tensor, v4: torch.Tensor, lengths: torch.Tensor | None = None
 ) -> torch.Tensor:
-    """Single-token cross-attention over int4 K and V (K7). q [B, H, 64]
-    bf16, k4 and v4 [B, H, T, 32] packed int4, lengths optional [B] int32;
-    returns [B, H, 64] float32."""
+    """Single-token cross-attention over int4 K and V (K7, an instantiation
+    of K4's source: T <= 8192). q [B, H, 64] bf16, k4 and v4 [B, H, T, 32]
+    packed int4, lengths optional [B] int32; returns [B, H, 64] float32."""
     tensors = (q, k4, v4) if lengths is None else (q, k4, v4, lengths)
     if runs_on_cpu(*tensors):
         return cross_attention_int4_ref(q, k4, v4, lengths)
     b, h, t = _check_int4(k4, v4, lengths)
-    _check_int4_smem(_check_window(q[:, :, None], b, h, t), t)
+    _check_window(q[:, :, None], b, h, t)
     len_ptr = 0 if lengths is None else lengths.data_ptr()
     out = torch.empty((b, h, HEAD_DIM), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
@@ -389,15 +381,14 @@ def cross_attention_int4_window(
     q: torch.Tensor, k4: torch.Tensor, v4: torch.Tensor, lengths: torch.Tensor | None = None
 ) -> torch.Tensor:
     """Cross-attention of a Tq <= 8 query window over int4 K and V, each
-    byte read once per window (K8). q [B, H, Tq, 64] bf16, k4 and v4
-    [B, H, T, 32], lengths optional [B] int32; returns [B, H, Tq, 64]
-    float32."""
+    byte read once per window (K8, an instantiation of K4's source: T <=
+    8192 at every Tq). q [B, H, Tq, 64] bf16, k4 and v4 [B, H, T, 32],
+    lengths optional [B] int32; returns [B, H, Tq, 64] float32."""
     tensors = (q, k4, v4) if lengths is None else (q, k4, v4, lengths)
     if runs_on_cpu(*tensors):
         return cross_attention_int4_window_ref(q, k4, v4, lengths)
     b, h, t = _check_int4(k4, v4, lengths)
     tq = _check_window(q, b, h, t)
-    _check_int4_smem(tq, t)
     len_ptr = 0 if lengths is None else lengths.data_ptr()
     out = torch.empty((b, h, tq, HEAD_DIM), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
