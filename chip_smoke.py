@@ -33,7 +33,9 @@ a result):
    torch.matmul on the weights dequantized to bf16 (`bf16_gemm_ms`); its
    entry carries them as `cold` and `step_sweep`. K4 at [B,20,64] x
    [B,20,1500,128] for the window buckets B = 1, 2, 4 and at B = 4 with
-   lengths [1500,700,1,0]; K5 at [8,20,64] x [8,20,640,128] with mixed
+   lengths [1500,700,1,0], and at the beam routes' 10 rows: [10,20,64] x
+   [10,20,1500,128] (the window route) and x [10,20,640,128] with lengths
+   5 x 512 and 5 x 640 (the beam pool); K5 at [8,20,64] x [8,20,640,128] with mixed
    lengths, half the rows active, an active row of length 0, lengths on
    and past the chunk boundaries of its split over T, and 8/8, 4/8 and
    1/8 rows active. The speculative verify's kernels at k=4 (a window of 5
@@ -79,8 +81,29 @@ a result):
    verify kernel's share: K6 on the window route (one decode of two rounds
    less one of none), K5's window form in an `all` pool and K8 in an int4
    speculative pool, each of one round a chunk.
-7. Check the output against a reference: the window path's encoder states
-   and teacher-forced logits, the continuous step (decode_step_masked
+7. Serve beam search and word timestamps on the int8 engine (no warmup:
+   PyTorch compiles nothing, and the kernels are built). The window route
+   at beam 5, batch bucket 2, 48 new tokens through transcribe_batch: the
+   time per window, the K2/K3/K4 launches a beam step (a full decode less
+   a one-step one), the device time a beam step and the self-KV parent
+   gather's share (torch.profiler, the same difference); beam K = 1 is
+   token-exact against the greedy decode and the chunked beam (segments of
+   8 steps) against the monolithic one. A beam pool (--beam_size 5
+   --beam_mode full: 2 slots x 5 lanes) serving one session, which must
+   launch K4 and never K5, with its launches and device time a step; a
+   refresh-mode backend (greedy partials on an 8-slot pool, beamed full
+   re-decodes on the window scheduler in preemptible segments) serving one
+   session, which must route both ways. One word-timestamp session on the
+   continuous route and one on the window route: every word has start <=
+   end inside its window, and starts and ends are non-decreasing. Then the
+   alignment pass of a 40-token hypothesis at 1500 and 640 positions, its
+   time (the median of 5 and the first), its maps' copy and its launches.
+8. Check the output against a reference: the window path's encoder states
+   and teacher-forced logits, the first beam steps' logits (B*K = 10 rows;
+   the plain path follows the kernel path's beams), the first steps of a
+   2 x 5-lane beam pool from one inserted state (10 rows with the slots'
+   cross_len 512 and 640, no active rows: K4 with lengths, never K5; the
+   plain path follows its beams too), the continuous step (decode_step_masked
    on an 8-slot pool with per-slot cross_len and free rows, teacher
    forced; K5 at int8, K7 at int4), and the verify window (decode_window,
    and decode_window_masked with per-row cross_len and an inactive row) at
@@ -118,6 +141,7 @@ from whisperlive_tpu_torch.engine.tokenizer import TokenSpec, WhisperTokenizer
 from whisperlive_tpu_torch.models import whisper as wmod
 from whisperlive_tpu_torch.ops import _kernels
 from whisperlive_tpu_torch.ops import attention as attn_ops
+from whisperlive_tpu_torch.ops import decoding as dec
 from whisperlive_tpu_torch.ops import quant_matmul as qmm
 from whisperlive_tpu_torch.serving import backends as backends_mod
 from whisperlive_tpu_torch.serving.server import ClientManager, TranscriptionServer
@@ -210,10 +234,15 @@ def speech_like(seconds: float, seed: int = 0) -> np.ndarray:
 
 class VisibleTokenizer(WhisperTokenizer):
     """Decodes each text token to a visible word: the repository has no BPE
-    vocabulary, and empty text would keep the session from sending segments."""
+    vocabulary, and empty text would keep the session from sending segments
+    (or word timings: each text token is a word)."""
 
     def decode(self, tokens):
         return "".join(f" t{int(t)}" for t in tokens if int(t) < self.spec.eot)
+
+    def split_to_word_tokens(self, tokens):
+        text = [int(t) for t in tokens if int(t) < self.spec.eot]
+        return [f" t{t}" for t in text], [[t] for t in text]
 
 
 # ---------------------------------------------------------------------------
@@ -616,22 +645,28 @@ def cross_cold(label: str, call, kv: tuple, q, rows, work: tuple, to_bf16) -> di
 def k4_phase(randn, int8, dev, h: int, hd: int, t_enc: int) -> dict:
     """K4, the window path's decode cross-attention, at q [B,H,64] x kvp
     [B,H,T,128] for the window path's batch buckets B = 1, 2, 4 over the
-    full context, and at B = 4 with lengths [T, 700, 1, 0]; each timed warm
+    full context, and at B = 4 with lengths [T, 700, 1, 0]; the beam
+    routes' B*K = 10 rows: the window route's over the full context, the
+    2 x 5-lane pool's over its 640 positions with the slots' lengths 512
+    and 640 (the pool passes no active rows); each timed warm
     (the same K/V call after call) and cold (cross_cold). f32 output;
     a probability that rounds to the other bf16 neighbour moves the output
     by ~2^-9 of it: 1e-3 of each row's max|ref|. The entry reports B = 4
     unmasked (its launches come from the window path at B <= 4)."""
     warm, cold = [], []
-    for b, lens in ((1, None), (2, None), (BATCH, None), (BATCH, [t_enc, 700, 1, 0])):
-        q, kvp = randn(b, h, hd, scale=0.05), int8(b, h, t_enc, 2 * hd)
+    bk = BEAM_BATCH * BEAM
+    for b, t, lens in ((1, t_enc, None), (2, t_enc, None), (BATCH, t_enc, None),
+                       (BATCH, t_enc, [t_enc, 700, 1, 0]), (bk, t_enc, None),
+                       (bk, K5_T, [512] * BEAM + [K5_T] * BEAM)):
+        q, kvp = randn(b, h, hd, scale=0.05), int8(b, h, t, 2 * hd)
         ln = None if lens is None else torch.tensor(lens, dtype=torch.int32, device=dev)
-        label = (f"q [{b},{h},{hd}] kvp [{b},{h},{t_enc},{2 * hd}]"
+        label = (f"q [{b},{h},{hd}] kvp [{b},{h},{t},{2 * hd}]"
                  + ("" if lens is None else f" lengths {lens}"))
         r = compare("cross_attention_int8", label,
                     lambda q=q, kvp=kvp, ln=ln: attn_ops.cross_attention_int8(q, kvp, ln),
                     lambda q=q, kvp=kvp, ln=ln: attn_ops.cross_attention_int8_ref(q, kvp, ln),
                     1e-3, per_row=True)
-        used = [t_enc] * b if lens is None else [min(n, t_enc) or t_enc for n in lens]
+        used = [t] * b if lens is None else [min(n, t) or t for n in lens]
         work = cross_int8_work(h, hd, used, b, lens is not None)
         r.update(bound(*work))
         warm.append(r)
@@ -642,7 +677,7 @@ def k4_phase(randn, int8, dev, h: int, hd: int, t_enc: int) -> dict:
     log("cross_attention_int8 warm / cold (us): " + ", ".join(
         f"{w['shape']} {w['ms'] * 1e3:.6g} / {c['ms'] * 1e3:.6g}" for w, c in zip(warm, cold)))
     return dict(warm[2], max_abs_err=max(r["max_abs_err"] for r in warm), library_ms=None,
-                other_shapes=[warm[0], warm[1], warm[3]], cold=cold)
+                other_shapes=[warm[0], warm[1], warm[3], warm[4], warm[5]], cold=cold)
 
 
 def k5_phase(randn, int8, dev, h: int, hd: int) -> dict:
@@ -990,11 +1025,12 @@ class CountingBackend(backends_mod.TorchBackend):
         return sum(1 for c in self.calls if c["uid"] == uid)
 
 
-async def run_session(server, backend, uid, language, audio, delay_s=0.0, use_vad=True):
+async def run_session(server, backend, uid, language, audio, delay_s=0.0, use_vad=True,
+                      word_timestamps=False):
     await asyncio.sleep(delay_s)
     ws = FakeWebSocket()
     handshake = {"uid": uid, "language": language, "task": "transcribe", "model": MODEL,
-                 "use_vad": use_vad}
+                 "use_vad": use_vad, "word_timestamps": word_timestamps}
     ws.incoming.put_nowait(json.dumps(handshake))
     task = asyncio.create_task(server.recv_audio(ws))
     step = int(16000 * FRAME_S)
@@ -1471,7 +1507,374 @@ def mixed_phase(engine4: WhisperEngine, draft4: WhisperEngine) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Phase 7: output against the plain versions
+# Phase 7: beam search and word timestamps
+# ---------------------------------------------------------------------------
+
+
+BEAM = 5
+BEAM_BATCH = 2
+BEAM_CHUNK = 8
+# the self-KV parent gather is the beam step's one index_select
+GATHER = re.compile(r"index_?[sS]elect")
+BEAM_PATH = ("fused_attention", "int8_matmul", "int8_matmul_t", "cross_attention_int8")
+
+
+def beam_options(beam_size: int = BEAM, max_new: int = MAX_NEW_TOKENS) -> TranscribeOptions:
+    return TranscribeOptions(language="en", beam_size=beam_size, temperatures=(0.0,),
+                             log_prob_threshold=None, no_speech_threshold=None,
+                             compression_ratio_threshold=None, max_new_tokens=max_new)
+
+
+def beam_batch(engine: WhisperEngine, opts: TranscribeOptions):
+    """(audio [2, N], prompts, sot indices) of the beam window batch: 8 s
+    and 5 s of speech-like audio."""
+    audio = np.zeros((BEAM_BATCH, 480000), np.float32)
+    for i in range(BEAM_BATCH):
+        seconds = 8.0 - 3.0 * i
+        audio[i, : int(16000 * seconds)] = speech_like(seconds, 50 + i)
+    prompt, sot = engine.build_prompt(opts, language="en")
+    return audio, [prompt] * BEAM_BATCH, [sot] * BEAM_BATCH
+
+
+def beam_steps(engine: WhisperEngine, fn):
+    """fn() and the beam steps (expansions) its beam decodes ran."""
+    steps = []
+    best = engine._beam_best
+
+    def recorded(carry, k, length_penalty):
+        steps.append(carry.state.step)
+        return best(carry, k, length_penalty)
+
+    engine._beam_best = recorded
+    try:
+        out = fn()
+    finally:
+        del engine._beam_best
+    return out, sum(steps)
+
+
+def gather_bytes(engine: WhisperEngine, rows: int, cache_len: int) -> int:
+    """Bytes the self-KV parent gather reads and writes a step."""
+    cfg = engine.cfg
+    return 2 * cfg.n_text_layer * 2 * rows * cache_len * cfg.n_text_state * 2
+
+
+def log_step_profile(label: str, engine: WhisperEngine, full, short, steps: int,
+                     rows: int, cache_len: int) -> None:
+    """Device time per beam step (the difference of a long and a short run
+    over their difference in steps) and the self-KV gather's share."""
+    (ev_f, wall_f, n_f), (ev_s, wall_s, n_s) = full, short
+    if not ev_f:
+        log(f"{label}: device time not measured (no CUDA events recorded)")
+        return
+    dev_us = (device_us(ev_f) - device_us(ev_s)) / steps
+    gat_us = (device_us(ev_f, GATHER) - device_us(ev_s, GATHER)) / steps
+    names = sorted({e.key[:100] for e in ev_f if GATHER.search(e.key)})
+    log(f"{label}: device time {dev_us / 1e3:.6g} ms per beam step ({steps} steps, "
+        f"{(n_f - n_s) / steps:.6g} kernel launches a step, wall "
+        f"{(wall_f - wall_s) / steps * 1e3:.6g} ms a step under the profiler); self-KV "
+        f"parent gather {gat_us:.6g} us a step = share {gat_us / max(dev_us, 1e-9):.6g} "
+        f"({gather_bytes(engine, rows, cache_len) / 1e6:.6g} MB read and written, "
+        f"{gather_bytes(engine, rows, cache_len) / max(gat_us, 1e-9) / 1e3:.6g} GB/s) "
+        f"in kernels {names}")
+    top = sorted(ev_f, key=lambda e: e.self_device_time_total, reverse=True)[:5]
+    for e in top:
+        log(f"{label} kernel (one of the five largest, long run): "
+            f"{e.self_device_time_total / 1e3:.6g} ms in {e.count} launches: {e.key[:160]}")
+
+
+def beam_window_phase(engine: WhisperEngine) -> dict:
+    """The window route at beam 5 and batch bucket 2: transcribe_batch
+    (prepare, language ID, the beam program), with the launches, the time
+    per window, the launches and device time per beam step, the self-KV
+    gather's share; beam K = 1 against the greedy decode, and the chunked
+    beam (segments of BEAM_CHUNK steps) against the monolithic one."""
+    opts = beam_options()
+    audio, prompts, sots = beam_batch(engine, opts)
+    args = (audio, prompts, sots, [True] * BEAM_BATCH, opts)
+    engine.transcribe_batch(*args)  # first call at these shapes
+    _kernels.reset_launches()
+    t0 = time.monotonic()
+    (results, _, cross), steps = beam_steps(engine, lambda: engine.transcribe_batch(*args))
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = dict(_kernels.launches)
+    check_path("beam window route", launches, BEAM_PATH, absent=("cross_attention_int8_skip",))
+    log(f"beam window route (beam {BEAM}, batch {BEAM_BATCH}, {MAX_NEW_TOKENS} new tokens): "
+        f"{wall:.6g} s for the batch = {wall / BEAM_BATCH:.6g} s per window on the host clock "
+        f"(prepare, language ID and the beam decode of {steps} steps); tokens "
+        f"{[len(r.tokens) for r in results]}, avg_logprob {[r.avg_logprob for r in results]}")
+    check(all(0 < len(r.tokens) <= MAX_NEW_TOKENS and np.isfinite(r.avg_logprob)
+              for r in results), "beam window results out of range")
+    check({t.device.type for t in cross.values() if t is not None} == {"cuda"},
+          "cross-KV off the card")
+
+    def decode(o):
+        return engine.decode_batch(cross, prompts, sots, o)
+
+    # launches and device time per step: a full decode less a one-step one
+    # (prefill and one expansion, no decode step)
+    counted = {}
+    for max_new in (MAX_NEW_TOKENS, 1):
+        before = dict(_kernels.launches)
+        _, n = beam_steps(engine, lambda: decode(beam_options(max_new=max_new)))
+        counted[max_new] = ({k: _kernels.launches[k] - before[k] for k in before}, n)
+    (full, n_full), (short, n_short) = counted[MAX_NEW_TOKENS], counted[1]
+    per_step = {k: (full[k] - short[k]) / (n_full - n_short) for k in BEAM_PATH[1:]}
+    log(f"beam window route launches per beam step (B*K = {BEAM_BATCH * BEAM} rows): "
+        f"K2 {per_step['int8_matmul']:.6g}, K3 {per_step['int8_matmul_t']:.6g}, "
+        f"K4 {per_step['cross_attention_int8']:.6g}")
+    n_layer = engine.cfg.n_text_layer
+    check(per_step == {"int8_matmul": 8 * n_layer, "int8_matmul_t": 1,
+                       "cross_attention_int8": n_layer},
+          f"beam step launches {per_step}: K2 8 a layer, K3 once, K4 once a layer")
+    cache_len = engine._cache_len(engine._pad_prompts(prompts)[0].shape[1], MAX_NEW_TOKENS)
+    log_step_profile("beam window route profile", engine,
+                     cuda_profile(lambda: decode(beam_options())),
+                     cuda_profile(lambda: decode(beam_options(max_new=1))),
+                     n_full - n_short, BEAM_BATCH * BEAM, cache_len)
+
+    # beam K = 1 is the greedy decode
+    greedy = decode(beam_options(beam_size=1))
+    arr, plen = engine._pad_prompts(prompts)
+    t = engine._tensor
+    o1 = beam_options(beam_size=1)
+    beam_args = (cross, t(arr), t(plen), t(np.asarray(sots, np.int32)),
+                 engine.suppress_mask_for(o1), t(np.ones(BEAM_BATCH, bool)), 1.0,
+                 MAX_NEW_TOKENS, cache_len, 0, True, -1)
+    toks, gen, _, _ = engine._decode_beam(beam_args, 1, 1.0)
+    toks, gen = toks.cpu().numpy(), gen.cpu().numpy()
+    for i, r in enumerate(greedy):
+        b1 = [int(x) for x in toks[i, : gen[i]] if x != engine.spec.eot]
+        check(b1 == [int(x) for x in r.tokens],
+              f"beam K = 1 differs from the greedy decode on item {i}: {b1} vs {list(r.tokens)}")
+    log(f"beam K = 1 against the greedy decode: token-exact on {len(greedy)} items "
+        f"({[len(r.tokens) for r in greedy]} tokens)")
+
+    # the chunked (preemptible) beam against the monolithic one
+    saved = engine.beam_chunk
+    t0 = time.monotonic()
+    mono = decode(opts)
+    torch.cuda.synchronize()
+    t1 = time.monotonic()
+    engine.beam_chunk = BEAM_CHUNK
+    try:
+        chunked = decode(opts)
+        torch.cuda.synchronize()
+    finally:
+        engine.beam_chunk = saved
+    t2 = time.monotonic()
+    for a, b in zip(mono, chunked):
+        check(list(a.tokens) == list(b.tokens) and a.avg_logprob == b.avg_logprob,
+              "the chunked beam differs from the monolithic beam")
+    log(f"chunked beam (segments of {BEAM_CHUNK} steps) token-exact against the monolithic "
+        f"beam; decode {t2 - t1:.6g} s chunked, {t1 - t0:.6g} s monolithic (host clock)")
+    return launches
+
+
+def pool_beam_profile(engine: WhisperEngine) -> None:
+    """Launches and device time per step of a beam pool of 2 slots x 5
+    lanes, both slots decoding, and the self-KV gather's share."""
+    cb = ContinuousEngine(engine, n_slots=2, beam_width=BEAM, steps_per_chunk=8, cross_ctx=640,
+                          enc_buckets=(512, 1500))
+    cb.init_state()
+    prompt, sot = engine.build_prompt(beam_options(), language="en")
+    windows = np.zeros((2, 480000), np.float32)
+    for i in range(2):
+        windows[i, :96000] = speech_like(6.0, 60 + i)
+    cb.insert(windows, [prompt] * 2, [sot] * 2, [True] * 2, [0, 1], [0.0] * 2, [True] * 2,
+              [1.0] * 2, [cb.ring - 1] * 2, enc_ctx=512)
+    cb.step()
+    before = dict(_kernels.launches)
+    long = cuda_profile(lambda: [cb.step() for _ in range(2)])
+    per_step = {k: (_kernels.launches[k] - before[k]) / (2 * cb.steps_per_chunk)
+                for k in BEAM_PATH[1:] + ("cross_attention_int8_skip",)}
+    log(f"beam pool launches per step (2 slots x {BEAM} lanes): K2 {per_step['int8_matmul']:.6g}, "
+        f"K3 {per_step['int8_matmul_t']:.6g}, K4 {per_step['cross_attention_int8']:.6g}, "
+        f"K5 {per_step['cross_attention_int8_skip']:.6g}")
+    n_layer = engine.cfg.n_text_layer
+    check(per_step == {"int8_matmul": 8 * n_layer, "int8_matmul_t": 1,
+                       "cross_attention_int8": n_layer, "cross_attention_int8_skip": 0},
+          f"beam pool step launches {per_step}")
+    log_step_profile("beam pool profile", engine, long, ([], 0.0, 0), 2 * cb.steps_per_chunk,
+                     cb.n_rows, cb.cache_len)
+
+
+def beam_pool_phase(engine: WhisperEngine) -> dict:
+    """--beam_size 5 --beam_mode full: the continuous pool of 2 slots x 5
+    lanes serving one session; its steps run K4 with lengths, never K5."""
+    cs = ContinuousScheduler(engine, n_slots=2, beam_width=BEAM, steps_per_chunk=8,
+                             cross_ctx=640, enc_buckets=(512, 1500))
+    window = BatchScheduler(engine, max_batch_size=BATCH, batch_window_ms=50)
+    window.start()
+    cs.start()
+    try:
+        backend = CountingBackend(window, model_name=MODEL, continuous_scheduler=cs,
+                                  beam_size=BEAM)
+        routed = []
+        pick = backend._pick_scheduler
+        backend._pick_scheduler = lambda *a, **kw: routed.append(pick(*a, **kw)) or routed[-1]
+        sessions = [dict(uid="beam-pool", language="en", audio=speech_like(CONT_SESSION_S, 62))]
+        sockets, wall = serve(backend, sessions)
+    finally:
+        cs.stop()
+        window.stop()
+    launches = dict(_kernels.launches)
+    check_calls(backend, ["beam-pool"], 2)
+    check(all(s is cs for s in routed), "a beamed request went to the window path")
+    steps = cs.cb.gstep
+    log(f"beam pool sessions: {wall:.6g} s wall, {len(backend.calls)} backend calls, "
+        f"{cs.tick_stats['ticks']} chunks, {steps} steps, mean step "
+        f"{cs.tick_stats['step_s'] / max(steps, 1) * 1e3:.6g} ms (host clock)")
+    check_path("beam pool", launches, BEAM_PATH, absent=("cross_attention_int8_skip",))
+    # and once a layer in each insert wave's language-ID prefill (one token)
+    waves = cs.tick_stats["insert_calls"]
+    check(steps > 0 and launches["cross_attention_int8"] == (steps + waves) * engine.cfg.n_text_layer,
+          "the beam pool's K4 must launch once per decoder layer per step and per insert wave")
+    check_sockets(sockets)
+    pool_beam_profile(engine)
+    return launches
+
+
+def hybrid_phase(engine: WhisperEngine) -> dict:
+    """--beam_size 5 --beam_mode refresh: greedy incremental partials on the
+    continuous pool (K5), beamed full re-decodes on the window scheduler in
+    preemptible segments (K4): one session, whose commits may move its
+    anchor on every call, then three calls of a stream whose anchor stays
+    put (a full re-decode, then two partials extending its hypothesis)."""
+    saved = engine.beam_chunk
+    cs = ContinuousScheduler(engine, n_slots=CONT_SLOTS, steps_per_chunk=8, cross_ctx=640,
+                             enc_buckets=(512, 1500))
+    window = BatchScheduler(engine, max_batch_size=BATCH, batch_window_ms=50)
+    window.start()
+    cs.start()
+    try:
+        backend = CountingBackend(window, model_name=MODEL, continuous_scheduler=cs,
+                                  beam_size=BEAM, beam_mode="refresh")
+        check(backend.hybrid_beam and engine.beam_chunk > 0, "hybrid beam not enabled")
+        sessions = [dict(uid="hybrid", language="en", audio=speech_like(CONT_SESSION_S, 63))]
+        sockets, wall = serve(backend, sessions)
+        stream = speech_like(6.0, 66)
+        opts = SessionOptions(language="en", use_vad=False)
+        for seconds in (4.0, 5.0, 6.0):
+            asyncio.run(backend.transcribe(stream[: int(16000 * seconds)], opts, language="en",
+                                           uid="hybrid-stream", window_anchor_s=0.0))
+        torch.cuda.synchronize()
+    finally:
+        cs.stop()
+        window.stop()
+        engine.beam_chunk = saved
+    launches = dict(_kernels.launches)
+    check_calls(backend, ["hybrid", "hybrid-stream"], 4)
+    log(f"hybrid beam sessions: {wall:.6g} s wall, {len(backend.calls)} backend calls, "
+        f"{backend.hybrid_stats}")
+    check(backend.hybrid_stats["beamed_fulls"] > 0 and backend.hybrid_stats["greedy_partials"] > 0,
+          f"hybrid routes {backend.hybrid_stats}: a beamed full and a greedy partial expected")
+    check_path("hybrid beam route", launches, BEAM_PATH + ("cross_attention_int8_skip",))
+    check_sockets(sockets)
+    return launches
+
+
+def check_words(label: str, backend) -> int:
+    """Every word of every result: start <= end, inside the window, and
+    starts and ends non-decreasing. Returns the number of words."""
+    n = 0
+    for c in backend.calls:
+        words = [w for g in c["result"].segments for w in (g.words or [])]
+        check(all(g.words is not None for g in c["result"].segments),
+              f"{label}: a segment without word timings")
+        for a, b in zip(words, words[1:]):
+            check(a.start <= b.start and a.end <= b.end, f"{label}: words out of order")
+        for w in words:
+            check(0.0 <= w.start <= w.end <= c["result"].duration + 1e-6,
+                  f"{label}: word {w} outside its {c['result'].duration} s window")
+        n += len(words)
+    check(n > 0, f"{label}: no word timings")
+    return n
+
+
+def time_align_pass(engine: WhisperEngine, cross: dict, ctx: int, reps: int = 5) -> None:
+    """The alignment pass of a 40-token hypothesis (prompt bucket 64) of an
+    8 s window against `ctx` cross-KV positions, and the copy of its cut
+    maps to the host, each the median of reps runs on the host clock."""
+    text = [1000 + i for i in range(40)]
+    arr, sot_len, _ = engine.align_prepare(text)
+    seq_len, frames = sot_len + len(text) + 1, 400
+    sub = engine.gather_cross(cross, [0])
+    if ctx < engine.cfg.n_audio_ctx:
+        sub = {k: None if v is None else (v[..., :ctx, :].contiguous() if k in ("kv8", "kv4")
+                                          else v) for k, v in sub.items()}
+    clen = torch.tensor([ctx], dtype=torch.int32, device=engine.device)
+    passes, copies = [], []
+    before = dict(_kernels.launches)
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        with torch.inference_mode():
+            logits, maps = wmod.decode_with_cross_attn(engine.params, engine.cfg,
+                                                       engine._tensor(arr), sub, cross_len=clen)
+        torch.cuda.synchronize()
+        t1 = time.monotonic()
+        host = maps[:, :, :, :seq_len, :frames].float().cpu().numpy()
+        logits[:, :seq_len].cpu()
+        t2 = time.monotonic()
+        passes.append(t1 - t0)
+        copies.append(t2 - t1)
+    per_pass = {k: (_kernels.launches[k] - before[k]) / reps for k in before
+                if _kernels.launches[k] > before[k]}
+    log(f"align pass at {ctx} positions (T = {arr.shape[1]}): "
+        f"{statistics.median(passes) * 1e3:.6g} ms (the first of {reps}: "
+        f"{passes[0] * 1e3:.6g} ms), the maps' copy "
+        f"{statistics.median(copies) * 1e3:.6g} ms for {host.nbytes / 1e6:.6g} MB "
+        f"(cut on the card from {maps.numel() * maps.element_size() / 1e6:.6g} MB); "
+        f"launches per pass {per_pass}")
+    check("cross_attention_int8" not in per_pass and per_pass.get("int8_matmul", 0) > 0,
+          f"the align pass must run K2 and no cross-attention kernel: {per_pass}")
+
+
+def word_ts_phase(engine: WhisperEngine) -> dict:
+    """One word-timestamp session on the continuous route (alignment at
+    harvest against the slot's cross-KV) and one on the window route
+    (alignment at resolve), then the alignment pass's time and its copy."""
+    _kernels.reset_launches()
+    cs = ContinuousScheduler(engine, n_slots=CONT_SLOTS, steps_per_chunk=8, cross_ctx=640,
+                             enc_buckets=(512, 1500))
+    launches = {}
+    for route in ("continuous", "window"):
+        window = BatchScheduler(engine, max_batch_size=BATCH, batch_window_ms=50)
+        window.start()
+        pool = cs if route == "continuous" else None
+        if pool is not None:
+            pool.start()
+        try:
+            backend = CountingBackend(window, model_name=MODEL, continuous_scheduler=pool)
+            sessions = [dict(uid=f"words-{route}", language="en", word_timestamps=True,
+                             audio=speech_like(WINDOW_SESSION_S, 64))]
+            sockets, wall = serve(backend, sessions)
+        finally:
+            if pool is not None:
+                pool.stop()
+            window.stop()
+        launches[route] = dict(_kernels.launches)
+        check_calls(backend, [s["uid"] for s in sessions], 2)
+        n = check_words(f"word timestamps ({route} route)", backend)
+        log(f"word timestamps ({route} route): {wall:.6g} s wall, {len(backend.calls)} calls, "
+            f"{n} words")
+        check(any("words" in g for m in sockets[0].sent for g in m.get("segments", [])),
+              f"word timestamps ({route} route): no word reached the client")
+        check_path(f"word timestamps ({route} route)", launches[route],
+                   CONTINUOUS_PATH if route == "continuous" else WINDOW_PATH)
+    audio = np.zeros((1, 480000), np.float32)
+    audio[0, :128000] = speech_like(8.0, 65)
+    with torch.inference_mode():
+        _, cross = engine.prepare(audio)
+    for ctx in (engine.cfg.n_audio_ctx, 640):
+        time_align_pass(engine, cross, ctx)
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: output against the plain versions
 # ---------------------------------------------------------------------------
 
 
@@ -1561,6 +1964,116 @@ def window_reference(engine: WhisperEngine, steps: int = 4, rel_tol: float = 5e-
           "encoder states disagree with the plain path")
     for i, (a, b) in enumerate(zip(logits_k, logits_r)):
         compare_logits(f"window logits step {i}", a, b, rel_tol, (2, cfg.n_vocab))
+
+
+def beam_reference(engine: WhisperEngine, steps: int = 4, rel_tol: float = 5e-2) -> None:
+    """The first beam steps of the window route (beam 5, batch 2: logits of
+    B*K = 10 rows a step) against the plain path, which follows the kernel
+    path's beams: its top-K returns the kernel path's choices."""
+    cfg = engine.cfg
+    opts = beam_options(max_new=steps)
+    audio, prompts, sots = beam_batch(engine, opts)
+    with torch.inference_mode():
+        _, cross = engine.prepare(audio)
+
+    def run(choices=None):
+        logits, picked = [], []
+        top_k, decode_step = dec.top_k, wmod.decode_step
+
+        def recorded_top_k(x, k):
+            if choices is None:
+                vals, idx = top_k(x, k)
+            else:
+                idx = choices[len(picked)]
+                vals = x.gather(-1, idx)
+            picked.append(idx)
+            return vals, idx
+
+        def recorded_step(*args, **kw):
+            logits.append(decode_step(*args, **kw))
+            return logits[-1]
+
+        dec.top_k, wmod.decode_step = recorded_top_k, recorded_step
+        try:
+            engine.decode_batch(cross, prompts, sots, opts)
+        finally:
+            dec.top_k, wmod.decode_step = top_k, decode_step
+        return logits, picked
+
+    before = _kernels.launches["cross_attention_int8"]
+    logits_k, choices = run()
+    check(_kernels.launches["cross_attention_int8"] - before == (steps - 1) * cfg.n_text_layer,
+          "the beam steps did not go through K4")
+    logits_r, _ = plain_run(lambda: run(choices))
+    check(len(logits_k) == len(logits_r) == steps - 1, f"{len(logits_k)} beam decode steps")
+    for i, (a, b) in enumerate(zip(logits_k, logits_r)):
+        same = compare_logits(f"beam window logits step {i} (B*K rows)", a, b, rel_tol,
+                              (BEAM_BATCH * BEAM, cfg.n_vocab))
+        check(same, f"beam step {i}: argmax differs from the plain path by more than a tie")
+
+
+def beam_pool_reference(engine: WhisperEngine, steps: int = 4, rel_tol: float = 5e-2) -> None:
+    """A beam pool's first steps (2 slots x 5 lanes, one chunk of `steps`
+    steps: decode_step_masked over B*K = 10 rows with the slots' cross_len
+    512 and 640 and no active rows; K4 with lengths on the kernel path)
+    from one inserted state, against the plain path from the same state,
+    which follows the kernel path's beams: its top-K returns the kernel
+    path's choices."""
+    cfg = engine.cfg
+    cb = ContinuousEngine(engine, n_slots=2, beam_width=BEAM, prompt_pad=64, ring=16,
+                          steps_per_chunk=steps, cross_ctx=K5_T, enc_buckets=(512, 1500))
+    cb.init_state()
+    prompt, sot = engine.build_prompt(beam_options(), language="en")
+    for slot, seconds, enc_ctx in ((0, 4.0, 512), (1, 12.0, 1500)):
+        window = np.zeros((1, 480000), np.float32)
+        window[0, : int(16000 * seconds)] = speech_like(seconds, 70 + slot)
+        cb.insert(window, [prompt], [sot], [True], [slot], [0.0], [True], [1.0], [cb.ring - 1],
+                  enc_ctx=enc_ctx)
+    want_len = [512] * BEAM + [K5_T] * BEAM
+    check(cb.state["cross_len"].tolist() == want_len,
+          f"beam pool cross_len {cb.state['cross_len'].tolist()}")
+    start = wmod.tree_map(torch.clone, cb.state)
+    gstep = cb.gstep
+
+    def run(choices=None):
+        cb.state = wmod.tree_map(torch.clone, start)
+        cb.gstep = gstep
+        logits, picked = [], []
+        top_k, decode_step = dec.top_k, wmod.decode_step_masked
+
+        def recorded_top_k(x, k):
+            if choices is None:
+                vals, idx = top_k(x, k)
+            else:
+                idx = choices[len(picked)]
+                vals = x.gather(-1, idx)
+            picked.append(idx)
+            return vals, idx
+
+        def recorded_step(*args, **kw):
+            check(kw.get("active") is None, "the beam pool passed active rows")
+            logits.append(decode_step(*args, **kw))
+            return logits[-1]
+
+        dec.top_k, wmod.decode_step_masked = recorded_top_k, recorded_step
+        try:
+            cb.step()
+        finally:
+            dec.top_k, wmod.decode_step_masked = top_k, decode_step
+        return logits, picked
+
+    before = dict(_kernels.launches)
+    logits_k, choices = run()
+    n4 = _kernels.launches["cross_attention_int8"] - before["cross_attention_int8"]
+    n5 = _kernels.launches["cross_attention_int8_skip"] - before["cross_attention_int8_skip"]
+    check(n4 == steps * cfg.n_text_layer and n5 == 0,
+          f"the beam pool's steps launched K4 {n4} and K5 {n5} times")
+    logits_r, _ = plain_run(lambda: run(choices))
+    check(len(logits_k) == len(logits_r) == steps, f"{len(logits_k)} beam pool steps")
+    for i, (a, b) in enumerate(zip(logits_k, logits_r)):
+        same = compare_logits(f"beam pool logits step {i} (2 slots x {BEAM} lanes)", a, b,
+                              rel_tol, (2 * BEAM, cfg.n_vocab))
+        check(same, f"beam pool step {i}: argmax differs from the plain path by more than a tie")
 
 
 def continuous_reference(engine: WhisperEngine, steps: int = 4, rel_tol: float = 5e-2) -> None:
@@ -1843,8 +2356,14 @@ def main() -> int:
         "spec_window": spec_window_phase(engine, draft),
         "spec_all": spec_continuous_phase(engine, draft),
         "mixed_int4": mixed_phase(engine4, draft4),
+        "beam_window": beam_window_phase(engine),
+        "beam_pool": beam_pool_phase(engine),
+        "hybrid_beam": hybrid_phase(engine),
+        "word_timestamps": word_ts_phase(engine),
     }
     window_reference(engine)
+    beam_reference(engine)
+    beam_pool_reference(engine)
     continuous_reference(engine)
     continuous_reference(engine4)
     err8 = verify_reference(engine)

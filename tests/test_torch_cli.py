@@ -5,9 +5,19 @@ and `--raw_pcm_input` are parsed as in whisperlive_tpu/cli/run_server.py and
 reach TranscriptionServer: the key and the metrics port as arguments of
 `run`, the PCM format as the server's `raw_pcm_default`. The backend and the
 server's loop are replaced, so no model is built and no socket is opened.
+The reference's WhisperLive parity flags are accepted with its defaults,
+`--omp_num_threads` sets OMP_NUM_THREADS and torch's thread count (the
+fixture restores it), `--compute_dtype` reaches the
+engine, and `--beam_size` / `--beam_mode` size the continuous pool as the
+reference does (the last two build a tiny CPU model).
 """
 
+import os
+
 import pytest
+import torch
+
+from whisperlive_tpu.cli import run_server as jrun_server
 
 from whisperlive_tpu_torch.cli import run_server
 from whisperlive_tpu_torch.serving.server import TranscriptionServer
@@ -21,9 +31,13 @@ def served(monkeypatch):
         seen.update(kw, backend=backend, raw_pcm_default=self.raw_pcm_default)
 
     monkeypatch.setattr(TranscriptionServer, "run", fake_run)
-    monkeypatch.setattr(run_server, "create_backend", lambda args: "backend")
+    monkeypatch.setattr(run_server, "create_backend",
+                        lambda args: seen.update(args=args) or "backend")
+    monkeypatch.setenv("OMP_NUM_THREADS", "8")
     monkeypatch.setattr(run_server, "stop_backend", lambda backend: seen.update(stopped=backend))
-    return seen
+    threads = torch.get_num_threads()
+    yield seen
+    torch.set_num_threads(threads)
 
 
 def test_api_key_from_env_metrics_port_and_pcm_reach_the_server(monkeypatch, served):
@@ -46,3 +60,83 @@ def test_api_key_flag_overrides_env(monkeypatch, served):
     monkeypatch.setenv("WL_API_KEY", "from-env")
     run_server.main(["--api_key", "from-flag"])
     assert served["api_key"] == "from-flag"
+
+
+PARITY = ["--backend", "faster_whisper", "-fw", "/ckpt", "-trt", "/trt", "--trt_multilingual",
+          "--trt_py_session", "--no_single_model", "--batch_inference", "-omp", "3",
+          "--compute_dtype", "float32", "--compilation_cache", "/cache"]
+
+
+def test_reference_parity_flags_are_accepted(served):
+    """A WhisperLive / reference command line starts the port's server."""
+    run_server.main(PARITY)
+    args = served["args"]
+    assert args.backend == "faster_whisper" and args.faster_whisper_custom_model_path == "/ckpt"
+    assert args.trt_model_path == "/trt" and args.trt_multilingual and args.trt_py_session
+    assert args.no_single_model and args.batch_inference
+    assert args.compute_dtype == "float32" and args.compilation_cache == "/cache"
+    assert os.environ["OMP_NUM_THREADS"] == "3"
+    assert served["stopped"] == "backend"
+    # the reference's parser takes the same command line to the same values
+    ref = jrun_server.build_parser().parse_args(PARITY)
+    for name in ("backend", "faster_whisper_custom_model_path", "trt_model_path",
+                 "trt_multilingual", "trt_py_session", "omp_num_threads", "no_single_model",
+                 "batch_inference", "compute_dtype", "compilation_cache"):
+        assert getattr(args, name) == getattr(ref, name), name
+
+
+def test_omp_num_threads_sets_torch_threads(served):
+    """torch is imported before main() parses the flag, so the variable
+    alone would reach no thread pool of this process."""
+    run_server.main(["--omp_num_threads", "3"])
+    assert os.environ["OMP_NUM_THREADS"] == "3" and torch.get_num_threads() == 3
+    run_server.main([])
+    assert torch.get_num_threads() == 1
+
+
+def test_parity_flags_default_as_the_reference(served):
+    run_server.main([])
+    args, ref = served["args"], jrun_server.build_parser().parse_args([])
+    for name in ("backend", "faster_whisper_custom_model_path", "trt_model_path",
+                 "trt_multilingual", "trt_py_session", "omp_num_threads", "no_single_model",
+                 "batch_inference", "compute_dtype", "compilation_cache", "beam_size",
+                 "beam_mode"):
+        assert getattr(args, name) == getattr(ref, name), name
+    assert os.environ["OMP_NUM_THREADS"] == "1"
+    helps = {a.dest: a.help for a in run_server.build_parser()._actions}
+    assert "does nothing" in helps["compilation_cache"]
+
+
+@pytest.mark.parametrize("flag,dtype", [(None, torch.float32), ("float32", torch.float32),
+                                        ("bfloat16", torch.bfloat16)])
+def test_compute_dtype_reaches_the_engine(flag, dtype):
+    argv = ["--model", "tiny", "--device", "cpu", "--no_warmup", "--no_continuous_batching"]
+    if flag:
+        argv += ["--compute_dtype", flag]
+    backend = run_server.create_backend(run_server.build_parser().parse_args(argv))
+    try:
+        eng = backend.scheduler.engine
+        assert eng.cfg.dtype == dtype
+        assert eng.params["encoder"]["conv1"]["w"].dtype == dtype
+    finally:
+        run_server.stop_backend(backend)
+
+
+@pytest.mark.parametrize("mode,slots,lanes,hybrid", [("full", 5, 3, False),
+                                                     ("refresh", 16, 1, True)])
+def test_beam_flags_size_the_continuous_pool(monkeypatch, mode, slots, lanes, hybrid):
+    """--beam_size 3: 'full' gives max(2, 16 // 3) slots of 3 lanes, 'refresh'
+    a greedy pool of all 16 slots and preemptible beamed window decodes."""
+    monkeypatch.delenv("WL_BEAM_CHUNK", raising=False)
+    args = run_server.build_parser().parse_args(
+        ["--model", "tiny", "--device", "cpu", "--no_warmup", "--beam_size", "3",
+         "--beam_mode", mode])
+    assert run_server.continuous_pool_size(args) == (slots, lanes)
+    backend = run_server.create_backend(args)
+    try:
+        cb = backend.continuous_scheduler.cb
+        assert (cb.n_slots, cb.beam_width, cb.n_rows) == (slots, lanes, slots * lanes)
+        assert backend.beam_size == 3 and backend.hybrid_beam == hybrid
+        assert backend.scheduler.engine.beam_chunk == (24 if hybrid else 0)
+    finally:
+        run_server.stop_backend(backend)

@@ -177,5 +177,5 @@ def test_spec_pool_refuses_bad_geometry():
     (_, te), _ = engines(8)
     with pytest.raises(ValueError, match="spec_k"):
         tcont.ContinuousEngine(te, n_slots=2, draft_engine=te, spec_k=8)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md open item 6a"):
+    with pytest.raises(ValueError, match="beam_width=1"):  # as the JAX pool refuses it
         tcont.ContinuousEngine(te, n_slots=2, beam_width=2, draft_engine=te)

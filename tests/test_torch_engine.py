@@ -215,14 +215,21 @@ def test_backend_matches_jax_window_backend(float_engines, greedy_gates_off):
 
 
 def test_scheduler_refuses_unported_options(engines):
-    _, te = engines
-    sched = TScheduler(te)  # never started: refused requests never queue
+    """Word-timestamp and beam requests are ported now: the scheduler
+    queues them instead of failing them, and a beamed decode_batch is the
+    JAX engine's beam search."""
+    je, te = engines
+    sched = TScheduler(te)  # never started: accepted requests stay queued
     for opts in (TOptions(word_timestamps=True), TOptions(beam_size=2)):
         fut = sched.submit(BatchRequest(audio=np.zeros(16000, np.float32), options=opts))
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            fut.result(timeout=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        te.decode_batch(te.prepare(window_batch())[1], [[1]], [0], TOptions(beam_size=2))
+        assert not fut.done()
+    assert sched._queue.qsize() == 2
+    audio = window_batch()
+    p, s = je.build_prompt(JOptions(language="en"))
+    kw = dict(language="en", beam_size=2, temperatures=(0.0,), max_new_tokens=MAX_NEW)
+    jres = je.decode_batch(je.prepare(audio)[1], [p, p], [s, s], JOptions(**kw))
+    tres = te.decode_batch(te.prepare(audio)[1], [p, p], [s, s], TOptions(**kw))
+    assert_same_results(jres, tres)
 
 
 def test_server_answers_a_real_client(float_engines, greedy_gates_off):

@@ -4,8 +4,8 @@ chip_smoke.py or kernel_variants.py, imports jax or any module of the JAX packag
 A subprocess installs a meta-path finder that refuses `jax`, `jaxlib` and
 every `whisperlive_tpu.` module, then imports every module of the port,
 chip_smoke.py and kernel_variants.py. The host modules the port keeps its own copies of
-(tokenizer, session, VAD) are also held against the originals on a few
-inputs.
+(tokenizer, session, VAD, word alignment) are also held against the
+originals on a few inputs; the alignment copy exactly, on random inputs.
 """
 
 import os
@@ -19,9 +19,11 @@ import numpy as np
 import pytest
 
 from whisperlive_tpu.audio import vad as jvad
+from whisperlive_tpu.engine import align as jalign
 from whisperlive_tpu.engine import tokenizer as jtok
 from whisperlive_tpu.serving import session as jsession
 from whisperlive_tpu_torch.audio import vad as tvad
+from whisperlive_tpu_torch.engine import align as talign
 from whisperlive_tpu_torch.engine import tokenizer as ttok
 from whisperlive_tpu_torch.serving import session as tsession
 
@@ -129,3 +131,37 @@ def test_vad_copy_matches_original():
     ts_a = jvad.get_speech_timestamps(chunks[2])
     ts_b = tvad.get_speech_timestamps(chunks[2])
     assert ts_b == ts_a
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_align_copy_matches_original(seed):
+    """dtw_path, the median filter, find_alignment_from_attn,
+    merge_punctuations, the anomaly scores and words_for_segment of the
+    port's copy give exactly the original's results on random inputs."""
+    rng = np.random.default_rng(seed)
+    cost = rng.standard_normal((7 + seed, 20 + 3 * seed))
+    for a, b in zip(talign.dtw_path(cost), jalign.dtw_path(cost)):
+        np.testing.assert_array_equal(a, b)
+    x = rng.standard_normal((3, 5, 40)).astype(np.float32)
+    for width in (1, 7, 41):
+        np.testing.assert_array_equal(talign._median_filter(x, width),
+                                      jalign._median_filter(x, width))
+
+    tok_t = ttok.WhisperTokenizer(ttok.TokenSpec(51865, multilingual=True))
+    tok_j = jtok.WhisperTokenizer(jtok.TokenSpec(51865, multilingual=True))
+    text = tok_t.encode(" hello, world. how are (you) today?")
+    sot_len = 3
+    t = sot_len + len(text) + 1
+    attn = rng.random((4, 2, t, 300)).astype(np.float32)
+    probs = rng.random(len(text))
+
+    def run(mod, tok):
+        timings = mod.find_alignment_from_attn(attn, probs, tok, text, sot_len, num_frames=500)
+        merged = mod.merge_punctuations(mod.find_alignment_from_attn(
+            attn, probs, tok, text, sot_len, num_frames=500))
+        words = mod.words_for_segment(merged, 0.5, 4.0)
+        return ([vars(w) for w in timings], [vars(w) for w in merged],
+                [vars(w) for w in words], [mod.word_anomaly_score(w) for w in merged],
+                mod.is_segment_anomaly(merged))
+
+    assert run(talign, tok_t) == run(jalign, tok_j)

@@ -1,5 +1,7 @@
 """Policies of the port: no JAX import, no quiet CPU run, refusals of what is
-not ported yet, and chip_smoke.py's refusal to run without a card."""
+not ported yet (shardings), what is (int4 cross-KV, beam search, word
+alignment, WL_BEAM_CHUNK), and chip_smoke.py's refusal to run without a
+card."""
 
 import os
 import subprocess
@@ -63,9 +65,7 @@ def tiny_params():
 
 @pytest.mark.parametrize("kw,env", [
     (dict(cross_kv_bits=4, shardings=object()), {}),
-    ({}, {"WL_CROSS_BITS": "4", "WL_BEAM_CHUNK": "24"}),
     (dict(shardings=object()), {}),
-    ({}, {"WL_BEAM_CHUNK": "24"}),
 ])
 def test_engine_refuses_unported_configurations(tiny_params, monkeypatch, kw, env):
     tcfg, params = tiny_params
@@ -90,19 +90,41 @@ def test_engine_takes_int4_cross_kv(tiny_params, monkeypatch, kw, env):
     assert tuple(cross["kv4"].shape) == (l, 2, b, h, t, tcfg.head_dim // 2)
 
 
-def test_engine_refuses_beam_search_and_alignment(tiny_params):
+@pytest.mark.parametrize("kw,env", [(dict(cross_kv_bits=4), {"WL_CROSS_BITS": "4"}), ({}, {})])
+def test_engine_takes_beam_chunk(tiny_params, monkeypatch, kw, env):
+    """WL_BEAM_CHUNK is read once at construction and pins the chunk:
+    enable_beam_chunk (hybrid beam serving) then leaves it alone; without
+    it the engine decodes monolithically until a caller opts in."""
+    tcfg, params = tiny_params
+    for key, value in env.items():
+        monkeypatch.setenv(key, value)
+    monkeypatch.setenv("WL_BEAM_CHUNK", "24")
+    eng = WhisperEngine(tcfg, params, device="cpu", batch_buckets=(1,), **kw)
+    assert eng.beam_chunk == 24
+    eng.enable_beam_chunk(8)
+    assert eng.beam_chunk == 24
+    monkeypatch.setenv("WL_BEAM_CHUNK", "0")
+    assert WhisperEngine(tcfg, params, device="cpu", **kw).beam_chunk == 0
+    monkeypatch.delenv("WL_BEAM_CHUNK")
+    eng = WhisperEngine(tcfg, params, device="cpu", **kw)
+    assert eng.beam_chunk == 0
+    eng.enable_beam_chunk(8)
+    assert eng.beam_chunk == 8
+
+
+def test_engine_takes_beam_search_and_alignment(tiny_params):
     tcfg, params = tiny_params
     eng = WhisperEngine(tcfg, params, device="cpu", batch_buckets=(1,))
     assert eng.cross_kv_bits == 16 and not eng.decoder_int8  # CPU defaults
     audio = np.zeros((1, 480000), np.float32)
     prompt, sot = eng.build_prompt(TranscribeOptions(language="en"))
-    beam = TranscribeOptions(language="en", beam_size=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        eng.transcribe_batch(audio, [prompt], [sot], [True], beam)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        eng.warmup(batch_sizes=[1], options=beam)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        eng.align_words({}, 0, [1, 2], 100)
+    beam = TranscribeOptions(language="en", beam_size=2, temperatures=(0.0,),
+                             max_new_tokens=6)
+    (res,), _, cross = eng.transcribe_batch(audio, [prompt], [sot], [True], beam)
+    assert 0 < len(res.tokens) <= 6 and np.isfinite(res.avg_logprob)
+    eng.warmup(batch_sizes=[1], options=beam)
+    timings = eng.align_words(cross, 0, [int(t) for t in res.tokens] or [1000], 100)
+    assert all(0.0 <= w.start <= w.end for w in timings)
 
 
 def test_chip_smoke_refuses_to_run_without_cuda(tmp_path):

@@ -7,8 +7,19 @@ loading converted checkpoints is ROADMAP.md open item 11), a WhisperEngine
 on --device (CUDA by default; a missing card is an error), the window
 BatchScheduler and, by default, the continuous slot scheduler, warms both
 up, and serves through the port's TranscriptionServer with a TorchBackend.
-Port of whisperlive_tpu/cli/run_server.py without multi-host and beam
-serving; --no_continuous_batching serves the window path alone.
+Port of whisperlive_tpu/cli/run_server.py without multi-host serving;
+--no_continuous_batching serves the window path alone. The reference's
+WhisperLive parity flags (--backend, -fw, -trt, --trt_multilingual,
+--trt_py_session, --no_single_model, --batch_inference) and
+--compilation_cache are accepted and change nothing here.
+
+Beam search (the reference transcriber decodes at beam 5):
+
+    --beam_size 5                     every decode beamed: continuous slots of
+                                      5 lanes (--continuous_slots // 5 slots)
+    --beam_size 5 --beam_mode refresh greedy partials on the continuous pool,
+                                      beamed full re-decodes on the window
+                                      scheduler in preemptible segments
 
 Speculative decoding, with a random draft from --seed + 1:
 
@@ -26,6 +37,8 @@ import argparse
 import logging
 import os
 
+import torch
+
 from whisperlive_tpu_torch.models.whisper import WHISPER_CONFIGS
 
 
@@ -34,6 +47,34 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--port", "-p", type=int, default=9090,
                         help="Websocket port to run the server on.")
     parser.add_argument("--host", type=str, default="0.0.0.0")
+    parser.add_argument("--backend", "-b", type=str, default="tpu",
+                        choices=["tpu", "faster_whisper", "tensorrt", "openvino"],
+                        help="Backend name (accepted for parity: every value serves the "
+                             "PyTorch engine).")
+    parser.add_argument("--faster_whisper_custom_model_path", "-fw", type=str, default=None,
+                        help="(accepted for parity; ignored: checkpoint loading is not "
+                             "ported, ROADMAP.md open item 11)")
+    parser.add_argument("--trt_model_path", "-trt", type=str, default=None,
+                        help="(accepted for parity; ignored: checkpoint loading is not "
+                             "ported, ROADMAP.md open item 11)")
+    parser.add_argument("--trt_multilingual", action="store_true",
+                        help="(parity no-op; multilingual-ness comes from the model)")
+    parser.add_argument("--trt_py_session", action="store_true", help="(parity no-op)")
+    parser.add_argument("--omp_num_threads", "-omp", type=int, default=1,
+                        help="Number of threads for host work: sets OMP_NUM_THREADS and "
+                             "torch's intra-op thread count.")
+    parser.add_argument("--no_single_model", action="store_true",
+                        help="(parity no-op: the engine is always shared)")
+    parser.add_argument("--batch_inference", action="store_true", default=True,
+                        help="Cross-client batching (always on).")
+    parser.add_argument("--compute_dtype", type=str, default=None,
+                        choices=[None, "bfloat16", "float32"],
+                        help="Override the engine compute dtype (default bfloat16 on CUDA, "
+                             "float32 on the CPU; the CUDA kernels take bfloat16).")
+    parser.add_argument("--compilation_cache", type=str,
+                        default="~/.cache/whisper-live-tpu/xla-cache",
+                        help="(accepted for parity; does nothing on this backend: there is "
+                             "no XLA compilation to cache)")
     parser.add_argument("--model", "-m", type=str, default="small",
                         choices=sorted(WHISPER_CONFIGS),
                         help="Whisper model size (random weights from --seed).")
@@ -62,6 +103,16 @@ def build_parser() -> argparse.ArgumentParser:
                         help="Maximum concurrent client connections.")
     parser.add_argument("--max_connection_time", type=int, default=600,
                         help="Per-client connection time budget in seconds.")
+    parser.add_argument("--beam_size", type=int, default=1,
+                        help="Beam width for streaming decodes (1 = greedy; the reference's "
+                             "transcriber defaults to 5; wider beams shrink the effective "
+                             "device batch).")
+    parser.add_argument("--beam_mode", choices=("full", "refresh"), default="full",
+                        help="With --beam_size > 1: 'full' beams every decode on a "
+                             "lane-multiplied continuous pool (slot budget / beam_size); "
+                             "'refresh' keeps the continuous pool greedy at full slot count "
+                             "and beams only the full re-decodes (periodic WL_PREFIX_REFRESH "
+                             "windows and post-commit windows) on the window scheduler.")
     parser.add_argument("--draft_model", type=str, default=None, choices=sorted(WHISPER_CONFIGS),
                         help="Distil-family draft size for speculative decoding of lone "
                              "greedy window requests (e.g. distil-large-v3; it must share "
@@ -100,45 +151,79 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
+def continuous_pool_size(args) -> tuple[int, int]:
+    """(slots, lanes) of the continuous pool: with --beam_size > 1 in full
+    mode each slot owns beam_size lanes and the pool shrinks to bound the
+    resident state; hybrid beam keeps a greedy pool at full size."""
+    if args.beam_size > 1 and args.beam_mode == "full":
+        return max(2, args.continuous_slots // args.beam_size), args.beam_size
+    return args.continuous_slots, 1
+
+
 def create_backend(args):
     """Engine, started schedulers and backend from the CLI flags."""
+    import torch
+
     from whisperlive_tpu_torch.device import default_compute_dtype, resolve_device
     from whisperlive_tpu_torch.engine.engine import WhisperEngine
     from whisperlive_tpu_torch.engine.scheduler import BatchScheduler
     from whisperlive_tpu_torch.models.whisper import init_params
-    from whisperlive_tpu_torch.serving.backends import TorchBackend
+    from whisperlive_tpu_torch.serving.backends import (
+        TorchBackend,
+        transcribe_options_from_session,
+    )
+    from whisperlive_tpu_torch.serving.session import SessionOptions
 
     if args.draft_path:
         raise NotImplementedError(
             "--draft_path (checkpoint loading) is not ported yet: ROADMAP.md open item 11"
         )
+    for flag in ("faster_whisper_custom_model_path", "trt_model_path"):
+        if getattr(args, flag):
+            logging.warning("--%s ignored: checkpoint loading is not ported (ROADMAP.md open "
+                            "item 11); serving random weights from --seed", flag)
     device = resolve_device(args.device)
+    dtype = ({"bfloat16": torch.bfloat16, "float32": torch.float32}[args.compute_dtype]
+             if args.compute_dtype else default_compute_dtype(device))
 
     def build_engine(name: str, seed: int) -> WhisperEngine:
         cfg = WHISPER_CONFIGS[name]
-        return WhisperEngine(cfg, init_params(cfg, seed, default_compute_dtype(device), device),
-                             device=device)
+        return WhisperEngine(cfg, init_params(cfg, seed, dtype, device), device=device,
+                             compute_dtype=dtype)
 
+    hybrid_beam = args.beam_size > 1 and args.beam_mode == "refresh"
     engine = build_engine(args.model, args.seed)
     if not args.no_warmup:
+        if hybrid_beam:
+            # beamed fulls run in preemptible segments; enable them first
+            engine.enable_beam_chunk()
         engine.warmup(
-            batch_sizes={b for b in engine.batch_buckets if b <= args.batch_max_size}
+            batch_sizes={b for b in engine.batch_buckets if b <= args.batch_max_size},
+            options=transcribe_options_from_session(SessionOptions(), beam_size=args.beam_size),
         )
     draft = spec_decoder = None
-    if args.draft_model:
+    if args.draft_model and args.beam_size > 1 and not hybrid_beam:
+        # every window request carries the beam, and the speculative route
+        # serves greedy requests only
+        logging.warning("--draft_model is ignored with --beam_size %d --beam_mode full: the "
+                        "speculative route serves greedy requests only", args.beam_size)
+    elif args.draft_model and hybrid_beam:
+        # the greedy partials on the continuous pool can take the draft
+        # (--continuous_spec); window requests carry the beam, so no
+        # SpeculativeDecoder
+        draft = build_engine(args.draft_model, args.seed + 1)
+    elif args.draft_model:
         from whisperlive_tpu_torch.engine.speculative import SpeculativeDecoder
 
         draft = build_engine(args.draft_model, args.seed + 1)
         spec_decoder = SpeculativeDecoder(engine, draft, k=args.spec_k)
         if not args.no_warmup:
-            from whisperlive_tpu_torch.serving.backends import transcribe_options_from_session
-            from whisperlive_tpu_torch.serving.session import SessionOptions
-
             spec_decoder.warmup(options=transcribe_options_from_session(SessionOptions()))
         logging.info("speculative serving: draft=%s k=%d (lone greedy window requests)",
                      args.draft_model, args.spec_k)
-    elif args.continuous_spec:
-        logging.warning("--continuous_spec ignored: no draft (give --draft_model)")
+    if args.continuous_spec and draft is None:
+        logging.warning("--continuous_spec ignored: no draft (give --draft_model with "
+                        "--beam_size 1 or --beam_mode refresh)")
     scheduler = BatchScheduler(
         engine, max_batch_size=args.batch_max_size, batch_window_ms=args.batch_window_ms,
         spec_decoder=spec_decoder,
@@ -148,12 +233,18 @@ def create_backend(args):
     if args.continuous_batching:
         from whisperlive_tpu_torch.engine.continuous import ContinuousScheduler
 
+        n_slots, lanes = continuous_pool_size(args)
+        if hybrid_beam:
+            logging.info("hybrid beam serving: greedy continuous pool (%d slots), beam-%d full "
+                         "re-decodes on the window scheduler", n_slots, args.beam_size)
+        elif lanes > 1:
+            logging.info("continuous beam serving: %d slots x %d lanes", n_slots, lanes)
         spec_all = draft is not None and args.continuous_spec and (
             args.continuous_spec_mode == "all")
         continuous = ContinuousScheduler(
-            engine, n_slots=args.continuous_slots, steps_per_chunk=args.steps_per_chunk,
-            cross_ctx=args.continuous_cross_ctx, draft_engine=draft if spec_all else None,
-            spec_k=args.spec_k,
+            engine, n_slots=n_slots, steps_per_chunk=args.steps_per_chunk,
+            cross_ctx=args.continuous_cross_ctx, beam_width=lanes,
+            draft_engine=draft if spec_all else None, spec_k=args.spec_k,
         )
         if not args.no_warmup:
             continuous.warmup()
@@ -173,8 +264,12 @@ def create_backend(args):
             if not args.no_warmup:
                 spec_pool.warmup()
             spec_pool.start()
+    if args.beam_size > 1 and args.batch_max_size * args.beam_size > 16:
+        logging.warning("batch_max_size*beam_size=%d may exceed device memory; consider "
+                        "lowering --batch_max_size", args.batch_max_size * args.beam_size)
     return TorchBackend(scheduler, model_name=args.model, continuous_scheduler=continuous,
-                        spec_scheduler=spec_pool)
+                        spec_scheduler=spec_pool, beam_size=args.beam_size,
+                        beam_mode=args.beam_mode)
 
 
 def stop_backend(backend) -> None:
@@ -187,6 +282,13 @@ def stop_backend(backend) -> None:
 def main(argv=None) -> None:
     logging.basicConfig(level=logging.INFO)
     args = build_parser().parse_args(argv)
+    if args.backend != "tpu":
+        logging.warning("backend %r is a legacy name; serving with the PyTorch engine",
+                        args.backend)
+    os.environ["OMP_NUM_THREADS"] = str(args.omp_num_threads)
+    # torch read OMP_NUM_THREADS when this module imported it: set its pool
+    # here too
+    torch.set_num_threads(args.omp_num_threads)
     backend = create_backend(args)
 
     from whisperlive_tpu_torch.serving.server import TranscriptionServer

@@ -1,6 +1,6 @@
 """Decode-step-level continuous batching: windows join a running decode.
 
-Port of whisperlive_tpu/engine/continuous.py for greedy slot pools. B fixed
+Port of whisperlive_tpu/engine/continuous.py. B fixed
 slots decode together in lockstep on the card, and new windows are
 inserted into free slots at chunk boundaries (every `steps_per_chunk`
 steps) while other slots are mid-generation. The invariants of the JAX
@@ -17,6 +17,16 @@ design hold:
 Fallback-temperature retries are ordinary re-inserts, so a retry does not
 stall the other streams.
 
+Word timestamps ride this path: at harvest the slot's cross-KV is still on
+the card, so the alignment pass runs against it (align_fetch) before the
+slot is released, and the host DTW runs on the assemble thread.
+
+Beam search rides it too: beam_width = K gives each slot K contiguous
+lockstep lanes, with coupled beam expansion at T = 0 and independent
+best_of sampling at T > 0 retries (continuous_step.py). Not routed here
+(the window scheduler serves them): no_repeat_ngram, and beam widths other
+than the pool's lane count.
+
 With a draft engine (draft_engine, spec_k) every chunk iteration is a
 speculative verify round (continuous_step.spec_chunk): the draft proposes
 spec_k tokens per slot, the target scores [cur, d1..dk] in one windowed
@@ -29,9 +39,8 @@ of corrupting it.
 
 ContinuousEngine is the slot pool (insert, step, release, harvest);
 ContinuousScheduler drains a request queue into it from one worker thread
-and is submit-compatible with BatchScheduler. Not ported yet, each raising
-NotImplementedError naming its ROADMAP.md item: beam lanes and word
-timestamps (6a); WhisperEngine itself refuses shardings (15).
+and is submit-compatible with BatchScheduler. WhisperEngine itself refuses
+shardings, not ported yet (ROADMAP.md open item 15).
 """
 
 from __future__ import annotations
@@ -41,6 +50,7 @@ import logging
 import queue
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Optional
 
 import numpy as np
@@ -49,8 +59,6 @@ import torch
 from whisperlive_tpu_torch.engine import continuous_state as cstate
 from whisperlive_tpu_torch.engine.continuous_step import spec_chunk, step_chunk
 from whisperlive_tpu_torch.engine.engine import (
-    NOT_PORTED_ALIGN,
-    NOT_PORTED_BEAM,
     DecodeResult,
     TranscribeOptions,
     WhisperEngine,
@@ -70,10 +78,6 @@ INSERT_BUCKETS = (1, 2, 4, 8)
 # overloaded() bound: sustained (resident + queued) load over slots
 OVERLOAD_FACTOR = 3.0
 
-NOT_PORTED_BEAM_LANES = (
-    "continuous beam lanes (beam_width > 1) are not ported yet: ROADMAP.md open item 6a"
-)
-
 
 @dataclasses.dataclass
 class _SlotInfo:
@@ -90,6 +94,9 @@ class _SlotInfo:
     # incremental partial decoding: the full carried hypothesis (the
     # decoder saw it as prompt); harvest prepends it
     prefix: tuple = ()
+    # valid encoder positions of the slot's cross-KV (the alignment at
+    # harvest masks the same tail)
+    cross_len: int = 0
 
 
 class ContinuousEngine:
@@ -109,15 +116,18 @@ class ContinuousEngine:
         draft_engine: Optional[WhisperEngine] = None,
         spec_k: int = 4,
     ):
-        if max(int(beam_width), 1) != 1:
-            raise NotImplementedError(NOT_PORTED_BEAM_LANES)
         self.eng = engine
         self.n_slots = n_slots
-        self.beam_width = 1
+        # each slot owns beam_width contiguous lane rows
+        self.beam_width = max(int(beam_width), 1)
+        self.n_rows = n_slots * self.beam_width
         self.prompt_pad = prompt_pad
         self.draft = draft_engine
         self.spec_k = int(spec_k) if draft_engine is not None else 0
         if draft_engine is not None:
+            if self.beam_width != 1:
+                raise ValueError("speculative continuous batching requires beam_width=1 "
+                                 "(beam lanes and draft lanes both multiply slot rows)")
             if not 1 <= self.spec_k <= MAX_WINDOW - 1:
                 # the k+1-token verify window must fit the Tq <= 8 window kernels
                 raise ValueError(f"spec_k must be in [1, {MAX_WINDOW - 1}], got {spec_k}")
@@ -162,8 +172,8 @@ class ContinuousEngine:
         self.suppress_key = (base_options.suppress_tokens, base_options.suppress_blank)
         self.state: Optional[cstate.State] = None
         self.gstep = 0
-        # host record of each row's options: the step skips the sampler's
-        # draw and the penalty's scatters when no row needs them
+        # host record of each slot's options: the step skips the sampler's
+        # draw and the penalty's scatters when no slot needs them
         self._row_temp = np.zeros(n_slots, np.float32)
         self._row_rep = np.ones(n_slots, np.float32)
         self._gen: Optional[torch.Generator] = None
@@ -173,8 +183,8 @@ class ContinuousEngine:
     def init_state(self, seed: int = 0) -> None:
         eng = self.eng
         self.state = cstate.init_state(
-            eng.cfg, eng.spec, self.n_slots, self.prompt_pad, self.ring, self.cross_ctx,
-            eng.cross_kv_bits, eng.device, draft=self.draft,
+            eng.cfg, eng.spec, self.n_rows, self.prompt_pad, self.ring, self.cross_ctx,
+            eng.cross_kv_bits, eng.device, draft=self.draft, lanes=self.beam_width,
         )
         self.gstep = 0
         self._row_temp[:] = 0.0
@@ -256,7 +266,7 @@ class ContinuousEngine:
                 t(np.asarray(pad(sot_idx), np.int32)), t(np.asarray(pad(lang_known), bool)),
                 t(np.asarray(pad(slot_ids), np.int64)),
                 {name: t(np.asarray(pad(list(v)))) for name, v in rows.items()},
-                draft=self.draft,
+                draft=self.draft, lanes=self.beam_width,
             )
         self._row_temp[list(slot_ids)] = temps
         self._row_rep[list(slot_ids)] = rep
@@ -266,9 +276,10 @@ class ContinuousEngine:
 
     def step(self) -> np.ndarray:
         """Run one chunk of decode steps (verify rounds in a speculative
-        pool); returns the packed per-row status and tokens [n_slots,
+        pool); returns the packed per-row status and tokens [n_rows,
         status_width] (continuous_state.pack_status), the chunk's one
-        device-to-host copy."""
+        device-to-host copy. Slot s's status is at row s * beam_width; its
+        winning lane's tokens at row s * beam_width + status column 5."""
         eng = self.eng
         flags = dict(sampling=bool((self._row_temp > 0).any()),
                      penalty=bool((self._row_rep != 1.0).any()), generator=self._gen)
@@ -278,15 +289,15 @@ class ContinuousEngine:
                            self.ring, self.prompt_pad, self.spec_k, self.suppress_mask, **flags)
             else:
                 step_chunk(eng, self.state, self.gstep, self.steps_per_chunk, self.ring,
-                           self.prompt_pad, self.suppress_mask, **flags)
+                           self.prompt_pad, self.suppress_mask, lanes=self.beam_width, **flags)
             self.gstep += self.gstep_per_chunk
-            return cstate.pack_status(self.state).cpu().numpy()
+            return cstate.pack_status(self.state, self.beam_width).cpu().numpy()
 
     def release(self, slot_ids: list[int]) -> None:
         mask = np.zeros((self.n_slots,), bool)
         mask[list(slot_ids)] = True
-        with self.eng._lock:
-            cstate.release(self.state, self.eng._tensor(mask))
+        with self.eng._lock:  # all lanes of each slot
+            cstate.release(self.state, self.eng._tensor(np.repeat(mask, self.beam_width)))
         self._row_temp[mask] = 0.0
         self._row_rep[mask] = 1.0
 
@@ -306,13 +317,25 @@ class ContinuousEngine:
             return cstate.unroll_masked(toks, valid, join_step, self.ring)
         return cstate.unroll(toks, join_step, gen_len, self.ring)
 
-    def harvest(self, slot: int, join_step: int, gen_len: int) -> np.ndarray:
-        """One finished slot's sampled tokens, ring-unrolled."""
-        row = self.state["sampled"][slot].cpu().numpy()
+    def harvest(self, slot: int, join_step: int, gen_len: int, lane: int = 0) -> np.ndarray:
+        """One finished slot's sampled tokens, ring-unrolled; `lane` selects
+        a beam pool's winner (status column 5)."""
+        r = slot * self.beam_width + lane
+        row = self.state["sampled"][r].cpu().numpy()
         if self.spec_k:
-            valid = self.state["tok_valid"][slot].cpu().numpy()
+            valid = self.state["tok_valid"][r].cpu().numpy()
             return cstate.unroll_masked(row, valid, join_step, self.ring)
         return cstate.unroll(row, join_step, gen_len, self.ring)
+
+    def align_fetch(self, slot: int, tokens_arr: np.ndarray, cross_len: int, seq_len: int,
+                    num_frames: int) -> tuple[np.ndarray, np.ndarray]:
+        """The alignment pass (WhisperEngine.align_maps) against this slot's
+        resident, content-capped cross-KV (its lanes share one), copied to
+        the host: (logits [1, seq_len, V], maps [L, 1, H, seq_len,
+        frames])."""
+        eng = self.eng
+        sub_cross = eng.gather_cross(self.state["cross_kv"], [slot * self.beam_width])
+        return eng.align_maps(sub_cross, tokens_arr, cross_len, seq_len, num_frames)
 
 
 class ContinuousScheduler:
@@ -358,6 +381,9 @@ class ContinuousScheduler:
         self._load_ema = 0.0
         self._service_ema = 1.0  # seconds per request, rough prior
         self._slots: dict[int, _SlotInfo] = {}
+        # word-timestamp assembly (the host DTW) runs here, off the decode
+        # loop; created in start() so a stop()/start() cycle gets a fresh one
+        self._assemble_pool: Optional[ThreadPoolExecutor] = None
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
         self.max_batch_size = self.cb.n_slots
@@ -366,7 +392,7 @@ class ContinuousScheduler:
         self.tick_stats = {
             "ticks": 0, "insert_s": 0.0, "step_s": 0.0, "harvest_s": 0.0,
             "insert_calls": 0, "insert_windows": 0,
-            # occupied slots summed over ticks (free slots' rows K5 skips)
+            # occupied lane rows summed over ticks (free slots' rows K5 skips)
             "step_rows": 0,
         }
         # speculative pools: every harvested window's committed tokens and
@@ -416,6 +442,9 @@ class ContinuousScheduler:
         if self._thread is not None:
             return
         self._stop.clear()
+        if self._assemble_pool is None:
+            self._assemble_pool = ThreadPoolExecutor(max_workers=1,
+                                                     thread_name_prefix="wl-assemble")
         if self.cb.state is None:
             self.cb.init_state()
         self._thread = threading.Thread(
@@ -429,14 +458,12 @@ class ContinuousScheduler:
         if self._thread is not None:
             self._thread.join(timeout=10)
             self._thread = None
+        if self._assemble_pool is not None:
+            self._assemble_pool.shutdown(wait=True)
+            self._assemble_pool = None
 
     def submit(self, request: BatchRequest):
-        if request.options.word_timestamps:
-            request.future.set_exception(NotImplementedError(NOT_PORTED_ALIGN))
-        elif request.options.beam_size > 1:
-            request.future.set_exception(NotImplementedError(NOT_PORTED_BEAM))
-        else:
-            self._queue.put(request)
+        self._queue.put(request)
         return request.future
 
     def overloaded(self, bound: float | None = None) -> bool:
@@ -453,9 +480,9 @@ class ContinuousScheduler:
         return self._load_ema
 
     def warmup(self) -> None:
-        """Run every insert bucket at every encoder bucket, a step chunk and
-        a release once (on the card this also builds the kernels), then
-        start from a fresh state."""
+        """Run every insert bucket at every encoder bucket, a step chunk, a
+        release and the slot-resident alignment pass once (on the card this
+        also builds the kernels), then start from a fresh state."""
         eng = self.engine
         if self.cb.state is None:
             self.cb.init_state()
@@ -645,6 +672,7 @@ class ContinuousScheduler:
                 req=req, options=opt, join_step=self.cb.gstep, temp_index=temp_idx,
                 language=lang, language_prob=1.0, duration=len(a) / mel_ops.SAMPLE_RATE,
                 submitted_at=req.submitted_at, prefix=prefix,
+                cross_len=min(enc_ctx, self.cb.cross_ctx),
             ))
         need_langs = eng.tokenizer.spec.multilingual and any(
             info.language is None for info in infos
@@ -666,23 +694,29 @@ class ContinuousScheduler:
             self._slots[slot] = info
 
     def _harvest(self, status: np.ndarray) -> None:
-        """Resolve the finished slots from the chunk's status copy (no
-        further device copy), queue gate failures for another insert, and
-        release the finished slots."""
+        """Resolve the finished slots from the chunk's status copy (slot b's
+        status at row b * K, its winning lane's tokens at row b * K +
+        column 5), queue gate failures for another insert, run the
+        alignment pass of word-timestamp requests against the slot's cross-KV
+        (the DTW then runs on the assemble thread), and release the finished
+        slots."""
         eng = self.engine
+        k = self.cb.beam_width
         done_slots = [
-            b for b in list(self._slots) if status[b, 0] > 0.5 and status[b, 1] > 0.5
+            b for b in list(self._slots)
+            if status[b * k, 0] > 0.5 and status[b * k, 1] > 0.5
         ]
         if not done_slots:
             return
         for b in done_slots:
             info = self._slots.pop(b)
-            gen_len = int(status[b, 2])
-            sum_lp = float(status[b, 3])
-            ns_prob = float(status[b, 4])
+            gen_len = int(status[b * k, 2])
+            sum_lp = float(status[b * k, 3])
+            ns_prob = float(status[b * k, 4])
+            row = b * k + int(status[b * k, 5])
             if self.cb.spec_k:
-                self._count_acceptance(status[b], info.join_step)
-            toks = self.cb.unroll_row(status[b], info.join_step, gen_len)
+                self._count_acceptance(status[row], info.join_step)
+            toks = self.cb.unroll_row(status[row], info.join_step, gen_len)
             if info.prefix:
                 toks = np.concatenate([np.asarray(info.prefix, np.int32), toks])
             toks = toks[toks != eng.spec.eot]
@@ -715,15 +749,50 @@ class ContinuousScheduler:
                 if info.temp_index + 1 < len(opt.temperatures):
                     self._pending.append((info.req, info.temp_index + 1))
                     continue
+            if opt.word_timestamps:
+                fetched = None
+                try:
+                    fetched = self._align_fetch(b, info, res)
+                except Exception:
+                    logger.exception("word alignment pass failed")
+                self._assemble_pool.submit(self._resolve, info, res, final_failed, fetched)
+                continue
             self._resolve(info, res, final_failed)
         self.cb.release(done_slots)
 
-    def _resolve(self, info: _SlotInfo, res: DecodeResult, final_failed: bool) -> None:
+    def _align_fetch(self, slot: int, info: _SlotInfo, res: DecodeResult):
+        """The alignment pass of a finished word-timestamp slot against its
+        resident cross-KV, before the slot is released: (logits, maps,
+        text tokens, sot_len), or None for a hypothesis without text."""
+        prep = self.engine.align_prepare(res.tokens, language=info.language,
+                                         task=info.options.task)
+        if prep is None:
+            return None
+        arr, sot_len, text = prep
+        logits, maps = self.cb.align_fetch(
+            slot, arr, info.cross_len or self.cb.cross_ctx, sot_len + len(text) + 1,
+            int(info.duration * 100),
+        )
+        return logits, maps, text, sot_len
+
+    def _resolve(self, info: _SlotInfo, res: DecodeResult, final_failed: bool,
+                 fetched=None) -> None:
+        """Assemble the result and resolve the future; for a word-timestamp
+        request (on the assemble thread) after the DTW of the fetched
+        alignment maps."""
+        timings = None
+        if fetched is not None:
+            logits, maps, text, sot_len = fetched
+            try:
+                timings = self.engine.align_finish(logits, maps, text, sot_len,
+                                                   num_frames=int(info.duration * 100))
+            except Exception:
+                logger.exception("word alignment DTW failed")
         try:
             result = assemble_result(
                 self.engine, info.req, res, info.duration,
                 language=info.language or "en", language_prob=info.language_prob,
-                prefix_ok=not final_failed,
+                prefix_ok=not final_failed, timings=timings,
             )
             if not info.req.future.done():
                 info.req.future.set_result(result)
@@ -751,7 +820,7 @@ class ContinuousScheduler:
                 t1 = time.monotonic()
                 if not self._slots:
                     continue
-                occupied = len(self._slots)
+                occupied = len(self._slots) * self.cb.beam_width
                 status = self.cb.step()
                 t2 = time.monotonic()
                 self._harvest(status)

@@ -1,8 +1,10 @@
 """Slot state of the continuous decode: allocation, insert, release, status.
 
 Port of the state half of whisperlive_tpu/engine/continuous.py (_init_state,
-_base_state, _insert, _release, _pack_status) for greedy slot pools (one
-lane per slot). The state is a dict of tensors on the engine's device:
+_base_state, _insert, _release, _pack_status). A slot owns `lanes` (the beam
+width K) contiguous rows, slot s rows [s*K, s*K + K); a greedy pool has one
+lane per slot. The state is a dict of tensors on the engine's device, one
+row per lane:
 
   self_kv     [L, 2, B, prompt_pad + ring, H, hd]: the prompt region, then
               the ring; slot b's i-th sampled token has its K/V at ring
@@ -17,7 +19,9 @@ lane per slot). The state is a dict of tensors on the engine's device:
               at a reduced context leaves the previous occupant's data in
               the tail);
   sampled     [B, ring] the sampled tokens, addressed like the self-KV ring;
-  active, finished, gen_len, last_ts, ...: per-slot decode state.
+  active, finished, gen_len, last_ts, ...: per-lane decode state;
+  self_kv_spare (beam pools only) the target of the step's parent gather of
+              self_kv, the two swapping each step.
 
 A pool with a speculative draft (continuous_step.spec_chunk) also holds
 the draft's self-KV and cross-KV (d_self_kv, d_cross_kv, the same layouts
@@ -81,9 +85,9 @@ def cross_template(cfg: wmod.WhisperConfig, bits: int, b: int, tcap: int,
 
 def init_state(cfg: wmod.WhisperConfig, spec: dec.DecodingSpec, n_rows: int, prompt_pad: int,
                ring: int, cross_ctx: int, bits: int, device: torch.device,
-               draft=None) -> State:
-    """The empty slot pool (every slot inactive); with a draft engine, also
-    the speculative round state."""
+               draft=None, lanes: int = 1) -> State:
+    """The empty slot pool of n_rows lane rows (every slot inactive); with a
+    draft engine, also the speculative round state."""
     b = n_rows
 
     def full(value, dtype, *shape):
@@ -98,8 +102,12 @@ def init_state(cfg: wmod.WhisperConfig, spec: dec.DecodingSpec, n_rows: int, pro
         "d_self_kv": wmod.init_self_kv(draft.cfg, b, prompt_pad + ring, device=device),
         "d_cross_kv": cross_template(draft.cfg, draft.cross_kv_bits, b, cross_ctx, device),
     }
+    beam_state = {} if lanes == 1 else {
+        "self_kv_spare": wmod.init_self_kv(cfg, b, prompt_pad + ring, device=device),
+    }
     return {
         **spec_state,
+        **beam_state,
         "self_kv": wmod.init_self_kv(cfg, b, prompt_pad + ring, device=device),
         "cross_kv": cross_template(cfg, bits, b, cross_ctx, device),
         "sampled": full(0, torch.int32, b, ring),
@@ -144,6 +152,7 @@ def insert(
     slot_ids: torch.Tensor,  # [j] int64 (a padded wave repeats its last slot)
     rows: dict[str, torch.Tensor],  # _ROW_FIELDS name -> [j]
     draft=None,  # the draft WhisperEngine of a speculative pool
+    lanes: int = 1,
 ) -> torch.Tensor:
     """Encode a wave of windows and seat each in its slot: log-mel, encoder
     at the wave's context bucket, cross-KV (int8-quantized when the engine
@@ -151,9 +160,10 @@ def insert(
     whose language is unknown (spliced into their prompt), prompt prefill,
     and the slot's rule state. With a draft, its cross-KV is projected from
     the same encoder output (a distil draft shares the teacher's encoder)
-    and it prefills the same prompt. Returns the language probabilities
-    [j, n_lang] (zeros [j, 1] for an English-only model). Rows of a padded
-    wave that repeat a slot write identical data into it."""
+    and it prefills the same prompt. A beam pool (lanes K > 1) repeats each
+    window's prefill on its slot's K rows. Returns the language
+    probabilities [j, n_lang] (zeros [j, 1] for an English-only model). Rows
+    of a padded wave that repeat a slot write identical data into it."""
     cfg, spec, params, dev = eng.cfg, eng.spec, eng.params, eng.device
     j = audio.shape[0]
     mel = mel_ops.log_mel_spectrogram(audio, n_mels=cfg.n_mels)
@@ -187,6 +197,13 @@ def insert(
     )
     ns = torch.softmax(sot_logits, dim=-1)[:, spec.no_speech]
 
+    if lanes > 1:  # each window on its slot's K contiguous rows
+        slot_ids = (slot_ids[:, None] * lanes + torch.arange(lanes, device=dev)).reshape(-1)
+        self_kv_j = self_kv_j.repeat_interleave(lanes, dim=2)
+        cross = wmod.tree_map(lambda a: a.repeat_interleave(lanes, dim=2), cross)
+        prompts, prompt_len, last_logits, ns = (
+            x.repeat_interleave(lanes, dim=0) for x in (prompts, prompt_len, last_logits, ns))
+        rows = {name: v.repeat_interleave(lanes, dim=0) for name, v in rows.items()}
     state["self_kv"][:, :, slot_ids, :prompt_pad] = self_kv_j
     _write_cross(state["cross_kv"], cross, slot_ids, t_here)
     if draft is not None:
@@ -234,20 +251,32 @@ def release(state: State, rows: torch.Tensor) -> None:
     state["finished"] &= ~rows
 
 
-def pack_status(state: State) -> torch.Tensor:
-    """Per-row packed status and tokens [B, 6 + ring] float32: active,
-    finished, gen_len, sum_logprob, no-speech probability, winning lane (0:
-    one lane per slot), then the row's sampled ring (token ids < 2^24 are
-    exact in float32); a speculative pool appends its committed-token mask
-    tok_valid ([B, 6 + 2*ring]: acceptance holes break the contiguous ring
-    addressing). One device-to-host copy of it per chunk carries every
-    finished hypothesis with the scheduling state."""
-    b = state["active"].shape[0]
+def pack_status(state: State, lanes: int = 1) -> torch.Tensor:
+    """Per-row packed status and tokens [rows, 6 + ring] float32. Columns
+    0..5 hold the row's slot's status, repeated on each of its `lanes`
+    rows: active, all lanes finished, the winning lane's gen_len and
+    sum_logprob, the no-speech probability and the winning lane (the best
+    sum / len^length_penalty, CTranslate2's score; 0 with one lane). Then
+    the row's sampled ring (token ids < 2^24 are exact in float32); a
+    speculative pool appends its committed-token mask tok_valid ([B, 6 +
+    2*ring]: acceptance holes break the contiguous ring addressing). One
+    device-to-host copy of it per chunk carries every finished hypothesis
+    with the scheduling state."""
+    n_slots = state["active"].shape[0] // lanes
+
+    def per_slot(name):
+        return state[name].reshape(n_slots, lanes)
+
+    gen = per_slot("gen_len").float()
+    slp = per_slot("sum_logprob")
+    winner = torch.argmax(slp / gen.clamp(min=1.0) ** per_slot("length_penalty"), dim=1)
+    slots = torch.arange(n_slots, device=gen.device)
     cols = [
-        state["active"].float(), state["finished"].float(), state["gen_len"].float(),
-        state["sum_logprob"], state["ns_prob"], torch.zeros(b, device=state["active"].device),
+        per_slot("active")[:, 0].float(), per_slot("finished").all(dim=1).float(),
+        gen[slots, winner], slp[slots, winner], per_slot("ns_prob")[:, 0], winner.float(),
     ]
-    parts = [torch.stack(cols, dim=1), state["sampled"].float()]
+    status = torch.stack(cols, dim=1).repeat_interleave(lanes, dim=0)
+    parts = [status, state["sampled"].float()]
     if "tok_valid" in state:
         parts.append(state["tok_valid"].float())
     return torch.cat(parts, dim=1)

@@ -1,14 +1,23 @@
 """The lockstep decode chunk of the continuous scheduler, plain and
 speculative.
 
-step_chunk is the port of whisperlive_tpu/engine/continuous.py _step_chunk
-for greedy slot pools (one lane per slot), spec_chunk that of _spec_chunk
-(below). Each of the chunk's steps, for every row at
-once: the whisper logit rules through the ring (ops/ring_rules.py), the
-repetition penalty, sampling, the ring write at the batch-uniform column
-gstep % ring, the finish checks, and one decode_step_masked whose cross-
-attention takes the rows' cross_len and the write mask as `active` (K5 on
-int8 cross-KV: rows that do not write read no cross-KV).
+step_chunk is the port of whisperlive_tpu/engine/continuous.py _step_chunk,
+spec_chunk that of _spec_chunk (below). Each of the chunk's steps, for every
+row at once: the whisper logit rules through the ring (ops/ring_rules.py),
+the repetition penalty, sampling, the ring write at the batch-uniform
+column gstep % ring, the finish checks, and one decode_step_masked whose
+cross-attention takes the rows' cross_len and, in a greedy pool, the write
+mask as `active` (K5 on int8 cross-KV: rows that do not write read no
+cross-KV).
+
+In a beam pool (K lanes a slot) a slot steps while any of its lanes is
+live. Its lanes at T = 0 expand together, engine._beam_step's semantics on
+the ring state: finished lanes frozen to EOT at an unchanged score, the
+lanes > 0 of a fresh slot (copies of lane 0) suppressed on its first
+expansion, top-K over K*V, and the parent gather of the lane state and the
+self-KV. At T > 0 (fallback retries) the lanes sample independently and
+the harvest keeps the best (faster-whisper's best_of). Lanes gather across
+rows, so a beam pool passes no `active` and runs K4, not K5.
 
 Rows that do not write this step (free slots, finished slots awaiting
 harvest) keep every piece of their state: each update goes through
@@ -50,6 +59,7 @@ def step_chunk(
     sampling: bool,  # some row has T > 0
     penalty: bool,  # some row has a repetition penalty != 1
     generator: torch.Generator,
+    lanes: int = 1,  # beam width K: each slot's contiguous rows
 ) -> None:
     """Run n_steps lockstep decode steps on `state` in place."""
     spec, st = eng.spec, state
@@ -58,6 +68,8 @@ def step_chunk(
     cache_len = prompt_pad + ring
     jmask = torch.arange(cache_len, device=dev)[None, :]
     prompt_zeros = torch.zeros((n_rows, prompt_pad), dtype=torch.bool, device=dev)
+    if lanes > 1:
+        later_lane = torch.arange(n_rows, device=dev) % lanes > 0
     for g in range(gstep, gstep + n_steps):
         valid = ring_rules.ring_valid(g, st["join_step"], ring)
         filtered = ring_rules.apply_logit_rules_ring(
@@ -69,12 +81,17 @@ def step_chunk(
             filtered, st["sampled"], valid, st["rep_penalty"],
             prompt_toks=st["prompt_toks"], prompt_len=st["prompt_len"], enabled=penalty,
         )
-        write = st["active"] & ~st["finished"]
         if sampling:
             next_tok, lp = dec.sample_next(filtered, st["temperature"], generator)
         else:
             next_tok, lp = _greedy(filtered)
-        tok = torch.where(write, next_tok, spec.eot).to(torch.int32)
+        if lanes == 1:
+            write = st["active"] & ~st["finished"]
+            tok = torch.where(write, next_tok, spec.eot).to(torch.int32)
+            new_sum = st["sum_logprob"] + torch.where(write, lp, 0.0)
+        else:
+            write, tok, new_sum, valid = _beam_expand(
+                st, filtered, next_tok, lp, valid, lanes, later_lane, spec.eot)
         st["idle_row_steps"] += (~write).any()
 
         col = g % ring
@@ -83,7 +100,7 @@ def step_chunk(
         st["sampled"][:, col] = torch.where(write, tok, st["sampled"][:, col])
         is_ts = (tok >= spec.timestamp_begin) & write
         st["last_ts"].copy_(torch.where(is_ts, tok, st["last_ts"]))
-        st["sum_logprob"].add_(torch.where(write, lp, 0.0))
+        st["sum_logprob"].copy_(new_sum)
         st["gen_len"].add_(write.to(torch.int32))
         gen_after = st["gen_len"]
         newly_done = write & (
@@ -98,9 +115,44 @@ def step_chunk(
         mask = (jmask < st["prompt_len"][:, None]) | torch.cat([prompt_zeros, valid], dim=1)
         logits = wmod.decode_step_masked(
             eng.params, eng.cfg, tok, pos, prompt_pad + col, mask, st["self_kv"],
-            st["cross_kv"], cross_len=st["cross_len"], active=write,
+            st["cross_kv"], cross_len=st["cross_len"], active=write if lanes == 1 else None,
         )
         st["logits"].copy_(logits)
+
+
+# lane state a beam pool's parent gather reorders (the rest is per slot)
+LANE_FIELDS = ("sampled", "gen_len", "last_ts", "finished", "sum_logprob", "has_prefix",
+               "pfx_last_ts", "pfx_penult_ts")
+
+
+def _beam_expand(st, filtered, samp_tok, samp_lp, valid, lanes, later_lane, eot):
+    """One step of a beam pool's lanes: coupled expansion (decoding.beam_select)
+    for the stepping slots at T = 0, independent sampling at T > 0, then the
+    parent gather of the lane state and the self-KV. Returns (write, tok,
+    new sum_logprob, valid), the rows' quantities the plain step goes on
+    with."""
+    n_rows = filtered.shape[0]
+    n_slots = n_rows // lanes
+    slot_step = (st["active"].reshape(n_slots, lanes)[:, 0]
+                 & ~st["finished"].reshape(n_slots, lanes).all(dim=1))
+    step_rows = slot_step.repeat_interleave(lanes)
+    # a fresh slot's lanes are copies of lane 0
+    beam_parent, beam_tok, beam_sum = dec.beam_select(
+        filtered, st["sum_logprob"], st["finished"], later_lane & (st["gen_len"] == 0), lanes,
+        eot)
+    use_beam = (st["temperature"] == 0.0) & step_rows
+    parent = torch.where(use_beam, beam_parent, torch.arange(n_rows, device=filtered.device))
+    for name in LANE_FIELDS:
+        st[name].copy_(st[name][parent])
+    st["self_kv"], st["self_kv_spare"] = dec.gather_lanes(st["self_kv"], st["self_kv_spare"],
+                                                          parent)
+    write = step_rows & ~st["finished"]
+    tok = torch.where(write, torch.where(use_beam, beam_tok, samp_tok), eot).to(torch.int32)
+    # a beam row's score is the absolute cumulative one (a frozen lane's
+    # child inherits its unchanged score); a sampling row adds its own
+    new_sum = torch.where(use_beam, beam_sum,
+                          st["sum_logprob"] + torch.where(write, samp_lp, 0.0))
+    return write, tok, new_sum, valid[parent]
 
 
 RS_FIELDS = ("gen_len", "last_ts", "last_was_ts", "penult_was_ts", "finished", "sum_logprob")

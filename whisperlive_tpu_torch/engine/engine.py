@@ -7,21 +7,27 @@ path:
                       (-> packed int8 or int4 with per-channel scales)
   transcribe_batch    fused language ID + prompt splice + prefill + greedy
                       or temperature sampling loop (K2, K3, and K4 or
-                      K7 per step)
+                      K7 per step), or beam search at T = 0
   decode_with_fallback  temperature-fallback retries of the items that
                       fail the quality gates, on a gathered cross-KV subset
+                      (beam at T = 0, sampling on the retries)
+  align_words         word timings of one decoded item: a teacher-forced
+                      pass that returns the cross-attention maps, then DTW
+                      on the host (engine/align.py)
 
 PyTorch runs eagerly, so the JAX `lax.while_loop` becomes a Python loop on
-the host whose only device-to-host sync per token is the termination check.
+the host whose only device-to-host sync per token is the termination check;
+a chunked (preemptible) beam decode syncs once per segment instead.
 Shapes stay bucketed (batch, prompt and generation budget) as in the JAX
-engine. Beam search, word alignment, shardings and preemptible beam chunks
-are not ported yet and raise NotImplementedError naming their ROADMAP item.
+engine. Shardings are not ported yet and raise NotImplementedError naming
+their ROADMAP item.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
+import math
 import os
 import threading
 import zlib
@@ -44,13 +50,6 @@ logger = logging.getLogger(__name__)
 
 DEFAULT_BATCH_BUCKETS = (1, 2, 4, 8, 16)
 DEFAULT_PROMPT_BUCKETS = (16, 64, 256)
-
-NOT_PORTED_BEAM = (
-    "beam search (beam_size > 1) is not ported yet: ROADMAP.md open item 6a"
-)
-NOT_PORTED_ALIGN = (
-    "word alignment (word_timestamps) is not ported yet: ROADMAP.md open item 6a"
-)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -168,6 +167,47 @@ def fails_quality_gates(options: TranscribeOptions, r: DecodeResult) -> bool:
     return needs
 
 
+def beam_lanes(options: TranscribeOptions) -> int:
+    """Lanes of a beam decode: patience widens the pool to
+    ceil(beam_size * patience), the frozen-lane analogue of CTranslate2's
+    "collect beam_size * patience finished hypotheses"."""
+    return max(options.beam_size,
+               int(math.ceil(options.beam_size * max(options.patience, 1.0))))
+
+
+@dataclasses.dataclass
+class _BeamInputs:
+    """A beam decode's loop invariants, tiled beam-major to B*K rows once
+    per decode (the cross-KV too: one tiled copy serves every segment)."""
+
+    k: int
+    prompt_pad: int
+    max_steps: int
+    cross: dict
+    prompts: torch.Tensor  # [BK, P]
+    prompt_len: torch.Tensor  # [BK]
+    ts_enabled: torch.Tensor  # [BK]
+    suppress_mask: torch.Tensor  # [V]
+    rep_penalty: float
+    no_repeat_ngram: int
+    phist: torch.Tensor | None
+    sb_vec: torch.Tensor | None
+    mit_vec: torch.Tensor | None
+    ident: torch.Tensor  # [BK]
+    later_lane: torch.Tensor  # [BK] lanes > 0, copies of lane 0 at step 0
+
+
+@dataclasses.dataclass
+class _BeamCarry:
+    """The beam decode's state between steps and segments."""
+
+    state: dec.SamplerState
+    self_kv: torch.Tensor  # [L, 2, BK, C, H, hd]
+    spare: torch.Tensor  # the parent gather's target; the two swap each step
+    logits: torch.Tensor  # [BK, V] f32
+    sum_lp: torch.Tensor  # [BK] cumulative beam scores
+
+
 def _kv_array(cross_kv: dict) -> torch.Tensor:
     """The cross-KV's main array; its batch axis is 2 in every layout."""
     for leaf in ("kv8", "kv4", "kv"):
@@ -190,19 +230,18 @@ class WhisperEngine:
         decoder_int8: bool | None = None,
         cross_kv_bits: int | None = None,
         device: str | torch.device = "cuda",
+        compute_dtype: torch.dtype | None = None,
     ):
         if shardings is not None:
             raise NotImplementedError(
                 "sharded engines are not ported yet: ROADMAP.md open item 15"
             )
-        if os.environ.get("WL_BEAM_CHUNK"):
-            raise NotImplementedError(
-                "WL_BEAM_CHUNK (preemptible beam segments) is not ported yet: "
-                "ROADMAP.md open item 6a"
-            )
         self.device = device_policy.resolve_device(device)
         # bf16 on CUDA (the kernels take bf16), float32 on the CPU
-        compute_dtype = device_policy.default_compute_dtype(self.device)
+        if compute_dtype is None:
+            compute_dtype = device_policy.default_compute_dtype(self.device)
+        if self.device.type == "cuda" and compute_dtype != torch.bfloat16:
+            raise ValueError(f"the CUDA kernels take bfloat16, not {compute_dtype}")
         self.cfg = cfg.replace(dtype=compute_dtype)
         self.tokenizer = tokenizer or WhisperTokenizer(
             TokenSpec(cfg.n_vocab, multilingual=cfg.n_vocab >= 51865)
@@ -238,6 +277,14 @@ class WhisperEngine:
         self._lang_ids = torch.tensor(
             self.tokenizer.spec.all_language_tokens, dtype=torch.long, device=self.device
         )
+        # Preemptible beamed decodes: > 0 runs beam search in segments of
+        # this many steps with one host sync and the lock released between
+        # them, so other threads' work (the continuous scheduler's chunks in
+        # hybrid beam serving) interleaves; 0 is one monolithic decode.
+        # WL_BEAM_CHUNK, read once here, wins over enable_beam_chunk.
+        env_chunk = os.environ.get("WL_BEAM_CHUNK")
+        self.beam_chunk = int(env_chunk) if env_chunk else 0
+        self._beam_chunk_forced = env_chunk is not None
 
     # ------------------------------------------------------------------
     # device programs (run under the lock, in inference mode)
@@ -334,6 +381,161 @@ class WhisperEngine:
                 self_kv, cross_kv,
             )
         return state.sampled, state.gen_len, state.sum_logprob, no_speech_prob
+
+    def _beam_start(
+        self,
+        cross_kv: dict,
+        prompts: torch.Tensor,  # [B, P]
+        prompt_len: torch.Tensor,  # [B]
+        sot_idx: torch.Tensor,  # [B]
+        suppress_mask: torch.Tensor,  # [V]
+        ts_enabled: torch.Tensor,  # [B]
+        rep_penalty: float,
+        max_new: int,
+        cache_len: int,
+        no_repeat_ngram: int,
+        suppress_blank: bool,
+        max_init_idx: int,
+        beam_size: int,
+    ) -> tuple[_BeamInputs, _BeamCarry, torch.Tensor]:
+        """Prefill at B, then the carry and the invariants tiled beam-major
+        to B*K rows. Returns (inputs, carry, no_speech_prob [B])."""
+        cfg, spec, dev = self.cfg, self.spec, self.device
+        b, prompt_pad = prompts.shape
+        k = beam_size
+        bk = b * k
+        max_gen = cache_len - prompt_pad
+        self_kv0 = wmod.init_self_kv(cfg, b, cache_len, device=dev)
+        last_logits, sot_logits = wmod.decode_prefill(
+            self.params, cfg, prompts, prompt_len, self_kv0, cross_kv, sot_idx=sot_idx
+        )
+        no_speech_prob = torch.softmax(sot_logits, dim=-1)[:, spec.no_speech]
+
+        def tile(x):
+            return x.repeat_interleave(k, dim=0)
+
+        prompts_bk, plen_bk = tile(prompts), tile(prompt_len)
+        inputs = _BeamInputs(
+            k=k, prompt_pad=prompt_pad, max_steps=min(max_new, max_gen),
+            cross=wmod.tree_map(lambda a: a.repeat_interleave(k, dim=2), cross_kv),
+            prompts=prompts_bk, prompt_len=plen_bk, ts_enabled=tile(ts_enabled),
+            suppress_mask=suppress_mask, rep_penalty=rep_penalty,
+            no_repeat_ngram=no_repeat_ngram,
+            phist=dec.right_align_prompt(prompts_bk, plen_bk) if no_repeat_ngram > 0 else None,
+            sb_vec=None if suppress_blank else torch.zeros((1,), dtype=torch.bool, device=dev),
+            mit_vec=(None if max_init_idx < 0
+                     else torch.full((1,), max_init_idx, dtype=torch.int32, device=dev)),
+            ident=torch.arange(bk, device=dev),
+            later_lane=torch.arange(bk, device=dev) % k > 0,
+        )
+        self_kv = self_kv0.repeat_interleave(k, dim=2)
+        carry = _BeamCarry(
+            state=dec.init_sampler_state(spec, plen_bk, max_gen),
+            self_kv=self_kv, spare=torch.empty_like(self_kv), logits=tile(last_logits),
+            sum_lp=torch.zeros((bk,), dtype=torch.float32, device=dev),
+        )
+        return inputs, carry, no_speech_prob
+
+    def _beam_step(self, inp: _BeamInputs, c: _BeamCarry, gate) -> torch.Tensor:
+        """One expansion: the logit rules on B*K rows, f32 log-softmax,
+        finished lanes frozen to EOT at an unchanged score, the step-0
+        duplicate-lane penalty, top-K over K*V per item, and the parent
+        gather of the sampler state and the self-KV cache (one index_select
+        into the spare buffer, then the two swap). gate: None, or a device
+        bool that is False once every lane has finished; such a step then
+        changes no score or lane (a segment runs on without a host sync).
+        Returns the chosen tokens [BK], the decode step's input."""
+        spec, st = self.spec, c.state
+        filtered = dec.apply_logit_rules(
+            spec, c.logits, st, inp.suppress_mask, inp.ts_enabled,
+            suppress_blank=inp.sb_vec, max_initial_ts_idx=inp.mit_vec,
+        )
+        filtered = dec.apply_repetition_penalty(
+            filtered, st, inp.rep_penalty, prompt_tokens=inp.prompts, prompt_len=inp.prompt_len,
+        )
+        filtered = dec.apply_no_repeat_ngram(filtered, st, inp.no_repeat_ngram,
+                                             prompt_hist=inp.phist)
+        parent, next_tok, new_sum = dec.beam_select(
+            filtered, c.sum_lp, st.finished, inp.later_lane if st.step == 0 else None, inp.k,
+            spec.eot)
+        if gate is not None:
+            parent = torch.where(gate, parent, inp.ident)
+            new_sum = torch.where(gate, new_sum, c.sum_lp)
+        st = st._replace(
+            sampled=st.sampled[parent], gen_len=st.gen_len[parent], last_ts=st.last_ts[parent],
+            finished=st.finished[parent], sum_logprob=st.sum_logprob[parent],
+        )
+        c.self_kv, c.spare = dec.gather_lanes(c.self_kv, c.spare, parent)
+        tok_lp = new_sum - c.sum_lp[parent]
+        c.sum_lp = new_sum
+        c.state = dec.advance_state(spec, st, next_tok, tok_lp)
+        return next_tok
+
+    def _beam_run(self, inp: _BeamInputs, c: _BeamCarry, n_steps: int, sync_each: bool) -> bool:
+        """Up to n_steps beam steps on the carry; True once the decode is
+        done. sync_each: stop on the first step after which every lane has
+        finished (one host sync a step, as the greedy loop); otherwise the
+        caller syncs once after the segment, and steps after the last lane
+        finished are gated into no-ops."""
+        for i in range(n_steps):
+            gate = None if sync_each or i == 0 else ~c.state.finished.all()
+            slot = inp.prompt_pad + c.state.step  # batch-uniform cache slot
+            pos = c.state.prompt_len + c.state.step
+            next_tok = self._beam_step(inp, c, gate)
+            if c.state.step >= inp.max_steps:
+                c.state = c.state._replace(finished=torch.ones_like(c.state.finished))
+                return True
+            if sync_each and bool(c.state.finished.all()):  # the loop's one host sync
+                return True
+            c.logits = wmod.decode_step(
+                self.params, self.cfg, next_tok, pos, slot, inp.prompt_len, inp.prompt_pad,
+                c.self_kv, inp.cross,
+            )
+        return False
+
+    @staticmethod
+    def _beam_best(c: _BeamCarry, k: int, length_penalty: float):
+        """The best lane of each item by sum / len^penalty (CTranslate2's
+        convention): (sampled [B, G], gen_len [B], sum_logprob [B])."""
+        st = c.state
+        lengths = st.gen_len.float().clamp(min=1.0)
+        score = st.sum_logprob / lengths**length_penalty
+        b = score.shape[0] // k
+        best = torch.argmax(score.reshape(b, k), dim=1) + torch.arange(b, device=score.device) * k
+        return st.sampled[best], st.gen_len[best], st.sum_logprob[best]
+
+    def _decode_beam(self, beam_args: tuple, beam_size: int, length_penalty: float):
+        """Batched beam search at T = 0 (the reference transcriber decodes
+        at beam 5, transcriber_faster_whisper.py:1394-1407) in one
+        monolithic loop under the lock, or, with beam_chunk > 0, in
+        preemptible segments of beam_chunk steps: after each segment the
+        host syncs once on whether every lane has finished, with the lock
+        released, and that gap is where other threads' work runs. The two
+        are token-exact by construction (the same step; the steps a segment
+        runs after its last lane finished change nothing). Returns (sampled,
+        gen_len, sum_logprob, no_speech_prob)."""
+        chunk = int(self.beam_chunk)
+        with self._lock:
+            inp, carry, ns_prob = self._beam_start(*beam_args, beam_size=beam_size)
+            if chunk <= 0:
+                self._beam_run(inp, carry, inp.max_steps, sync_each=True)
+                return (*self._beam_best(carry, beam_size, length_penalty), ns_prob)
+        while True:
+            with self._lock:
+                done = self._beam_run(inp, carry, chunk, sync_each=False)
+                done = done or bool(carry.state.finished.all())  # the segment's one sync
+            if done:
+                break
+        with self._lock:
+            return (*self._beam_best(carry, beam_size, length_penalty), ns_prob)
+
+    def enable_beam_chunk(self, steps: int = 24) -> None:
+        """Opt into preemptible beamed decodes (hybrid beam serving, where
+        beamed full re-decodes share the card with continuous chunks). No-op
+        when WL_BEAM_CHUNK pinned a value (including 0) or a caller already
+        set one."""
+        if not self._beam_chunk_forced and not self.beam_chunk:
+            self.beam_chunk = steps
 
     # ------------------------------------------------------------------
     # helpers
@@ -442,16 +644,23 @@ class WhisperEngine:
 
         if options is None:
             options = transcribe_options_from_session(SessionOptions())
-        if options.beam_size > 1:
-            raise NotImplementedError(NOT_PORTED_BEAM)
         if batch_sizes is None:
             batch_sizes = {self.batch_buckets[0], self.batch_buckets[-1]}
         for b in sorted(set(batch_sizes)):
             logger.info("warmup: batch=%d", b)
             audio = np.zeros((b, mel_ops.N_SAMPLES), np.float32)
             prompt, sot = self.build_prompt(options, language="en")
-            self.transcribe_batch(audio, [prompt] * b, [sot] * b, [True] * b, options)
-        # the fallback path: prepare, detect, plain decode
+            if options.beam_size > 1:
+                # beamed serving takes the split path: prepare, detect and
+                # the beam program
+                _, cross = self.prepare(audio)
+                if self.tokenizer.spec.multilingual:
+                    self.detect_language_from_cross(cross)
+                self.decode_batch(cross, [prompt] * b, [sot] * b, options)
+            else:
+                self.transcribe_batch(audio, [prompt] * b, [sot] * b, [True] * b, options)
+        # the split path of word-timestamp requests and fallback retries:
+        # prepare, detect, plain decode
         b = sorted(set(batch_sizes))[0]
         _, cross = self.prepare(np.zeros((b, mel_ops.N_SAMPLES), np.float32))
         if self.tokenizer.spec.multilingual:
@@ -494,10 +703,9 @@ class WhisperEngine:
         temperatures: Sequence[float] | None = None,
         seed: int = 0,
     ) -> list[DecodeResult]:
-        """One sampling-loop pass over a prepared batch (cross_kv batch dim
-        already padded to a bucket, >= len(prompts))."""
-        if options.beam_size > 1:
-            raise NotImplementedError(NOT_PORTED_BEAM)
+        """One decode pass over a prepared batch (cross_kv batch dim already
+        padded to a bucket, >= len(prompts)): beam search when beam_size > 1
+        and every temperature is 0, else the sampling loop."""
         b = _kv_array(cross_kv).shape[2]
         assert len(prompts) <= b
         n_real = len(prompts)
@@ -532,28 +740,10 @@ class WhisperEngine:
             n_tiled = n_real
         temps = np.asarray(list(temperatures) + [0.0] * (b - n_tiled), np.float32)
         prompt_arr, prompt_len = self._pad_prompts(prompts)
-        requested = (
-            options.max_new_tokens if options.max_new_tokens is not None
-            else self.cfg.n_text_ctx
+        tokens, gen_len, sum_lp, ns_prob = self._run_decode(
+            options, cross_kv, self._tensor(prompt_arr), self._tensor(prompt_len),
+            self._tensor(np.asarray(sot_idx, np.int32)), temps, seed,
         )
-        sb_static, mit_static = _rule_statics(options)
-        with self._lock:
-            tokens, gen_len, sum_lp, ns_prob = self._decode(
-                cross_kv,
-                self._tensor(prompt_arr),
-                self._tensor(prompt_len),
-                self._tensor(np.asarray(sot_idx, np.int32)),
-                self.suppress_mask_for(options),
-                self._tensor(~np.full((b,), options.without_timestamps)),
-                self._tensor(temps),
-                options.repetition_penalty,
-                int(requested),
-                seed,
-                self._cache_len(prompt_arr.shape[1], requested),
-                options.no_repeat_ngram_size,
-                sb_static,
-                mit_static,
-            )
         results = self._extract_results(tokens, gen_len, sum_lp, ns_prob, temps, n_tiled)
         if k_bo == 1:
             return results
@@ -561,6 +751,31 @@ class WhisperEngine:
             max(results[i * k_bo : (i + 1) * k_bo], key=lambda r: r.avg_logprob)
             for i in range(n_real)
         ]
+
+    def _run_decode(self, options: TranscribeOptions, cross_kv: dict, prompts: torch.Tensor,
+                    prompt_len: torch.Tensor, sot_idx: torch.Tensor, temps: np.ndarray,
+                    seed: int):
+        """The decode of a prepared batch: beam search when beam_size > 1 and
+        every temperature is 0 (fallback retries at T > 0 sample, as the
+        reference's beam-to-sampling escalation), else the sampling loop.
+        Returns (sampled [B, G], gen_len, sum_logprob, no_speech_prob)."""
+        requested = (
+            options.max_new_tokens if options.max_new_tokens is not None
+            else self.cfg.n_text_ctx
+        )
+        b, prompt_pad = prompts.shape
+        head = (cross_kv, prompts, prompt_len, sot_idx, self.suppress_mask_for(options),
+                self._tensor(~np.full((b,), options.without_timestamps)))
+        rules = (options.no_repeat_ngram_size, *_rule_statics(options))
+        cache_len = self._cache_len(prompt_pad, requested)
+        if options.beam_size > 1 and not temps.any():
+            return self._decode_beam(
+                (*head, options.repetition_penalty, int(requested), cache_len, *rules),
+                beam_lanes(options), options.length_penalty,
+            )
+        with self._lock:
+            return self._decode(*head, self._tensor(temps), options.repetition_penalty,
+                                int(requested), seed, cache_len, *rules)
 
     def _extract_results(
         self, tokens, gen_len, sum_lp, ns_prob, temps, n_real
@@ -602,9 +817,8 @@ class WhisperEngine:
         spliced into their prompt on the device), prefill and the sampling
         loop. Returns a handle whose resolve() copies the results to the
         host. The decode loop syncs on its termination check each step, so
-        the handle's work is done when it is returned."""
-        if options.beam_size > 1:
-            raise NotImplementedError(NOT_PORTED_BEAM)
+        the handle's work is done when it is returned. With beam_size > 1
+        at T = 0 the decode is the beam program."""
         b = audio.shape[0]
         _, cross_kv = self.prepare(audio)
         n_real = len(prompts)
@@ -613,10 +827,6 @@ class WhisperEngine:
         known = np.asarray(list(lang_known) + [True] * (b - n_real))
         temps = np.full((b,), options.temperatures[0], np.float32)
         prompt_arr, prompt_len = self._pad_prompts(prompts)
-        requested = (
-            options.max_new_tokens if options.max_new_tokens is not None
-            else self.cfg.n_text_ctx
-        )
         with self._lock:
             prompts_t = self._tensor(prompt_arr)
             sot_t = self._tensor(sot_idx)
@@ -629,21 +839,8 @@ class WhisperEngine:
                 prompts_t[rows, lang_pos] = torch.where(self._tensor(known), given, detected)
             else:
                 lang_probs = torch.zeros((b, 1), dtype=torch.float32, device=self.device)
-            tokens, gen_len, sum_lp, ns_prob = self._decode(
-                cross_kv,
-                prompts_t,
-                self._tensor(prompt_len),
-                sot_t,
-                self.suppress_mask_for(options),
-                self._tensor(~np.full((b,), options.without_timestamps)),
-                self._tensor(temps),
-                options.repetition_penalty,
-                int(requested),
-                seed,
-                self._cache_len(prompt_arr.shape[1], requested),
-                options.no_repeat_ngram_size,
-                *_rule_statics(options),
-            )
+        tokens, gen_len, sum_lp, ns_prob = self._run_decode(
+            options, cross_kv, prompts_t, self._tensor(prompt_len), sot_t, temps, seed)
         return _PendingBatch(
             self, tokens, gen_len, sum_lp, ns_prob, lang_probs, temps, n_real, cross_kv
         )
@@ -664,8 +861,115 @@ class WhisperEngine:
             audio, prompts, sot_indices, lang_known, options, seed=seed
         ).resolve()
 
-    def align_words(self, *args, **kwargs):
-        raise NotImplementedError(NOT_PORTED_ALIGN)
+    def align_words(
+        self,
+        cross_kv: dict,
+        item_index: int,
+        text_tokens: Sequence[int],
+        num_frames: int,
+        merge: bool = True,
+        cross_len: int | None = None,
+        prepend_punctuations: str = "\"'“¿([{-",
+        append_punctuations: str = "\"'.。,，!！?？:：”)]}、",
+        language: str | None = None,
+        task: str = "transcribe",
+    ):
+        """Word timings of one decoded window item (cross-attention DTW): one
+        teacher-forced B = 1 pass over [sot sequence + text + eot] against
+        the item's row of the cross-KV, then DTW on the host
+        (engine/align.py). merge=False returns the raw timings.
+        language/task condition the teacher-forcing sot sequence (its length
+        is the same for every language)."""
+        prep = self.align_prepare(text_tokens, language=language, task=task)
+        if prep is None:
+            return []
+        arr, sot_len, text_tokens = prep
+        if cross_len is None:  # the whole context of the given cross-KV
+            kv = _kv_array(cross_kv)
+            cross_len = kv.shape[3] if "kv" in cross_kv else kv.shape[4]
+        logits, maps = self.align_maps(
+            self.gather_cross(cross_kv, [item_index]), arr, cross_len,
+            sot_len + len(text_tokens) + 1, num_frames,
+        )
+        return self.align_finish(
+            logits, maps, text_tokens, sot_len, num_frames, merge=merge,
+            prepend_punctuations=prepend_punctuations,
+            append_punctuations=append_punctuations,
+        )
+
+    @torch.inference_mode()
+    def align_maps(self, cross_kv: dict, arr: np.ndarray, cross_len: int, seq_len: int,
+                   num_frames: int) -> tuple[np.ndarray, np.ndarray]:
+        """The alignment pass of one item (cross_kv holds its row alone):
+        decode_with_cross_attn over the token array [1, pmax], then the
+        logits' first seq_len rows and the maps' first seq_len rows and
+        num_frames // 2 positions, cut on the device before the copy
+        (find_alignment_from_attn reads no more) and copied to the host as
+        float32: (logits [1, seq_len, V], maps [L, 1, H, seq_len, frames])."""
+        frames = max(num_frames // 2, 1)
+        with self._lock:
+            logits, maps = wmod.decode_with_cross_attn(
+                self.params, self.cfg, self._tensor(arr), cross_kv,
+                cross_len=torch.tensor([cross_len], dtype=torch.int32, device=self.device),
+            )
+            maps = maps[:, :, :, :seq_len, :frames].float().cpu().numpy()
+            return logits[:, :seq_len].cpu().numpy(), maps
+
+    def align_prepare(self, text_tokens: Sequence[int], language: str | None = None,
+                      task: str = "transcribe"):
+        """Host half 1 of word alignment: the bucketed teacher-forcing token
+        array for [sot sequence + text + eot]. Returns (arr [1, pmax],
+        sot_len, text_tokens), or None when no text token remains."""
+        tok = self.tokenizer
+        text_tokens = [int(t) for t in text_tokens if t < tok.eot]
+        if not text_tokens:
+            return None
+        seq_tok = tok
+        if language is not None:
+            seq_tok = WhisperTokenizer(tok.spec, tok.backend, language=language, task=task)
+        seq = seq_tok.sot_sequence() + text_tokens + [tok.eot]
+        sot_len = len(seq) - len(text_tokens) - 1
+        pmax = _bucket(len(seq), self.prompt_buckets)
+        arr = np.zeros((1, pmax), np.int32)
+        arr[0, : len(seq)] = seq[:pmax]
+        return arr, sot_len, text_tokens
+
+    def align_finish(
+        self,
+        logits: np.ndarray,  # [1, T, V] (or [T, V])
+        cross: np.ndarray,  # [L, 1, H, T, ctx] (or [L, H, T, ctx])
+        text_tokens: list[int],
+        sot_len: int,
+        num_frames: int,
+        merge: bool = True,
+        prepend_punctuations: str = "\"'“¿([{-",
+        append_punctuations: str = "\"'.。,，!！?？:：”)]}、",
+    ):
+        """Host half 2 of word alignment: token probabilities, DTW and the
+        punctuation merge; numpy only, so it runs on any thread."""
+        from whisperlive_tpu_torch.engine import align as align_mod
+
+        tok = self.tokenizer
+        if logits.ndim == 3:
+            logits = logits[0]
+        if cross.ndim == 5:
+            cross = cross[:, 0]
+        seq_len = sot_len + len(text_tokens) + 1
+        # the token probability is a softmax over the text vocabulary only
+        # (openai's find_alignment renormalizes logits[:, :eot])
+        probs = []
+        for i, t in enumerate(text_tokens):
+            row = logits[sot_len - 1 + i][: tok.eot]
+            row = row - row.max()
+            p = np.exp(row)
+            probs.append(float(p[t] / p.sum()))
+        timings = align_mod.find_alignment_from_attn(
+            cross[:, :, :seq_len, :], np.asarray(probs, np.float64), tok, text_tokens,
+            sot_len, num_frames,
+        )
+        if not merge:
+            return timings
+        return align_mod.merge_punctuations(timings, prepend_punctuations, append_punctuations)
 
     def decode_with_fallback(
         self,

@@ -8,10 +8,12 @@ temperature-fallback retries of gate failures on a gathered cross-KV
 subset. Results resolve concurrent.futures.Futures, which the asyncio
 serving layer awaits through asyncio.wrap_future.
 
-With a SpeculativeDecoder (engine/speculative.py), a lone greedy request
-decodes draft-accelerated, token-exact against the plain decode. Not
-ported yet: word-timestamp requests and beam search (their futures fail
-with NotImplementedError naming ROADMAP.md open item 6a).
+Beam requests (beam_size > 1) and word-timestamp requests take the split
+path: prepare, language ID, then decode_with_fallback, whose attempt at
+T = 0 is the beam program for a beam request; a word-timestamp request is
+aligned against the window's cross-KV when its result is assembled. With a
+SpeculativeDecoder (engine/speculative.py), a lone greedy request decodes
+draft-accelerated, token-exact against the plain decode.
 """
 
 from __future__ import annotations
@@ -28,13 +30,12 @@ import numpy as np
 
 from whisperlive_tpu_torch.utils import metrics as wl_metrics
 from whisperlive_tpu_torch.engine.engine import (
-    NOT_PORTED_ALIGN,
-    NOT_PORTED_BEAM,
     TranscribeOptions,
     WhisperEngine,
     _bucket,
     fails_quality_gates,
 )
+from whisperlive_tpu_torch.engine.align import is_segment_anomaly, words_for_segment
 from whisperlive_tpu_torch.engine.transcribe import Segment, split_segments_by_timestamps
 from whisperlive_tpu_torch.ops import mel as mel_ops
 
@@ -67,12 +68,17 @@ class BatchRequest:
     submitted_at: float = dataclasses.field(default_factory=time.monotonic)
 
     def group_key(self):
-        # the scalar decode knobs are batch-global inputs taken from
-        # batch[0], so a batch must be homogeneous in them (word-timestamp
-        # and beam requests never reach the queue)
+        # word_timestamps picks the split path and beam_size/patience the
+        # decode program and its lane count; the scalar decode knobs are
+        # batch-global inputs taken from batch[0], so a batch must be
+        # homogeneous in all of them
         return (
             self.options.suppress_tokens,
             self.options.suppress_blank,
+            self.options.word_timestamps,
+            self.options.beam_size,
+            self.options.patience,
+            self.options.length_penalty,
             self.options.repetition_penalty,
             self.options.no_repeat_ngram_size,
             self.options.temperatures,
@@ -97,12 +103,18 @@ def assemble_result(
     duration: float,
     language: str,
     language_prob: float,
+    cross_kv=None,
+    item_index: int = 0,
     prefix_ok: bool = True,
+    cross_len: int | None = None,
+    timings=None,
 ) -> BatchResult:
-    """One decode result -> wire-ready BatchResult (no-speech skip and the
-    timestamp split). prefix_ok=False (the final attempt still failed the
-    quality gates) keeps the token stream from seeding the next window's
-    forced prefix, as a no-speech skip does."""
+    """One decode result -> wire-ready BatchResult (no-speech skip, the
+    timestamp split, and for a word-timestamp request the word alignment
+    against row item_index of cross_kv, or the given `timings`).
+    prefix_ok=False (the final attempt still failed the quality gates)
+    keeps the token stream from seeding the next window's forced prefix, as
+    a no-speech skip does."""
     segments: list[Segment] = []
     advance_s = duration
     skip = (
@@ -120,10 +132,28 @@ def assemble_result(
             include_unfinished=req.include_unfinished,
         )
         advance_s = min(advance / 100.0, duration)
+        if req.options.word_timestamps and timings is None and cross_kv is not None:
+            try:
+                timings = eng.align_words(
+                    cross_kv, item_index, res.tokens, segment_size, cross_len=cross_len,
+                    language=language, task=req.options.task,
+                )
+            except Exception:
+                logger.exception("word alignment failed")
         for j, (start, end, toks) in enumerate(pieces):
             text = eng.tokenizer.decode(toks)
             if not text.strip():
                 continue
+            words = None
+            if timings is not None:
+                words = words_for_segment(timings, start, end)
+                if (
+                    req.options.hallucination_silence_threshold is not None
+                    and is_segment_anomaly(words)
+                ):
+                    logger.info("[%s] dropping hallucination-suspect segment %r",
+                                req.uid, text[:40])
+                    continue
             segments.append(
                 Segment(
                     id=j,
@@ -136,6 +166,7 @@ def assemble_result(
                     avg_logprob=res.avg_logprob,
                     compression_ratio=res.compression_ratio,
                     no_speech_prob=res.no_speech_prob,
+                    words=words,
                 )
             )
     return BatchResult(
@@ -187,12 +218,7 @@ class BatchScheduler:
             self._thread = None
 
     def submit(self, request: BatchRequest) -> Future:
-        if request.options.word_timestamps:
-            request.future.set_exception(NotImplementedError(NOT_PORTED_ALIGN))
-        elif request.options.beam_size > 1:
-            request.future.set_exception(NotImplementedError(NOT_PORTED_BEAM))
-        else:
-            self._queue.put(request)
+        self._queue.put(request)
         return request.future
 
     def _collect_batch(self) -> list[BatchRequest]:
@@ -272,9 +298,14 @@ class BatchScheduler:
 
         self._seed += 1
         options = batch[0].options
+        # beam requests must not take the fused program (its loop samples,
+        # with no beam expansion); word-timestamp requests keep the
+        # window's cross-KV for the alignment
+        need_split = options.word_timestamps or options.beam_size > 1
         used_spec = (
             self.spec_decoder is not None
             and n == 1
+            and not need_split
             and options.temperatures
             and options.temperatures[0] == 0.0
             and eng.batch_buckets[0] == 1
@@ -290,6 +321,19 @@ class BatchScheduler:
             cross_d = self.spec_decoder.cross_from_enc(enc)
             results = self.spec_decoder.decode_with_fallback(
                 cross_kv, cross_d, prompts[0], sot_idx[0], options, seed=self._seed)
+        elif need_split:
+            _, cross_kv = eng.prepare(audio)
+            if not all(lang_known) and eng.tokenizer.spec.multilingual:
+                detected = eng.detect_language_from_cross(cross_kv)
+                for i in range(n):
+                    if languages[i] is None:
+                        languages[i], language_probs[i] = detected[i]
+                        prompts[i], sot_idx[i] = eng.build_prompt(
+                            batch[i].options, previous_tokens=batch[i].previous_tokens,
+                            language=languages[i],
+                        )
+            results = eng.decode_with_fallback(
+                cross_kv, prompts, sot_idx, options, seed=self._seed)
         else:
             results, detected, cross_kv = eng.transcribe_batch(
                 audio, prompts, sot_idx, lang_known, options, seed=self._seed
@@ -299,10 +343,10 @@ class BatchScheduler:
                     languages[i], language_probs[i] = detected[i]
 
         # temperature-fallback retries of gate failures on the gathered
-        # cross-KV of the failing items only (the speculative route already
-        # ran the whole cascade)
+        # cross-KV of the failing items only (the split and speculative
+        # routes already ran the whole cascade)
         retry_temps = options.temperatures[1:]
-        failed = [] if used_spec else [
+        failed = [] if used_spec or need_split else [
             i for i in range(n) if fails_quality_gates(options, results[i])]
         if failed and retry_temps:
             retry_bucket = _bucket(len(failed), eng.batch_buckets)
@@ -331,6 +375,8 @@ class BatchScheduler:
                         eng, req, res, durations[i],
                         language=languages[i] or "en",
                         language_prob=language_probs[i],
+                        cross_kv=cross_kv,
+                        item_index=i,
                     )
                 )
             except Exception as e:

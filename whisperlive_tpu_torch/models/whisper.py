@@ -242,15 +242,17 @@ def _merge_heads(x: torch.Tensor) -> torch.Tensor:
     return x.reshape(b, t, h * hd)
 
 
-def _attention(q, k, v, mask=None):
+def _attention(q, k, v, mask=None, return_probs=False):
     """q, k, v [B, T, H, hd]; mask broadcastable to [B, H, Tq, Tk]; f32
-    scores and softmax, probabilities cast to q's dtype."""
+    scores and softmax, probabilities cast to q's dtype. return_probs: also
+    return the probabilities [B, H, Tq, Tk]."""
     hd = q.shape[-1]
     scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * hd**-0.5
     if mask is not None:
         scores = torch.where(mask, scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
-    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+    out = torch.einsum("bhqk,bkhd->bqhd", probs, v)
+    return (out, probs) if return_probs else out
 
 
 def _mlp(x: torch.Tensor, p: Params) -> torch.Tensor:
@@ -346,7 +348,7 @@ def _cross_len_mask(t: int, cross_len: torch.Tensor | None) -> torch.Tensor | No
 
 def _cross_attend(qc: torch.Tensor, ckv: Params, dtype: torch.dtype,
                   cross_len: torch.Tensor | None = None,
-                  active: torch.Tensor | None = None) -> torch.Tensor:
+                  active: torch.Tensor | None = None, collect_probs: bool = False):
     """Cross-attention against one layer's cross-KV slice.
 
     qc [B, Tq, H, hd]; ckv {"kv": [2, B, T, H, hd], "scale": None},
@@ -361,7 +363,9 @@ def _cross_attend(qc: torch.Tensor, ckv: Params, dtype: torch.dtype,
     Int4 takes cross_len but not active, as in the JAX code. A query of one
     token goes to K4 / K5 / K7 and a window of 1 < Tq <= 8 (the speculative
     verify) to K6 / K5's window form / K8; longer prefills dequantize and
-    attend."""
+    attend. collect_probs (the alignment pass) returns (out, probabilities
+    [B, H, Tq, T]) and never takes a kernel, as in the JAX code: the int8
+    or int4 cross-KV is dequantized and attended."""
     scale = ckv.get("scale")
     if active is not None and cross_len is None:
         raise ValueError("active-slot skipping requires per-slot cross_len")
@@ -370,7 +374,7 @@ def _cross_attend(qc: torch.Tensor, ckv: Params, dtype: torch.dtype,
     if "kv8" in ckv or "kv4" in ckv:
         q_eff = qc * scale[0][:, 0][:, None].to(qc.dtype)
         v_scale = scale[1][:, 0][:, None]  # [B, 1, H, hd]
-        if tq <= MAX_WINDOW:
+        if tq <= MAX_WINDOW and not collect_probs:
             if "kv8" in ckv:
                 kvp = ckv["kv8"][0]  # [B, H, T, 2*hd]
                 out = (cross_attention_int8(q_eff[:, 0].contiguous(), kvp, lengths, active)[:, None]
@@ -391,12 +395,15 @@ def _cross_attend(qc: torch.Tensor, ckv: Params, dtype: torch.dtype,
         else:
             k, v = unpack_int4(ckv["kv4"][0]), unpack_int4(ckv["kv4"][1])
         k, v = k.transpose(1, 2).to(dtype), v.transpose(1, 2).to(dtype)
-        out = _attention(q_eff, k, v, _cross_len_mask(k.shape[1], cross_len))
+        out = _attention(q_eff, k, v, _cross_len_mask(k.shape[1], cross_len), collect_probs)
+        if collect_probs:
+            return out[0] * v_scale.to(out[0].dtype), out[1]
         return out * v_scale.to(out.dtype)
     if scale is not None:
         raise ValueError("unquantized cross-KV must not carry scales")
     k, v = ckv["kv"][0], ckv["kv"][1]
-    return _attention(qc, k.to(dtype), v.to(dtype), _cross_len_mask(k.shape[1], cross_len))
+    return _attention(qc, k.to(dtype), v.to(dtype), _cross_len_mask(k.shape[1], cross_len),
+                      collect_probs)
 
 
 # ---------------------------------------------------------------------------
@@ -416,11 +423,12 @@ def init_self_kv(cfg: WhisperConfig, batch: int, cache_len: int | None = None,
 
 
 def _decoder_block_step(x, lp, skv, ckv, slot_start: int, attn_mask, n_head: int,
-                        cross_len=None, active=None):
+                        cross_len=None, active=None, collect_probs=False):
     """One decoder layer for Tq query tokens (prefill or a verify window).
     Writes the new K/V into the cache slice `skv` [2, B, C, H, hd] IN PLACE
     at slot_start, then attends over the whole cache (the JAX code updates
-    a copy first, then attends: the same order)."""
+    a copy first, then attends: the same order). collect_probs: return (x,
+    cross-attention probabilities [B, H, Tq, Tenc])."""
     h = _layer_norm(x, lp["attn_ln"])
     q = _split_heads(_linear(h, lp["attn"]["q"]), n_head)
     k_new = _split_heads(_linear(h, lp["attn"]["k"]), n_head)
@@ -433,24 +441,34 @@ def _decoder_block_step(x, lp, skv, ckv, slot_start: int, attn_mask, n_head: int
 
     h = _layer_norm(x, lp["cross_attn_ln"])
     qc = _split_heads(_linear(h, lp["cross_attn"]["q"]), n_head)
-    cross_out = _cross_attend(qc, ckv, x.dtype, cross_len, active)
+    cross_out = _cross_attend(qc, ckv, x.dtype, cross_len, active, collect_probs)
+    if collect_probs:
+        cross_out, probs = cross_out
     x = x + _linear(_merge_heads(cross_out), lp["cross_attn"]["o"])
-    return x + _mlp(_layer_norm(x, lp["mlp_ln"]), lp["mlp"])
+    x = x + _mlp(_layer_norm(x, lp["mlp_ln"]), lp["mlp"])
+    return (x, probs) if collect_probs else x
 
 
 def _decoder_forward(params, cfg, tokens, pos_idx, slot_start, attn_mask, self_kv, cross_kv,
-                     cross_len=None, active=None):
-    """Teacher-forced pass; self_kv [L, 2, B, C, H, hd] is updated in place."""
+                     cross_len=None, active=None, collect_cross_attn=False):
+    """Teacher-forced pass; self_kv [L, 2, B, C, H, hd] is updated in place.
+    collect_cross_attn: return (x, cross-attention maps [L, B, H, Tq, Tenc]
+    in the compute dtype)."""
     p = params["decoder"]
     x = _embed_lookup(p, tokens, cfg.dtype) + p["pos"].to(cfg.dtype)[
         pos_idx.clamp(0, cfg.n_text_ctx - 1).long()
     ]
+    maps = []
     for i in range(cfg.n_text_layer):
         x = _decoder_block_step(
             x, layer(p["layers"], i), self_kv[i], layer(cross_kv, i), slot_start,
-            attn_mask, cfg.n_text_head, cross_len, active,
+            attn_mask, cfg.n_text_head, cross_len, active, collect_cross_attn,
         )
-    return _layer_norm(x, p["ln"])
+        if collect_cross_attn:
+            x, probs = x
+            maps.append(probs)
+    x = _layer_norm(x, p["ln"])
+    return (x, torch.stack(maps)) if collect_cross_attn else x
 
 
 def _project_logits(params: Params, x: torch.Tensor) -> torch.Tensor:
@@ -481,6 +499,23 @@ def decode_prefill(params, cfg, tokens, prompt_len, self_kv, cross_kv, sot_idx=N
         return last_logits
     sot_hidden = x[rows, sot_idx.clamp(0, pmax - 1).long()]
     return last_logits, _project_logits(params, sot_hidden)
+
+
+def decode_with_cross_attn(params, cfg, tokens, cross_kv, cross_len=None):
+    """Teacher-forced pass over right-padded tokens [B, T] returning (logits
+    [B, T, V] f32, cross-attention maps [L, B, H, T, Tenc] in the compute
+    dtype): the word-alignment pass. The self-KV cache has T slots and the
+    mask is causal, so a pad query sees only real tokens before it. The
+    decoder linears run K2 and the logits K3; the cross-attention
+    dequantizes and attends (collect_probs)."""
+    b, t = tokens.shape
+    dev = tokens.device
+    self_kv = init_self_kv(cfg, b, t, device=dev)
+    pos_idx = torch.arange(t, device=dev)[None, :].expand(b, t)
+    causal = torch.arange(t, device=dev)[None, :] <= torch.arange(t, device=dev)[:, None]
+    x, maps = _decoder_forward(params, cfg, tokens, pos_idx, 0, causal[None, None], self_kv,
+                               cross_kv, cross_len, collect_cross_attn=True)
+    return _project_logits(params, x), maps
 
 
 def decode_window(params, cfg, tokens, pos_idx, slot_start: int, prompt_len, prompt_pad: int,

@@ -231,6 +231,62 @@ def sample_next(
     return next_tok, lp
 
 
+def top_k(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """jax.lax.top_k along the last axis: the k largest values in
+    descending order, the lower index first among equal values (torch.topk
+    promises no order for ties). Returns (values, indices int64)."""
+    kth = torch.topk(x, k, dim=-1).values[..., -1:]
+    above = x > kth
+    tie = x == kth
+    need = k - above.sum(dim=-1, keepdim=True)
+    take = above | (tie & (torch.cumsum(tie.to(torch.int32), dim=-1) <= need))
+    n = x.shape[-1]
+    # exactly k taken per row: rank them lower index first (unique keys)
+    key = torch.where(take, n - torch.arange(n, device=x.device), 0)
+    idx = torch.topk(key, k, dim=-1).indices
+    vals = x.gather(-1, idx)
+    order = torch.sort(vals, dim=-1, descending=True, stable=True).indices
+    return vals.gather(-1, order), idx.gather(-1, order)
+
+
+def beam_select(
+    filtered: torch.Tensor,  # [B*K, V] rule-filtered logits, K contiguous lanes an item
+    sum_lp: torch.Tensor,  # [B*K] f32 cumulative scores
+    finished: torch.Tensor,  # [B*K] bool
+    first: torch.Tensor | None,  # [B*K] bool: copies of lane 0 before the first expansion
+    k: int,
+    eot: int,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One beam expansion: f32 log-softmax, finished lanes frozen (they
+    propose only EOT, at an unchanged score), the `first` rows suppressed
+    so that an item's first expansion draws K distinct tokens from lane 0,
+    and top-K over K*V per item in jax.lax.top_k's order. The JAX window
+    loop adds NEG_INF for the suppression where the JAX pool sets it; both
+    leave lane 0's V candidates above every suppressed one, so the top-K is
+    the same. Returns (parent [B*K] int64, the row each new lane continues;
+    tok [B*K] int32; scores [B*K] f32, absolute cumulative)."""
+    lp = torch.log_softmax(filtered.float(), dim=-1)
+    frozen = torch.full_like(lp[:1], NEG_INF)
+    frozen[:, eot] = 0.0
+    cand = sum_lp[:, None] + torch.where(finished[:, None], frozen, lp)
+    if first is not None:
+        cand = torch.where(first[:, None], NEG_INF, cand)
+    bk, v = cand.shape
+    scores, idx = top_k(cand.reshape(bk // k, k * v), k)
+    row0 = torch.arange(0, bk, k, device=cand.device)[:, None]
+    return (idx // v + row0).reshape(-1), (idx % v).reshape(-1).to(torch.int32), scores.reshape(-1)
+
+
+def gather_lanes(
+    buf: torch.Tensor, spare: torch.Tensor, parent: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """buf's lanes (axis 2, the self-KV's batch axis) reordered by parent
+    into spare: one index_select, no copy back. Returns (the gathered
+    buffer, the free one): the caller swaps the two."""
+    torch.index_select(buf, 2, parent, out=spare)
+    return spare, buf
+
+
 def advance_state(
     spec: DecodingSpec, state: SamplerState, next_tok: torch.Tensor, logprob: torch.Tensor
 ) -> SamplerState:

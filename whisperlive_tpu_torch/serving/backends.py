@@ -8,10 +8,12 @@ suppress set, no_repeat_ngram, another max_initial_timestamp, beam search,
 windows longer than its content cap). On the continuous path it keeps the
 incremental prefix cache (the previous window's hypothesis forced as a
 decode prefix while the stream's tail anchor stays put), late-bound audio,
-the adaptive submission cadence and mixed speculative routing (full
+the adaptive submission cadence, mixed speculative routing (full
 re-decodes to a second, speculative continuous pool, with hysteresis on its
-acceptance). Hybrid-beam routing is not ported yet (ROADMAP.md open item
-6a). The backend interface TranscriptionServer expects:
+acceptance) and hybrid beam serving (beam_mode="refresh": greedy
+incremental partials on the continuous pool, beamed full re-decodes on the
+window scheduler in preemptible segments). The backend interface
+TranscriptionServer expects:
 
     async def transcribe(chunk, options, *, language, previous_tokens, uid, ...)
         -> BatchResult | None
@@ -20,6 +22,7 @@ acceptance). Hybrid-beam routing is not ported yet (ROADMAP.md open item
 from __future__ import annotations
 
 import asyncio
+import dataclasses
 import logging
 import os
 import time
@@ -47,7 +50,8 @@ _DISABLE_GATES = os.environ.get("WL_DISABLE_FALLBACK_GATES") == "1"
 def transcribe_options_from_session(
     options: SessionOptions, language: Optional[str] = None, beam_size: int = 1,
 ) -> TranscribeOptions:
-    """Map per-connection handshake options onto engine decode options."""
+    """Map per-connection handshake options onto engine decode options.
+    beam_size is a server-side policy (the handshake has no such field)."""
     kw = {}
     if _DISABLE_GATES:
         kw = dict(
@@ -80,17 +84,42 @@ class TorchBackend:
         model_name: str | None = None,
         continuous_scheduler=None,
         spec_scheduler=None,
+        beam_size: int = 1,
+        beam_mode: str = "full",
     ):
         self.scheduler = scheduler
         self.continuous_scheduler = continuous_scheduler
         self.model_name = model_name
+        # Beamed requests ride the continuous pool when it was built with
+        # matching lanes, else the window scheduler. Hybrid beam serving
+        # (beam_mode="refresh"): incremental partials decode greedy on a
+        # greedy continuous pool, while the full re-decodes (the periodic
+        # refresh windows and the post-commit windows) keep the beam and
+        # go to the window scheduler; the beamed hypothesis re-seeds the
+        # prefix cache the greedy partials extend.
+        self.beam_size = beam_size
+        self.hybrid_beam = (
+            beam_mode == "refresh"
+            and beam_size > 1
+            and continuous_scheduler is not None
+            and continuous_scheduler.beam_width == 1
+        )
+        self.hybrid_stats = {"greedy_partials": 0, "beamed_fulls": 0}
+        if self.hybrid_beam:
+            # the beamed decodes share the card with the continuous chunks:
+            # run them in preemptible segments
+            scheduler.engine.enable_beam_chunk()
         # Mixed speculative routing: a second continuous pool with a draft
         # serves the full re-decodes (the periodic refresh windows and the
         # post-commit from-scratch windows, ~100 steps each), where a verify
         # round pays for itself, while short incremental tails stay on the
         # plain pool. Greedy output is token-exact on either pool, so the
-        # routing changes latency only.
+        # routing changes latency only. Hybrid beam re-routes the same full
+        # re-decodes, so the two exclude each other.
         self.spec_scheduler = spec_scheduler
+        if spec_scheduler is not None and self.hybrid_beam:
+            raise ValueError("mixed speculative routing and hybrid beam both re-route full "
+                             "re-decodes; use one or the other")
         # Acceptance hysteresis: below the breakeven a verify round costs
         # more than the plain steps it replaces, so the route turns off,
         # probes one window every probe interval, and turns on again above
@@ -249,7 +278,9 @@ class TorchBackend:
             if not vad(chunk):
                 return None  # silence: nothing decoded, cursor stays
 
-        topts = transcribe_options_from_session(options, language)
+        topts = transcribe_options_from_session(options, language, beam_size=self.beam_size)
+        # the prefix plan is resolved before routing: hybrid beam splits on
+        # it; its mutations apply after routing
         prefix_eligible = (
             self.incremental
             and window_anchor_s is not None
@@ -269,6 +300,9 @@ class TorchBackend:
             else:
                 prefix_plan = ("evict",)  # a commit moved the tail start
         is_tail = prefix_plan is not None and prefix_plan[0] == "use" and bool(prefix_plan[1])
+        hybrid = self.hybrid_beam and topts.beam_size > 1
+        if hybrid and is_tail:  # a greedy incremental partial
+            topts = dataclasses.replace(topts, beam_size=1)
         # mixed speculative routing: full re-decodes ride the speculative
         # pool's verify rounds, incremental tails stay plain
         target_continuous = None
@@ -289,15 +323,21 @@ class TorchBackend:
         scheduler = self._pick_scheduler(topts, len(chunk) / 16000.0,
                                          continuous=target_continuous)
         on_continuous = scheduler is not self.scheduler
+        if hybrid:
+            self.hybrid_stats["greedy_partials" if topts.beam_size == 1 else "beamed_fulls"] += 1
         if on_continuous:
             req.refresh_audio = refresh_audio
-        use_prefix = prefix_eligible and on_continuous
+        # a hybrid full re-decode runs on the window scheduler but still
+        # seeds the prefix cache: its beamed hypothesis is what the greedy
+        # partials extend
+        use_prefix = prefix_eligible and (on_continuous or hybrid)
         if use_prefix and prefix_plan is not None:
             kind = prefix_plan[0]
             if kind == "refresh":
                 self._prefix_streak[uid] = 0
             elif kind == "use":
-                req.prefix_tokens = prefix_plan[1]
+                if on_continuous:
+                    req.prefix_tokens = prefix_plan[1]
                 self._prefix_streak[uid] = (
                     self._prefix_streak.get(uid, 0) + 1 if req.prefix_tokens else 0
                 )
