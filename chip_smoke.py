@@ -1,4 +1,5 @@
-"""Drive the PyTorch port's serving paths once on one CUDA card.
+"""Drive the PyTorch port's serving paths and its offline file path once on
+one CUDA card.
 
     python3 chip_smoke.py
 
@@ -21,7 +22,8 @@ a result):
    its entry carries those shapes in `other_shapes`, each with its ratio
    to scaled_dot_product_attention (`sdpa_ratio`). K2 at the window
    batch's M=4 and the continuous pool's M=8 (its entry reports the
-   pool's shape). K3 at M = 1, 4, 8 (the pool's, its entry's shape), 16
+   pool's shape), and at the offline path's M = 1, 16, 32 and 256 (the
+   decode step, the prompt buckets, --batched's pair). K3 at M = 1, 4, 8 (the pool's, its entry's shape), 16
    and 40 (the 8-slot verify window), each timed warm and cold (rotating
    over distinct embedding copies that exceed the L2) beside
    torch._weight_int8pack_mm and, cold, torch.matmul on the embedding
@@ -98,8 +100,30 @@ a result):
    end inside its window, and starts and ends are non-decreasing. Then the
    alignment pass of a 40-token hypothesis at 1500 and 640 positions, its
    time (the median of 5 and the first), its maps' copy and its launches.
-8. Check the output against a reference: the window path's encoder states
-   and teacher-forced logits, the first beam steps' logits (B*K = 10 rows;
+8. Drive the offline file path on the int8 engine's parameters: write the
+   random bf16 tree (regenerated from the seed) as an HF checkpoint in two
+   shards with an index, convert it with the port's convert CLI, and load
+   both dirs through loader.resolve_model: every leaf bit-equal to the
+   source (write, convert and load times). Then the offline CLI
+   (cli.transcribe, -tpu on the converted dir, --no_gates --language en
+   --max_new_tokens 48 --word_timestamps -f json) on two speech-like WAVs
+   of 70 s and 12 s: exit 0, and its JSON segments (text, start, end) and
+   words equal to Transcriber(engine).transcribe of the same audio on the
+   in-memory engine; words ordered and in their segments (a segment's
+   edge words at most EDGE_WORD_SLACK_S past it). Each seek
+   window's host time and launches (K1 32 a window; K2 256, K3 1, K4 32 a
+   decode step, plus the prefill's and the alignment pass's; no other
+   kernel). --batched over the same files (one result each, segments
+   ordered; the time a batch); Transcriber with the VAD filter on speech,
+   10 s of silence and speech (no segment starts in the removed gap);
+   detect_language over 2 windows (probabilities sum to 1); log_mel_full of
+   the 70 s clip on the card against the CPU, and against a float32
+   torch.stft of it on the CPU, within 1e-4. The tokenizer of
+   the CLI's engine is the visible one (the repository has no BPE
+   vocabulary). Printed as {"offline": ...}.
+9. Check the output against a reference: the window path's encoder states
+   and teacher-forced logits, an offline seek window's (B = 1, prepare_mel,
+   prompts at the 16- and 256-token buckets), the first beam steps' logits (B*K = 10 rows;
    the plain path follows the kernel path's beams), the first steps of a
    2 x 5-lane beam pool from one inserted state (10 rows with the slots'
    cross_len 512 and 640, no active rows: K4 with lengths, never K5; the
@@ -115,7 +139,7 @@ a result):
    must be equal up to a tie within twice the verify's measured error.
 
 The line before the last is {"kernels": [...]}, after {"encoder_forward":
-[...]}; the last line is
+[...]} and {"offline": {...}}; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -377,16 +401,27 @@ def k2_shapes(d: int) -> list[tuple[int, int, int]]:
             + [(BATCH * 16, d, 4 * d)])
 
 
+def k2_offline_shapes(d: int) -> list[tuple[int, int, int]]:
+    """(M, K, N) of the offline path's K2 calls beyond k2_shapes: a seek
+    window decodes at M = 1 (every linear) and prefills its first prompt at
+    the 16-token bucket (the NT=2 instantiation), --batched's two files at
+    M = 32 (NT=4), and a window with the most previous text at the 256-token
+    bucket (four 64-row M tiles), each at fc1 and fc2."""
+    decode = ((d, d), (d, 4 * d), (4 * d, d))
+    return ([(1, kk, n) for kk, n in decode]
+            + [(m, kk, n) for m in (16, 32, 256) for kk, n in decode[1:]])
+
+
 def k2_bound(m: int, kk: int, n: int) -> dict:
     return bound(m * kk * 2 + kk * n + n * 2 + m * n * 2, 2 * m * kk * n)
 
 
 def k2_phase(randn, int8, d: int) -> list[dict]:
-    """K2 against its plain version at k2_shapes, times warm (the same
-    weights call after call, so they sit in the L2). bf16 output, f32 sums
-    in another order: 2^-7 of max|ref|."""
+    """K2 against its plain version at k2_shapes and k2_offline_shapes,
+    times warm (the same weights call after call, so they sit in the L2).
+    bf16 output, f32 sums in another order: 2^-7 of max|ref|."""
     k2 = []
-    for m, kk, n in k2_shapes(d):
+    for m, kk, n in k2_shapes(d) + k2_offline_shapes(d):
         x, w8, s = randn(m, kk), int8(kk, n), randn(n, scale=0.01).abs()
         r = compare(
             "int8_matmul", f"x [{m},{kk}] w8 [{kk},{n}]",
@@ -766,8 +801,10 @@ def kernel_phase(dev: torch.device) -> dict:
 
     k2 = k2_phase(randn, int8, d)
     # the entry reports the continuous pool's decode fc1 shape (the main
-    # path's) and the worst error over every shape
+    # path's) and the worst error over every shape, the offline path's
+    # shapes in offline_shapes
     results["int8_matmul"] = dict(k2[4], max_abs_err=max(r["max_abs_err"] for r in k2),
+                                  offline_shapes=k2[len(k2_shapes(d)):],
                                   cold=k2_cold_phase(randn, int8, d), step_sweep=k2_step_sweep(
                                       randn, int8, cfg))
 
@@ -1874,7 +1911,402 @@ def word_ts_phase(engine: WhisperEngine) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Phase 8: output against the plain versions
+# Phase 8: the offline file path
+# ---------------------------------------------------------------------------
+
+OFFLINE_FILES_S = (70.0, 12.0)  # three seek windows, and one
+OFFLINE_MAX_NEW = 48
+OFFLINE_SHARDS = 2
+
+
+def hf_state_dict(params: dict) -> dict[str, torch.Tensor]:
+    """The port's parameter tree under the names of transformers'
+    WhisperForConditionalGeneration: the inverse of models/convert.py.
+    Linear weights go from [d_in, d_out] to HF's [out, in]; conv weights are
+    torch's [out, in, k] in both; every leaf keeps its dtype."""
+    sd: dict[str, torch.Tensor] = {}
+
+    def linear(name, p, i):
+        sd[f"{name}.weight"] = p["w"][i].T.contiguous()
+        if "b" in p:
+            sd[f"{name}.bias"] = p["b"][i]
+
+    def norm(name, p, i=None):
+        sd[f"{name}.weight"] = p["scale"] if i is None else p["scale"][i]
+        sd[f"{name}.bias"] = p["bias"] if i is None else p["bias"][i]
+
+    def blocks(prefix, p, cross):
+        attns = (("attn", "self_attn"),) + ((("cross_attn", "encoder_attn"),) if cross else ())
+        for i in range(p["mlp"]["fc1"]["w"].shape[0]):
+            name = f"{prefix}.layers.{i}"
+            for ours, hf in attns:
+                for k, proj in zip("qkvo", ("q_proj", "k_proj", "v_proj", "out_proj")):
+                    linear(f"{name}.{hf}.{proj}", p[ours][k], i)
+                norm(f"{name}.{hf}_layer_norm", p[f"{ours}_ln"], i)
+            linear(f"{name}.fc1", p["mlp"]["fc1"], i)
+            linear(f"{name}.fc2", p["mlp"]["fc2"], i)
+            norm(f"{name}.final_layer_norm", p["mlp_ln"], i)
+
+    enc, dec_p = params["encoder"], params["decoder"]
+    for conv in ("conv1", "conv2"):
+        sd[f"model.encoder.{conv}.weight"] = enc[conv]["w"]
+        sd[f"model.encoder.{conv}.bias"] = enc[conv]["b"]
+    sd["model.encoder.embed_positions.weight"] = enc["pos"]
+    blocks("model.encoder", enc["layers"], cross=False)
+    norm("model.encoder.layer_norm", enc["ln_post"])
+    sd["model.decoder.embed_tokens.weight"] = dec_p["embed"]
+    sd["model.decoder.embed_positions.weight"] = dec_p["pos"]
+    blocks("model.decoder", dec_p["layers"], cross=True)
+    norm("model.decoder.layer_norm", dec_p["ln"])
+    return sd
+
+
+def write_hf_checkpoint(params: dict, cfg: wmod.WhisperConfig, path: str,
+                        n_shards: int = 1) -> None:
+    """An HF Whisper checkpoint directory of the tree: config.json and the
+    state dict as model.safetensors, or as `n_shards` shards of about equal
+    bytes with model.safetensors.index.json."""
+    from whisperlive_tpu_torch.models import safetensors_io
+
+    os.makedirs(path, exist_ok=True)
+    hf_cfg = dict(model_type="whisper", architectures=["WhisperForConditionalGeneration"],
+                  num_mel_bins=cfg.n_mels, vocab_size=cfg.n_vocab,
+                  max_source_positions=cfg.n_audio_ctx, d_model=cfg.n_audio_state,
+                  encoder_attention_heads=cfg.n_audio_head, encoder_layers=cfg.n_audio_layer,
+                  encoder_ffn_dim=4 * cfg.n_audio_state, max_target_positions=cfg.n_text_ctx,
+                  decoder_attention_heads=cfg.n_text_head, decoder_layers=cfg.n_text_layer,
+                  decoder_ffn_dim=4 * cfg.n_text_state)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(hf_cfg, f, indent=2)
+    sd = hf_state_dict(params)
+    if n_shards == 1:
+        safetensors_io.save_file(sd, os.path.join(path, "model.safetensors"),
+                                 metadata={"format": "pt"})
+        return
+    names = sorted(sd)
+    sizes = [sd[n].numel() * sd[n].element_size() for n in names]
+    total, filled, weight_map = sum(sizes), 0, {}
+    for name, size in zip(names, sizes):
+        shard = min(filled * n_shards // total, n_shards - 1)
+        weight_map[name] = f"model-{shard + 1:05d}-of-{n_shards:05d}.safetensors"
+        filled += size
+    for file in sorted(set(weight_map.values())):
+        safetensors_io.save_file({n: sd[n] for n in names if weight_map[n] == file},
+                                 os.path.join(path, file), metadata={"format": "pt"})
+    with open(os.path.join(path, safetensors_io.INDEX_FILE), "w") as f:
+        json.dump({"metadata": {"total_size": total}, "weight_map": weight_map}, f, indent=2)
+
+
+def check_same_tree(label: str, src: dict, loaded: dict) -> int:
+    """Every leaf of `loaded` bit-equal to `src`'s at the same path, in the
+    same dtype and shape. Returns the number of leaves."""
+    def leaves(tree, path=()):
+        for k, v in tree.items():
+            yield from leaves(v, path + (k,)) if isinstance(v, dict) else [(path + (k,), v)]
+
+    a, b = dict(leaves(src)), dict(leaves(loaded))
+    check(a.keys() == b.keys(), f"{label}: leaves {sorted(set(a) ^ set(b))} differ")
+    for path, x in a.items():
+        y = b[path]
+        check(x.dtype == y.dtype and x.shape == y.shape and torch.equal(x, y.to(x.device)),
+              f"{label}: leaf {'/'.join(path)} differs")
+    return len(a)
+
+
+# How far a segment's first word may start before it, and its last word end
+# after it: where a segment edge sits deep inside its edge word, the
+# boundary rules (_reconcile_segment_edges) clamp the word toward the edge
+# but keep it a median word long, and the median is capped at 0.7 s; plus
+# the 0.01 s of the words' rounding
+EDGE_WORD_SLACK_S = 0.71
+
+
+def check_offline_words(label: str, segments: list[dict]) -> int:
+    """Word timings of a file's JSON segments: every word has start <= end,
+    starts are non-decreasing over the file, and each word lies in its
+    segment: inside it, except that the first word may start and the last
+    end up to EDGE_WORD_SLACK_S beyond the segment's edge. Returns the
+    number of words."""
+    words = [w for g in segments for w in g.get("words", [])]
+    check(bool(words) and all(w["start"] <= w["end"] for w in words)
+          and all(a["start"] <= b["start"] for a, b in zip(words, words[1:])),
+          f"offline {label}: words out of order")
+    for g in segments:
+        ws = g.get("words", [])
+        lo = [g["start"]] * len(ws)
+        hi = [g["end"]] * len(ws)
+        if ws:
+            lo[0] -= EDGE_WORD_SLACK_S
+            hi[-1] += EDGE_WORD_SLACK_S
+        check(all(a <= w["start"] and w["end"] <= b for w, a, b in zip(ws, lo, hi)),
+              f"offline {label}: a word outside its segment {g['start']}..{g['end']}: "
+              f"{[(w['start'], w['end']) for w in ws]}")
+    return len(words)
+
+
+def offline_options(**kw) -> TranscribeOptions:
+    """The options `cli.transcribe --no_gates --language en --max_new_tokens
+    48` builds."""
+    return TranscribeOptions(language="en", temperatures=(0.0,), log_prob_threshold=None,
+                             compression_ratio_threshold=None, no_speech_threshold=None,
+                             max_new_tokens=OFFLINE_MAX_NEW, **kw)
+
+
+def offline_window_launches(windows: list[dict]) -> list[dict]:
+    """Each seek window's launches must be K1 32 (the encode), and per decode
+    step K2 256, K3 1 and K4 32, plus the prefill's K2 256 and K3 2 (last and
+    <|sot|> logits) and, where the window has text, the alignment pass's
+    K2 256 and K3 1; no other kernel. Returns the per-window summary."""
+    out = []
+    for i, w in enumerate(windows):
+        d = w["launches"]
+        steps, rest = divmod(d["cross_attention_int8"], 32)
+        passes, k2_rest = divmod(d["int8_matmul"], 256)
+        aligns = passes - steps - 1
+        others = {k: v for k, v in d.items() if v and k not in WINDOW_PATH}
+        log(f"offline window {i} ({w['file']}): {w['seconds']:.6g} s, "
+            f"{steps} decode steps, {aligns} alignment passes, launches {d}")
+        check(d["fused_attention"] == 32, f"offline window {i}: K1 {d['fused_attention']}, "
+              "not 32")
+        check(rest == 0 and k2_rest == 0 and aligns in (0, 1)
+              and d["int8_matmul_t"] == steps + 2 + aligns and not others,
+              f"offline window {i}: launches {d} are not K2 256, K3 1, K4 32 a step")
+        out.append(dict(file=w["file"], seconds=w["seconds"], steps=steps,
+                        align_passes=aligns, launches=d))
+    return out
+
+
+def log_mel_full_f32(audio: np.ndarray, n_mels: int) -> np.ndarray:
+    """The plain version of log_mel_full in the reference's float32
+    arithmetic, on the CPU through torch.stft (the port takes the power and
+    the mel projection in float64): HOP_LENGTH zero samples appended, a
+    centered reflect-padded periodic-Hann STFT, the last frame dropped, the
+    max - 8 clamp over the whole clip."""
+    from whisperlive_tpu_torch.ops.mel import HOP_LENGTH, N_FFT, mel_filter_bank
+
+    x = torch.from_numpy(np.pad(np.asarray(audio, np.float32), (0, HOP_LENGTH)))
+    spec = torch.stft(x, N_FFT, HOP_LENGTH, window=torch.hann_window(N_FFT), center=True,
+                      pad_mode="reflect", return_complex=True)[:, :-1]
+    mel = torch.from_numpy(mel_filter_bank(n_mels=n_mels)).T @ spec.abs().square()
+    log_spec = torch.log10(mel.clamp(min=1e-10)).T.numpy()
+    log_spec = np.maximum(log_spec, log_spec.max() - 8.0)
+    return (log_spec + 4.0) / 4.0
+
+
+def offline_phase(engine: WhisperEngine) -> dict:
+    """Write the engine's source parameters as a sharded HF checkpoint,
+    convert it with the port's CLI, load both dirs bit-equal, then drive the
+    offline CLI (sequential, with word timestamps, and --batched) on two
+    WAVs and hold it against the in-memory engine; then the VAD filter,
+    language detection and log_mel_full on the card."""
+    import gc
+    import shutil
+    import tempfile
+
+    from whisperlive_tpu_torch import loader
+    from whisperlive_tpu_torch.audio import io as audio_io
+    from whisperlive_tpu_torch.audio.vad import VadOptions, get_speech_timestamps
+    from whisperlive_tpu_torch.cli import convert as convert_cli
+    from whisperlive_tpu_torch.cli import transcribe as transcribe_cli
+    from whisperlive_tpu_torch.engine import transcribe as tr
+    from whisperlive_tpu_torch.ops.mel import log_mel_full
+
+    cfg, dev = wmod.WHISPER_CONFIGS[MODEL], engine.device
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_offline_")
+    hf_dir, conv_dir = os.path.join(tmp, "hf"), os.path.join(tmp, "converted")
+    report: dict = {}
+    resolve_model, load_audio = loader.resolve_model, audio_io.load_audio
+    prepare_mel, prepare = WhisperEngine.prepare_mel, WhisperEngine.prepare
+    try:
+        # 1. the checkpoint round trip: the engine was built from this seed
+        src = wmod.init_params(cfg, SEED, torch.bfloat16, dev)
+        t0 = time.monotonic()
+        write_hf_checkpoint(src, cfg, hf_dir, n_shards=OFFLINE_SHARDS)
+        report["write_s"] = time.monotonic() - t0
+        t0 = time.monotonic()
+        convert_cli.main([hf_dir, "-o", conv_dir])
+        report["convert_s"] = time.monotonic() - t0
+        for label, path in (("hf", hf_dir), ("converted", conv_dir)):
+            t0 = time.monotonic()
+            _, tree, tok = loader.resolve_model(MODEL, path, device=dev)
+            report[f"load_{label}_s"] = time.monotonic() - t0
+            n = check_same_tree(f"checkpoint ({label} dir)", src, tree)
+            check(tok is None, f"{label} dir: a tokenizer without tokenizer.json")
+            del tree
+        gb = sum(os.path.getsize(os.path.join(d, f)) for d in (hf_dir, conv_dir)
+                 for f in os.listdir(d)) / 2 / 1e9
+        log(f"offline checkpoint: {n} leaves bit-equal through the HF dir ({OFFLINE_SHARDS} "
+            f"shards) and the converted dir, {gb:.6g} GB each; write {report['write_s']:.6g} s, "
+            f"convert {report['convert_s']:.6g} s, load {report['load_hf_s']:.6g} s (HF) and "
+            f"{report['load_converted_s']:.6g} s (converted)")
+        del src
+
+        # 2. the CLI on two WAVs against the in-memory engine; the CLI's
+        # engine gets the visible tokenizer (the repository has no BPE
+        # vocabulary, and the loader finds no tokenizer.json)
+        def visible(*args, **kw):
+            c, p, t = resolve_model(*args, **kw)
+            return c, p, t or VisibleTokenizer(TokenSpec(c.n_vocab, multilingual=True))
+
+        windows: list[dict] = []
+        current = {}
+
+        def close_window():
+            if windows and "seconds" not in windows[-1]:
+                w = windows[-1]
+                w["seconds"] = time.monotonic() - w["t0"]
+                w["launches"] = {k: v - w["before"][k] for k, v in _kernels.launches.items()}
+
+        def recorded_prepare_mel(self, melspec):
+            close_window()
+            windows.append(dict(file=current.get("file"), t0=time.monotonic(),
+                                before=dict(_kernels.launches)))
+            return prepare_mel(self, melspec)
+
+        wavs = []
+        for j, seconds in enumerate(OFFLINE_FILES_S):
+            path = os.path.join(tmp, f"speech{j}.wav")
+            audio_io.write_wav(path, speech_like(seconds, 80 + j))
+            wavs.append(path)
+        out_dir = os.path.join(tmp, "out")
+        argv = [*wavs, "--model", MODEL, "-tpu", conv_dir, "--no_gates", "--language", "en",
+                "--max_new_tokens", str(OFFLINE_MAX_NEW), "--word_timestamps", "-f", "json",
+                "-o", out_dir, "--device", str(dev)]
+
+        def traced_load(path, *a, **kw):
+            close_window()
+            current["file"] = os.path.basename(path)
+            return load_audio(path, *a, **kw)
+
+        loader.resolve_model = visible
+        WhisperEngine.prepare_mel = recorded_prepare_mel
+        audio_io.load_audio = traced_load
+        _kernels.reset_launches()
+        t0 = time.monotonic()
+        rc = transcribe_cli.main(argv)
+        report["cli_s"] = time.monotonic() - t0
+        close_window()
+        WhisperEngine.prepare_mel = prepare_mel
+        audio_io.load_audio = load_audio
+        check(rc == 0, f"offline CLI exit code {rc}")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        n_words = 0
+        for path, seconds in zip(wavs, OFFLINE_FILES_S):
+            stem = os.path.splitext(os.path.basename(path))[0]
+            with open(os.path.join(out_dir, f"{stem}.json")) as f:
+                got = json.load(f)
+            segs, info = tr.Transcriber(engine).transcribe(
+                load_audio(path), offline_options(word_timestamps=True))
+            want = [(s.text, s.start, s.end) for s in segs]
+            check([(g["text"], g["start"], g["end"]) for g in got["segments"]] == want,
+                  f"offline CLI on {stem}: segments differ from the in-memory engine's")
+            check(bool(want) and got["duration"] == info.duration,
+                  f"offline CLI on {stem}: no segments, or another duration")
+            for s, g in zip(segs, got["segments"]):
+                check([(w["word"], w["start"], w["end"]) for w in g.get("words", [])]
+                      == [(w.word, w.start, w.end) for w in s.words or []],
+                      f"offline CLI on {stem}: words differ from the in-memory engine's")
+            n_words += check_offline_words(stem, got["segments"])
+            log(f"offline CLI {stem} ({seconds:.6g} s): {len(want)} segments token-exact "
+                f"against the in-memory engine, {sum(len(s.words or []) for s in segs)} words")
+        per_window = offline_window_launches(windows)
+        steps = sum(w["steps"] for w in per_window)
+        report.update(
+            windows=len(per_window), words=n_words, decode_steps=steps,
+            windows_per_file=[sum(w["file"] == os.path.basename(p) for w in per_window)
+                              for p in wavs],
+            steps_per_window=[w["steps"] for w in per_window],
+            window_s=[w["seconds"] for w in per_window],
+            window_s_median=statistics.median(w["seconds"] for w in per_window),
+            launches_per_window=[w["launches"] for w in per_window])
+        log(f"offline CLI: {report['cli_s']:.6g} s for {sum(OFFLINE_FILES_S):.6g} s of audio "
+            f"in {len(per_window)} seek windows (engine load included), host time a window "
+            f"median {report['window_s_median']:.6g} s, {steps} decode steps")
+
+        # 3. --batched over the same files: one result each, held
+        # structurally (the batch pads to a bucket: other GEMM shapes)
+        batches = []
+
+        def recorded_prepare(self, audio):
+            batches.append(audio.shape[0])
+            return prepare(self, audio)
+
+        WhisperEngine.prepare = recorded_prepare
+        out_b = os.path.join(tmp, "batched")
+        argv_b = [a if a != out_dir else out_b for a in argv] + ["--batched"]
+        t0 = time.monotonic()
+        rc = transcribe_cli.main(argv_b)
+        report["batched_s"] = time.monotonic() - t0
+        WhisperEngine.prepare = prepare
+        check(rc == 0 and batches, f"offline --batched: exit code {rc}, {len(batches)} batches")
+        for path, seconds in zip(wavs, OFFLINE_FILES_S):
+            stem = os.path.splitext(os.path.basename(path))[0]
+            with open(os.path.join(out_b, f"{stem}.json")) as f:
+                segs = json.load(f)["segments"]
+            check(bool(segs) and all(a["start"] <= b["start"] for a, b in zip(segs, segs[1:]))
+                  and all(0 <= g["start"] <= g["end"] for g in segs)
+                  and segs[0]["start"] < seconds,
+                  f"offline --batched {stem}: segments out of order or outside the file")
+            check_offline_words(f"--batched {stem}", segs)
+            past = sum(g["end"] > seconds for g in segs)
+            log(f"offline --batched {stem}: {len(segs)} segments, {past} ending past the "
+                f"file's {seconds:.6g} s (random weights' timestamps)")
+        report["batches"] = batches
+        report["batch_s"] = report["batched_s"] / len(batches)
+        log(f"offline --batched: {report['batched_s']:.6g} s (engine load included), "
+            f"{len(batches)} batches {batches}, {report['batch_s']:.6g} s a batch")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # 4. the VAD filter and language detection on the in-memory engine
+        audio = np.concatenate([speech_like(8.0, 90), np.zeros(160000, np.float32),
+                                speech_like(8.0, 91)])
+        t0 = time.monotonic()
+        segs, _ = tr.Transcriber(engine).transcribe(audio, offline_options(),
+                                                    vad_filter=True)
+        report["vad_s"] = time.monotonic() - t0
+        chunks = get_speech_timestamps(audio, VadOptions())
+        gap = (chunks[0]["end"] / 16000, chunks[-1]["start"] / 16000)
+        check(len(chunks) >= 2 and bool(segs)
+              and not any(gap[0] < s.start < gap[1] for s in segs),
+              f"offline VAD: {len(chunks)} speech chunks, a segment starts in the gap {gap}")
+        t0 = time.monotonic()
+        lang, prob, probs = tr.Transcriber(engine).detect_language(
+            speech_like(45.0, 92), language_detection_segments=2)
+        report["detect_s"] = time.monotonic() - t0
+        total = sum(p for _, p in probs)
+        check(lang in engine.tokenizer.spec.language_codes and abs(total - 1.0) <= 1e-3,
+              f"offline language detection: {lang!r}, probabilities sum to {total}")
+        log(f"offline VAD: {len(segs)} segments, none in the removed gap {gap} s, "
+            f"{report['vad_s']:.6g} s; language detection over 2 windows: {lang} "
+            f"p={prob:.6g}, sum {total:.6g}, {report['detect_s']:.6g} s")
+
+        # 5. log_mel_full on the card against the CPU
+        clip = load_audio(wavs[0])
+        t0 = time.monotonic()
+        on_card = log_mel_full(clip, n_mels=cfg.n_mels, device=dev)
+        report["mel_s"] = time.monotonic() - t0
+        err = float(np.abs(on_card - log_mel_full(clip, n_mels=cfg.n_mels, device="cpu")).max())
+        check(err <= 1e-4, f"log_mel_full on the card: max abs err {err} > 1e-4")
+        err32 = float(np.abs(on_card - log_mel_full_f32(clip, cfg.n_mels)).max())
+        check(err32 <= 1e-4, f"log_mel_full on the card: max abs err {err32} > 1e-4 from the "
+              "float32 STFT on the CPU")
+        report["mel_max_abs_err"], report["mel_max_abs_err_f32"] = err, err32
+        log(f"offline log_mel_full [{on_card.shape[0]}, {on_card.shape[1]}] on the card: "
+            f"{report['mel_s']:.6g} s, max abs err vs the CPU {err:.6g}, vs the float32 "
+            f"STFT on the CPU {err32:.6g}")
+    finally:
+        loader.resolve_model = resolve_model
+        WhisperEngine.prepare_mel, WhisperEngine.prepare = prepare_mel, prepare
+        audio_io.load_audio = load_audio
+        shutil.rmtree(tmp, ignore_errors=True)
+    return report
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: output against the plain versions
 # ---------------------------------------------------------------------------
 
 
@@ -1964,6 +2396,52 @@ def window_reference(engine: WhisperEngine, steps: int = 4, rel_tol: float = 5e-
           "encoder states disagree with the plain path")
     for i, (a, b) in enumerate(zip(logits_k, logits_r)):
         compare_logits(f"window logits step {i}", a, b, rel_tol, (2, cfg.n_vocab))
+
+
+def offline_reference(engine: WhisperEngine, steps: int = 4, rel_tol: float = 5e-2) -> None:
+    """A seek window of the offline path (B = 1) on the kernel path against
+    the plain path: prepare_mel of a log_mel_full window, then teacher-forced
+    logits of the prefill at both ends of the prompt buckets (the first
+    window's [1, 16]; [1, 256] for a window with the most previous text)
+    and of `steps` decode steps after each: K2 at M = 16, 256 and 1."""
+    from whisperlive_tpu_torch.ops.mel import log_mel_full, pad_or_trim_frames
+
+    cfg, dev = engine.cfg, engine.device
+    mel = pad_or_trim_frames(log_mel_full(speech_like(20.0, 5), n_mels=cfg.n_mels,
+                                          device=dev))[None]
+    opts = offline_options()
+    previous = np.random.default_rng(7).integers(0, engine.spec.eot, cfg.n_text_ctx)
+    for prev in ((), previous.tolist()):
+        prompt, _ = engine.build_prompt(opts, prev, context_preseeded=True)
+        arr, lens = engine._pad_prompts([prompt])
+        pad = arr.shape[1]
+
+        def run(tokens=None):
+            with torch.inference_mode():
+                enc, cross = engine.prepare_mel(mel)
+                prompts, plen = engine._tensor(arr), engine._tensor(lens)
+                self_kv = wmod.init_self_kv(cfg, 1, pad + steps, device=dev)
+                logits = [wmod.decode_prefill(engine.params, cfg, prompts, plen, self_kv, cross)]
+                forced = tokens if tokens is not None else []
+                for i in range(steps):  # greedy on the kernel path, forced on both
+                    if tokens is None:
+                        forced.append(logits[-1].argmax(-1).to(torch.int32))
+                    logits.append(wmod.decode_step(engine.params, cfg, forced[i], plen + i,
+                                                   pad + i, plen, pad, self_kv, cross))
+                return enc, logits, forced
+
+        enc_k, logits_k, tokens = run()
+        enc_r, logits_r, _ = plain_run(lambda: run(tokens))
+        err = (enc_k.float() - enc_r.float()).abs().max().item()
+        scale = enc_r.float().abs().max().item()
+        log(f"reference: offline window, prompt [1, {pad}] ({len(prompt)} tokens): encoder "
+            f"states max_abs_err={err:.6g} tol={rel_tol * scale:.6g}")
+        check(enc_k.shape == (1, cfg.n_audio_ctx, cfg.n_audio_state)
+              and bool(torch.isfinite(enc_k.float()).all()) and err <= rel_tol * scale,
+              "offline window: encoder states disagree with the plain path")
+        for i, (a, b) in enumerate(zip(logits_k, logits_r)):
+            compare_logits(f"offline window [1, {pad}] logits step {i}", a, b, rel_tol,
+                           (1, cfg.n_vocab))
 
 
 def beam_reference(engine: WhisperEngine, steps: int = 4, rel_tol: float = 5e-2) -> None:
@@ -2361,7 +2839,9 @@ def main() -> int:
         "hybrid_beam": hybrid_phase(engine),
         "word_timestamps": word_ts_phase(engine),
     }
+    offline = offline_phase(engine)
     window_reference(engine)
+    offline_reference(engine)
     beam_reference(engine)
     beam_pool_reference(engine)
     continuous_reference(engine)
@@ -2382,6 +2862,7 @@ def main() -> int:
                for name, (src, replaces) in KERNELS.items()]
     log(f"chip_smoke total: {time.monotonic() - t_start:.6g} s")
     print(json.dumps({"encoder_forward": encoder}))
+    print(json.dumps({"offline": offline}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

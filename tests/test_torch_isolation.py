@@ -2,8 +2,10 @@
 chip_smoke.py or kernel_variants.py, imports jax or any module of the JAX package.
 
 A subprocess installs a meta-path finder that refuses `jax`, `jaxlib` and
-every `whisperlive_tpu.` module, then imports every module of the port,
-chip_smoke.py and kernel_variants.py. The host modules the port keeps its own copies of
+every `whisperlive_tpu.` module, and the packages the card's machine lacks
+(`safetensors`, `orbax`, `tokenizers`: the checkpoint reader is the port's
+own, and `tokenizers` is reached only for a checkpoint's tokenizer.json),
+then imports every module of the port, chip_smoke.py and kernel_variants.py. The host modules the port keeps its own copies of
 (tokenizer, session, VAD, word alignment) are also held against the
 originals on a few inputs; the alignment copy exactly, on random inputs.
 """
@@ -33,10 +35,12 @@ _PROBE = textwrap.dedent(
     """
     import importlib, importlib.abc, pkgutil, sys
 
+    REFUSED = ("jax", "jaxlib", "whisperlive_tpu", "safetensors", "orbax", "tokenizers")
+
     class Refuse(importlib.abc.MetaPathFinder):
         def find_spec(self, name, path=None, target=None):
             top = name.split(".")[0]
-            if top in ("jax", "jaxlib", "whisperlive_tpu"):
+            if top in REFUSED:
                 raise ImportError(f"the port must not import {name}")
             return None
 
@@ -51,7 +55,7 @@ _PROBE = textwrap.dedent(
         importlib.import_module(name)
     importlib.import_module("chip_smoke")
     importlib.import_module("kernel_variants")
-    bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "whisperlive_tpu"))
+    bad = sorted(m for m in sys.modules if m.split(".")[0] in REFUSED)
     assert not bad, bad
     print("IMPORTED", len(names))
     """

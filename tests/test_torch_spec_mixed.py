@@ -187,5 +187,6 @@ def test_cli_builds_the_speculative_routes():
         assert backend.continuous_scheduler.cb.spec_k == 4 and backend.spec_scheduler is None
     finally:
         stop_backend(backend)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md open item 11"):
+    # --draft_path loads the draft's checkpoint dir: a missing one fails at startup
+    with pytest.raises(FileNotFoundError, match="/nonexistent"):
         create_backend(build_parser().parse_args(base + ["--draft_path", "/nonexistent"]))

@@ -2,16 +2,17 @@
 
     python -m whisperlive_tpu_torch.cli.run_server --model large-v3 --port 9090
 
-Builds random weights from --seed (the repository holds no checkpoint;
-loading converted checkpoints is ROADMAP.md open item 11), a WhisperEngine
-on --device (CUDA by default; a missing card is an error), the window
-BatchScheduler and, by default, the continuous slot scheduler, warms both
-up, and serves through the port's TranscriptionServer with a TorchBackend.
+Loads the checkpoint dir given by -tpu, -fw or -trt (an HF or converted
+dir; the first non-empty wins) or, without one, builds random weights from
+--seed; then a WhisperEngine on --device (CUDA by default; a missing card
+is an error), the window BatchScheduler and, by default, the continuous
+slot scheduler, warms both up, and serves through the port's
+TranscriptionServer with a TorchBackend.
 Port of whisperlive_tpu/cli/run_server.py without multi-host serving;
 --no_continuous_batching serves the window path alone. The reference's
-WhisperLive parity flags (--backend, -fw, -trt, --trt_multilingual,
---trt_py_session, --no_single_model, --batch_inference) and
---compilation_cache are accepted and change nothing here.
+WhisperLive parity flags (--backend, --trt_multilingual, --trt_py_session,
+--no_single_model, --batch_inference), --cache_path and --compilation_cache
+are accepted and change nothing here.
 
 Beam search (the reference transcriber decodes at beam 5):
 
@@ -21,7 +22,8 @@ Beam search (the reference transcriber decodes at beam 5):
                                       beamed full re-decodes on the window
                                       scheduler in preemptible segments
 
-Speculative decoding, with a random draft from --seed + 1:
+Speculative decoding, with a draft loaded from --draft_path or random from
+--seed + 1:
 
     --draft_model distil-large-v3                  lone greedy window requests
     ... --continuous_spec                          every continuous chunk is
@@ -51,12 +53,12 @@ def build_parser() -> argparse.ArgumentParser:
                         choices=["tpu", "faster_whisper", "tensorrt", "openvino"],
                         help="Backend name (accepted for parity: every value serves the "
                              "PyTorch engine).")
+    parser.add_argument("--tpu_model_path", "-tpu", type=str, default=None,
+                        help="Path to a converted checkpoint dir or HF checkpoint dir.")
     parser.add_argument("--faster_whisper_custom_model_path", "-fw", type=str, default=None,
-                        help="(accepted for parity; ignored: checkpoint loading is not "
-                             "ported, ROADMAP.md open item 11)")
+                        help="(accepted for parity; treated as checkpoint dir)")
     parser.add_argument("--trt_model_path", "-trt", type=str, default=None,
-                        help="(accepted for parity; ignored: checkpoint loading is not "
-                             "ported, ROADMAP.md open item 11)")
+                        help="(accepted for parity; treated as checkpoint dir)")
     parser.add_argument("--trt_multilingual", action="store_true",
                         help="(parity no-op; multilingual-ness comes from the model)")
     parser.add_argument("--trt_py_session", action="store_true", help="(parity no-op)")
@@ -77,7 +79,8 @@ def build_parser() -> argparse.ArgumentParser:
                              "no XLA compilation to cache)")
     parser.add_argument("--model", "-m", type=str, default="small",
                         choices=sorted(WHISPER_CONFIGS),
-                        help="Whisper model size (random weights from --seed).")
+                        help="Whisper model size (random weights from --seed) when no "
+                             "checkpoint dir is given.")
     parser.add_argument("--seed", type=int, default=0,
                         help="Seed of the random weights.")
     parser.add_argument("--device", type=str, default="cuda",
@@ -103,6 +106,9 @@ def build_parser() -> argparse.ArgumentParser:
                         help="Maximum concurrent client connections.")
     parser.add_argument("--max_connection_time", type=int, default=600,
                         help="Per-client connection time budget in seconds.")
+    parser.add_argument("--cache_path", "-c", type=str, default="~/.cache/whisper-live-tpu/",
+                        help="Converted-checkpoint cache directory (accepted for parity; "
+                             "checkpoints are read from -tpu/-fw/-trt).")
     parser.add_argument("--beam_size", type=int, default=1,
                         help="Beam width for streaming decodes (1 = greedy; the reference's "
                              "transcriber defaults to 5; wider beams shrink the effective "
@@ -119,15 +125,16 @@ def build_parser() -> argparse.ArgumentParser:
                              "the target's encoder geometry and vocabulary; random weights "
                              "from --seed + 1).")
     parser.add_argument("--draft_path", type=str, default=None,
-                        help="Converted checkpoint directory of the draft (not ported: "
-                             "ROADMAP.md open item 11).")
+                        help="Checkpoint dir (HF or converted) of the draft; its size is "
+                             "--draft_model's, distil-large-v3 by default.")
     parser.add_argument("--spec_k", type=int, default=4,
                         help="Speculation depth (draft tokens per verify pass).")
     parser.add_argument("--continuous_spec", action="store_true",
                         help="Speculative continuous batching: every lockstep chunk is a "
                              "sequence of verify rounds (the draft proposes spec_k tokens "
                              "per slot, the target verifies them in one windowed pass). "
-                             "Needs --draft_model; at low acceptance each slot's ring "
+                             "Needs a draft (--draft_model or --draft_path); at low "
+                             "acceptance each slot's ring "
                              "budget shrinks toward ring/(spec_k+2) tokens per window.")
     parser.add_argument("--continuous_spec_mode", choices=("all", "mixed"), default="all",
                         help="With --continuous_spec: 'all' attaches the draft to the main "
@@ -164,35 +171,27 @@ def create_backend(args):
     """Engine, started schedulers and backend from the CLI flags."""
     import torch
 
-    from whisperlive_tpu_torch.device import default_compute_dtype, resolve_device
-    from whisperlive_tpu_torch.engine.engine import WhisperEngine
+    from whisperlive_tpu_torch.device import resolve_device
     from whisperlive_tpu_torch.engine.scheduler import BatchScheduler
-    from whisperlive_tpu_torch.models.whisper import init_params
+    from whisperlive_tpu_torch.loader import load_engine
     from whisperlive_tpu_torch.serving.backends import (
         TorchBackend,
         transcribe_options_from_session,
     )
     from whisperlive_tpu_torch.serving.session import SessionOptions
 
-    if args.draft_path:
-        raise NotImplementedError(
-            "--draft_path (checkpoint loading) is not ported yet: ROADMAP.md open item 11"
-        )
-    for flag in ("faster_whisper_custom_model_path", "trt_model_path"):
-        if getattr(args, flag):
-            logging.warning("--%s ignored: checkpoint loading is not ported (ROADMAP.md open "
-                            "item 11); serving random weights from --seed", flag)
     device = resolve_device(args.device)
     dtype = ({"bfloat16": torch.bfloat16, "float32": torch.float32}[args.compute_dtype]
-             if args.compute_dtype else default_compute_dtype(device))
+             if args.compute_dtype else None)
+    ckpt = args.tpu_model_path or args.faster_whisper_custom_model_path or args.trt_model_path
+    has_draft = bool(args.draft_model or args.draft_path)
 
-    def build_engine(name: str, seed: int) -> WhisperEngine:
-        cfg = WHISPER_CONFIGS[name]
-        return WhisperEngine(cfg, init_params(cfg, seed, dtype, device), device=device,
-                             compute_dtype=dtype)
+    def build_draft():
+        return load_engine(args.draft_model or "distil-large-v3", args.draft_path, device,
+                           dtype, seed=args.seed + 1)
 
     hybrid_beam = args.beam_size > 1 and args.beam_mode == "refresh"
-    engine = build_engine(args.model, args.seed)
+    engine = load_engine(args.model, ckpt, device, dtype, seed=args.seed)
     if not args.no_warmup:
         if hybrid_beam:
             # beamed fulls run in preemptible segments; enable them first
@@ -202,28 +201,30 @@ def create_backend(args):
             options=transcribe_options_from_session(SessionOptions(), beam_size=args.beam_size),
         )
     draft = spec_decoder = None
-    if args.draft_model and args.beam_size > 1 and not hybrid_beam:
+    if has_draft and args.beam_size > 1 and not hybrid_beam:
         # every window request carries the beam, and the speculative route
         # serves greedy requests only
         logging.warning("--draft_model is ignored with --beam_size %d --beam_mode full: the "
                         "speculative route serves greedy requests only", args.beam_size)
-    elif args.draft_model and hybrid_beam:
+    elif has_draft and hybrid_beam:
         # the greedy partials on the continuous pool can take the draft
         # (--continuous_spec); window requests carry the beam, so no
         # SpeculativeDecoder
-        draft = build_engine(args.draft_model, args.seed + 1)
-    elif args.draft_model:
+        draft = build_draft()
+        warn_draft_ctx(args, for_continuous=True)
+    elif has_draft:
         from whisperlive_tpu_torch.engine.speculative import SpeculativeDecoder
 
-        draft = build_engine(args.draft_model, args.seed + 1)
+        draft = build_draft()
+        warn_draft_ctx(args, for_continuous=args.continuous_spec)
         spec_decoder = SpeculativeDecoder(engine, draft, k=args.spec_k)
         if not args.no_warmup:
             spec_decoder.warmup(options=transcribe_options_from_session(SessionOptions()))
         logging.info("speculative serving: draft=%s k=%d (lone greedy window requests)",
-                     args.draft_model, args.spec_k)
+                     args.draft_path or args.draft_model or "distil-large-v3", args.spec_k)
     if args.continuous_spec and draft is None:
-        logging.warning("--continuous_spec ignored: no draft (give --draft_model with "
-                        "--beam_size 1 or --beam_mode refresh)")
+        logging.warning("--continuous_spec ignored: no draft (give --draft_model or "
+                        "--draft_path with --beam_size 1 or --beam_mode refresh)")
     scheduler = BatchScheduler(
         engine, max_batch_size=args.batch_max_size, batch_window_ms=args.batch_window_ms,
         spec_decoder=spec_decoder,
@@ -267,9 +268,35 @@ def create_backend(args):
     if args.beam_size > 1 and args.batch_max_size * args.beam_size > 16:
         logging.warning("batch_max_size*beam_size=%d may exceed device memory; consider "
                         "lowering --batch_max_size", args.batch_max_size * args.beam_size)
-    return TorchBackend(scheduler, model_name=args.model, continuous_scheduler=continuous,
+    return TorchBackend(scheduler, model_name=ckpt or args.model,
+                        continuous_scheduler=continuous,
                         spec_scheduler=spec_pool, beam_size=args.beam_size,
                         beam_mode=args.beam_mode)
+
+
+def warn_draft_ctx(args, for_continuous: bool) -> None:
+    """A draft only matches its target at the encoder context it was
+    distilled at: continuous streaming encodes short tails at 512 positions,
+    window serving at the full context. Warn when the deployment does not
+    match the checkpoint's recorded distill_enc_ctx, and refuse a
+    --continuous_spec pool at the default cross context, which would serve
+    at ~0 acceptance."""
+    from whisperlive_tpu_torch.loader import draft_distill_ctx
+
+    d_ctx = draft_distill_ctx(args.draft_path)
+    if not d_ctx:
+        return
+    if for_continuous and d_ctx != 512:
+        msg = (f"draft distilled at enc_ctx={d_ctx} but --continuous_spec verifies at "
+               "512-position tail encodes: acceptance will collapse; distill with "
+               "--enc_ctx 512")
+        if args.continuous_spec and args.continuous_cross_ctx is None:
+            raise SystemExit(msg)
+        logging.warning("%s", msg)
+    if not for_continuous and d_ctx != 1500:
+        logging.warning("draft distilled at enc_ctx=%d but window speculation verifies at "
+                        "the full 1500-position encode: acceptance will collapse; distill "
+                        "with --enc_ctx 0 (full)", d_ctx)
 
 
 def stop_backend(backend) -> None:

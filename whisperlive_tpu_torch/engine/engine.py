@@ -4,7 +4,8 @@ Port of whisperlive_tpu/engine/engine.py for the server's window-scheduler
 path:
 
   prepare(audio)      log-mel -> encoder (K1) -> cross-attention KV
-                      (-> packed int8 or int4 with per-channel scales)
+                      (-> packed int8 or int4 with per-channel scales);
+                      prepare_mel the same from a seek window's features
   transcribe_batch    fused language ID + prompt splice + prefill + greedy
                       or temperature sampling loop (K2, K3, and K4 or
                       K7 per step), or beam search at T = 0
@@ -293,7 +294,9 @@ class WhisperEngine:
     def _prepare(self, audio: torch.Tensor):
         if audio.dtype == torch.int16:
             audio = audio.float() * (1.0 / 32767.0)
-        melspec = mel_ops.log_mel_spectrogram(audio, n_mels=self.cfg.n_mels)
+        return self._prepare_mel(mel_ops.log_mel_spectrogram(audio, n_mels=self.cfg.n_mels))
+
+    def _prepare_mel(self, melspec: torch.Tensor):
         enc = wmod.encode(self.params, self.cfg, melspec)
         return enc, self.quantize_cross(wmod.compute_cross_kv(self.params, self.cfg, enc))
 
@@ -555,19 +558,26 @@ class WhisperEngine:
         options: TranscribeOptions,
         previous_tokens: Sequence[int] = (),
         language: str | None = None,
+        context_preseeded: bool = False,
     ) -> tuple[list[int], int]:
         """[<|sot_prev|> prev...] + sot-sequence + prefix tokens. Returns
-        (prompt_tokens, sot_index); the serving policy of the JAX engine
-        (initial_prompt on every window, previous text gated by
-        condition_on_previous_text)."""
+        (prompt_tokens, sot_index). The serving default is the JAX engine's
+        policy: initial_prompt on every window, previous text gated by
+        condition_on_previous_text. context_preseeded=True is the offline
+        seek loop's contract: it seeds initial_prompt into its rolling
+        context itself and conditions through prompt_reset_since, so
+        previous_tokens ride ungated and initial_prompt is not re-added."""
         tok = self.tokenizer
         prev: list[int] = []
         if options.hotwords and not options.prefix:
             prev += tok.encode(" " + options.hotwords.strip())
-        if options.initial_prompt:
-            prev += tok.encode(" " + options.initial_prompt.strip())
-        if previous_tokens and options.condition_on_previous_text:
+        if context_preseeded:
             prev += list(previous_tokens)
+        else:
+            if options.initial_prompt:
+                prev += tok.encode(" " + options.initial_prompt.strip())
+            if previous_tokens and options.condition_on_previous_text:
+                prev += list(previous_tokens)
         prev = prev[-(self.cfg.n_text_ctx // 2 - 1):]
 
         lang = language or options.language
@@ -678,6 +688,13 @@ class WhisperEngine:
             audio = audio.astype(np.float32, copy=False)
         with self._lock:
             return self._prepare(self._tensor(audio))
+
+    @torch.inference_mode()
+    def prepare_mel(self, melspec: np.ndarray):
+        """melspec [B, N_FRAMES, n_mels] log-mel features (a seek window of
+        ops/mel.log_mel_full) -> (enc, cross_kv) on the engine's device."""
+        with self._lock:
+            return self._prepare_mel(self._tensor(np.asarray(melspec, np.float32)))
 
     def detect_language_from_cross(self, cross_kv: dict) -> list[tuple[str, float]]:
         codes = self.tokenizer.spec.language_codes
