@@ -1,5 +1,5 @@
-"""Drive the PyTorch port's serving paths and its offline file path once on
-one CUDA card.
+"""Drive the PyTorch port's serving paths, its offline file path and its
+training and distillation path once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -37,7 +37,8 @@ a result):
    [B,20,1500,128] for the window buckets B = 1, 2, 4 and at B = 4 with
    lengths [1500,700,1,0], and at the beam routes' 10 rows: [10,20,64] x
    [10,20,1500,128] (the window route) and x [10,20,640,128] with lengths
-   5 x 512 and 5 x 640 (the beam pool); K5 at [8,20,64] x [8,20,640,128] with mixed
+   5 x 512 and 5 x 640 (the beam pool), and at the distiller's
+   pseudo-labelling batch [8,20,64] x [8,20,512,128]; K5 at [8,20,64] x [8,20,640,128] with mixed
    lengths, half the rows active, an active row of length 0, lengths on
    and past the chunk boundaries of its split over T, and 8/8, 4/8 and
    1/8 rows active. The speculative verify's kernels at k=4 (a window of 5
@@ -137,15 +138,46 @@ a result):
    to ties within twice the measured error. One speculative greedy decode
    is held against the plain greedy decode of the same window: the tokens
    must be equal up to a tie within twice the verify's measured error.
+   The distiller's pseudo-labelling shapes are held the same way: a batch
+   of 8 clips encoded at 512 positions (cli.distill.encode_at), its int8
+   cross-KV, and the teacher-forced logits of the prefill and 4 steps (K4
+   at kvp [8, 20, 512, 128], which phase 3 also checks alone).
+10. Training and draft distillation at large-v3 full width. (b) The
+   distiller CLI (cli.distill.main, --layers 2 --enc_ctx 512 --seq 48
+   --batch 4, a pool of 48 synthetic clips, 200 KD steps) on the seed's
+   random teacher, which is the serving engine's: the pseudo-labelling
+   launches K1-K4, the precompute K1 alone, the KD steps no kernel; the
+   KD loss falls (the mean of the last 10 steps below the first 10's), the
+   held-out teacher-forced agreement rises, and the written dir loads
+   through loader.load_engine with distill_enc_ctx 512. Each stage's time
+   and both agreements are printed. (c) That draft in place of the random
+   one on phase 6's `all` pool (k = 4, 8 slots, encoder bucket 512), which
+   must launch K5 and K5's window form: its acceptance, committed tokens
+   per window round (a harvested window's tokens over the verify rounds it
+   took part in) and device time per pool verify round (torch.profiler), beside
+   phase 6's random-draft figures; no threshold on acceptance. (a) With
+   the engines freed, make_train_step from the seed's random tree upcast
+   to float32 master weights, bf16 compute: 3 steps (warmup 1) of B = 2
+   mel [2,3000,128] from speech-like audio with 48 token rows. The losses
+   are finite, the parameters unchanged after step 1 (lr 0) and every leaf
+   moved after step 2, K1 never launched (the training encoder's attention
+   is plain: K1 has no backward), and K1 called on CUDA inputs that
+   require grad raises without launching; a save_checkpoint /
+   load_checkpoint round trip is bit-equal (read back on the host), and
+   one more step from the saved state and from the state load_checkpoint
+   restores onto the card gives the same loss (within 1e-5). The step times,
+   torch.cuda.max_memory_allocated and the checkpoint's size and times
+   are printed, and all of phase 10 as {"training": ...}.
 
 The line before the last is {"kernels": [...]}, after {"encoder_forward":
-[...]} and {"offline": {...}}; the last line is
+[...]}, {"offline": {...}} and {"training": {...}}; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
 from __future__ import annotations
 
 import asyncio
+import gc
 import json
 import os
 import re
@@ -683,7 +715,9 @@ def k4_phase(randn, int8, dev, h: int, hd: int, t_enc: int) -> dict:
     full context, and at B = 4 with lengths [T, 700, 1, 0]; the beam
     routes' B*K = 10 rows: the window route's over the full context, the
     2 x 5-lane pool's over its 640 positions with the slots' lengths 512
-    and 640 (the pool passes no active rows); each timed warm
+    and 640 (the pool passes no active rows); the distiller's
+    pseudo-labelling, B = 8 over its DISTILL_CTX encoder positions; each
+    timed warm
     (the same K/V call after call) and cold (cross_cold). f32 output;
     a probability that rounds to the other bf16 neighbour moves the output
     by ~2^-9 of it: 1e-3 of each row's max|ref|. The entry reports B = 4
@@ -692,7 +726,8 @@ def k4_phase(randn, int8, dev, h: int, hd: int, t_enc: int) -> dict:
     bk = BEAM_BATCH * BEAM
     for b, t, lens in ((1, t_enc, None), (2, t_enc, None), (BATCH, t_enc, None),
                        (BATCH, t_enc, [t_enc, 700, 1, 0]), (bk, t_enc, None),
-                       (bk, K5_T, [512] * BEAM + [K5_T] * BEAM)):
+                       (bk, K5_T, [512] * BEAM + [K5_T] * BEAM),
+                       (DISTILL_BATCH, DISTILL_CTX, None)):
         q, kvp = randn(b, h, hd, scale=0.05), int8(b, h, t, 2 * hd)
         ln = None if lens is None else torch.tensor(lens, dtype=torch.int32, device=dev)
         label = (f"q [{b},{h},{hd}] kvp [{b},{h},{t},{2 * hd}]"
@@ -712,7 +747,7 @@ def k4_phase(randn, int8, dev, h: int, hd: int, t_enc: int) -> dict:
     log("cross_attention_int8 warm / cold (us): " + ", ".join(
         f"{w['shape']} {w['ms'] * 1e3:.6g} / {c['ms'] * 1e3:.6g}" for w, c in zip(warm, cold)))
     return dict(warm[2], max_abs_err=max(r["max_abs_err"] for r in warm), library_ms=None,
-                other_shapes=[warm[0], warm[1], warm[3], warm[4], warm[5]], cold=cold)
+                other_shapes=[warm[0], warm[1], *warm[3:]], cold=cold)
 
 
 def k5_phase(randn, int8, dev, h: int, hd: int) -> dict:
@@ -1294,7 +1329,8 @@ def profile_pool(label: str, cb, chunks: int, unit: str, named: dict) -> None:
     and the device time per unit of the five largest CUDA kernels by name
     and of the kernels `named` ({label: name pattern}), each beside its
     share of the device time. A profiler that records no CUDA event is
-    reported as not measured."""
+    reported as not measured. Returns the device ms per unit, or None when
+    not measured."""
     cb.init_state()
     prompt, sot = cb.eng.build_prompt(
         backends_mod.transcribe_options_from_session(SessionOptions(language="en")),
@@ -1322,6 +1358,7 @@ def profile_pool(label: str, cb, chunks: int, unit: str, named: dict) -> None:
             log(f"{label} kernel ({name}): {e.self_device_time_total / n:.6g} us per {unit} "
                 f"(share {e.self_device_time_total / max(total, 1e-9):.6g}) in "
                 f"{e.count / n:.6g} launches: {e.key[:160]}")
+    return total / 1e3 / n if on_card else None
 
 
 # ---------------------------------------------------------------------------
@@ -1441,16 +1478,24 @@ def spec_pool(engine: WhisperEngine, draft: WhisperEngine, n_slots: int,
 
 
 def log_spec_pool(label: str, cs: ContinuousScheduler, launches: dict, n_layer: int,
-                  verify: str) -> None:
+                  verify: str) -> dict:
     """Acceptance and committed tokens per round of a speculative pool; its
-    verify kernel launches once per target layer per round."""
+    verify kernel launches once per target layer per round. Returns them:
+    `pool_rounds` counts the pool's verify rounds (every slot at once),
+    `window_rounds` the rounds each harvested window took part in, summed
+    over the windows, and `committed_per_window_round` is one window's
+    committed tokens per round it took part in (at most k + 1)."""
     rounds = cs.cb.gstep // (SPEC_K + 2)
     ss = cs.spec_stats
-    log(f"{label}: {rounds} verify rounds ({cs.tick_stats['ticks']} chunks, "
+    figures = {"pool_rounds": rounds, "window_rounds": ss["rounds"],
+               "acceptance": cs.acceptance_rate(),
+               "committed_per_window_round": ss["committed"] / max(ss["rounds"], 1)}
+    log(f"{label}: {rounds} pool verify rounds ({cs.tick_stats['ticks']} chunks, "
         f"{cs.tick_stats['step_s'] / max(rounds, 1) * 1e3:.6g} ms per round on the host clock, "
         f"chunk dispatch + status copy over rounds), harvested "
-        f"{ss['windows']} windows of {ss['rounds']} rounds committing {ss['committed']} tokens: "
-        f"committed tokens per round {ss['committed'] / max(ss['rounds'], 1):.6g}, acceptance "
+        f"{ss['windows']} windows of {ss['rounds']} window rounds committing {ss['committed']} "
+        f"tokens: committed tokens per window round "
+        f"{ss['committed'] / max(ss['rounds'], 1):.6g}, acceptance "
         f"{cs.acceptance_rate():.6g} (EMA {cs.acceptance_ema:.6g})")
     check(ss["windows"] > 0, f"{label}: no window was harvested")
     check(rounds > 0 and launches[verify] == rounds * n_layer,
@@ -1458,11 +1503,15 @@ def log_spec_pool(label: str, cs: ContinuousScheduler, launches: dict, n_layer: 
     state_devices = set()
     wmod.tree_map(lambda t: state_devices.add(t.device.type), cs.cb.state)
     check(state_devices == {"cuda"}, f"{label}: slot state on {state_devices}, not the card")
+    return figures
 
 
-def spec_continuous_phase(engine: WhisperEngine, draft: WhisperEngine) -> dict:
+def spec_continuous_phase(engine: WhisperEngine, draft: WhisperEngine,
+                          label: str = "continuous spec pool (all)") -> dict:
     """--continuous_spec (mode all): every chunk of the main pool is verify
-    rounds (K5 in the draft steps, K5's window form in the verify)."""
+    rounds (K5 in the draft steps, K5's window form in the verify).
+    Returns the launches, the pool's acceptance and committed tokens per
+    round, and the device ms per verify round (torch.profiler)."""
     cs = spec_pool(engine, draft, CONT_SLOTS, 4)
     window = BatchScheduler(engine, max_batch_size=BATCH, batch_window_ms=50)
     window.start()
@@ -1480,19 +1529,20 @@ def spec_continuous_phase(engine: WhisperEngine, draft: WhisperEngine) -> dict:
         window.stop()
     launches = dict(_kernels.launches)
     check_calls(backend, [s["uid"] for s in sessions], len(sessions))
-    log(f"continuous spec (all) sessions: {wall:.6g} s wall, {len(backend.calls)} backend calls")
-    log_spec_pool("continuous spec pool (all)", cs, launches, engine.cfg.n_text_layer,
-                  "cross_attention_int8_skip_window")
-    check_path("continuous spec route (all)", launches, SPEC_ALL_PATH)
+    log(f"{label} sessions: {wall:.6g} s wall, {len(backend.calls)} backend calls")
+    figures = log_spec_pool(label, cs, launches, engine.cfg.n_text_layer,
+                            "cross_attention_int8_skip_window")
+    check_path(label, launches, SPEC_ALL_PATH)
     check_sockets(sockets)
     # two verify rounds: a pool of the same shape at one round a chunk
     profiled = ContinuousEngine(engine, n_slots=CONT_SLOTS, prompt_pad=cs.cb.prompt_pad,
                                 ring=SPEC_RING, steps_per_chunk=1, cross_ctx=640,
                                 enc_buckets=(512, 1500), draft_engine=draft, spec_k=SPEC_K)
-    profile_pool("continuous spec pool (all)", profiled, 2, "verify round",
-                 {"K5's window form": cross_kernel("Int8Packed", SPEC_K + 1),
-                  "K5 in the draft steps": cross_kernel("Int8Packed", 1)})
-    return launches
+    figures["device_ms_per_round"] = profile_pool(
+        label, profiled, 2, "verify round",
+        {"K5's window form": cross_kernel("Int8Packed", SPEC_K + 1),
+         "K5 in the draft steps": cross_kernel("Int8Packed", 1)})
+    return {"launches": launches, **figures}
 
 
 def mixed_phase(engine4: WhisperEngine, draft4: WhisperEngine) -> dict:
@@ -2000,16 +2050,14 @@ def write_hf_checkpoint(params: dict, cfg: wmod.WhisperConfig, path: str,
 def check_same_tree(label: str, src: dict, loaded: dict) -> int:
     """Every leaf of `loaded` bit-equal to `src`'s at the same path, in the
     same dtype and shape. Returns the number of leaves."""
-    def leaves(tree, path=()):
-        for k, v in tree.items():
-            yield from leaves(v, path + (k,)) if isinstance(v, dict) else [(path + (k,), v)]
+    from whisperlive_tpu_torch.models.safetensors_io import flatten_tree
 
-    a, b = dict(leaves(src)), dict(leaves(loaded))
+    a, b = flatten_tree(src), flatten_tree(loaded)
     check(a.keys() == b.keys(), f"{label}: leaves {sorted(set(a) ^ set(b))} differ")
     for path, x in a.items():
         y = b[path]
         check(x.dtype == y.dtype and x.shape == y.shape and torch.equal(x, y.to(x.device)),
-              f"{label}: leaf {'/'.join(path)} differs")
+              f"{label}: leaf {path} differs")
     return len(a)
 
 
@@ -2398,6 +2446,56 @@ def window_reference(engine: WhisperEngine, steps: int = 4, rel_tol: float = 5e-
         compare_logits(f"window logits step {i}", a, b, rel_tol, (2, cfg.n_vocab))
 
 
+def distill_reference(engine: WhisperEngine, steps: int = 4, rel_tol: float = 5e-2) -> None:
+    """The distiller's pseudo-labelling shapes on the kernel path against
+    the plain path: a batch of DISTILL_BATCH clips encoded at DISTILL_CTX
+    positions through cli.distill.encode_at (K1 at T = 512), its int8
+    cross-KV, and teacher-forced logits of the prefill and `steps` greedy
+    steps (K2, K3, and K4 at kvp [8, H, 512, 128])."""
+    from whisperlive_tpu_torch.cli.distill import encode_at
+
+    cfg, dev = engine.cfg, engine.device
+    b = DISTILL_BATCH
+    audio = np.zeros((b, 480000), np.float32)
+    for i in range(b):
+        n = 16000 * (4 + i)
+        audio[i, :n] = speech_like(n / 16000, 70 + i)
+    prompt, _ = engine.build_prompt(
+        backends_mod.transcribe_options_from_session(SessionOptions(language="en")))
+    prompts = torch.tensor([prompt] * b, dtype=torch.int32, device=dev)
+    plen = torch.full((b,), len(prompt), dtype=torch.int32, device=dev)
+
+    def run(tokens=None):
+        with torch.inference_mode():
+            enc = encode_at(engine.params, cfg, audio, DISTILL_CTX, dev)
+            cross = engine.quantize_cross(wmod.compute_cross_kv(engine.params, cfg, enc))
+            self_kv = wmod.init_self_kv(cfg, b, len(prompt) + steps, device=dev)
+            logits = [wmod.decode_prefill(engine.params, cfg, prompts, plen, self_kv, cross)]
+            forced = tokens if tokens is not None else []
+            for i in range(steps):  # greedy on the kernel path, forced on both
+                if tokens is None:
+                    forced.append(logits[-1].argmax(-1).to(torch.int32))
+                logits.append(wmod.decode_step(engine.params, cfg, forced[i], plen + i,
+                                               len(prompt) + i, plen, len(prompt), self_kv,
+                                               cross))
+            return enc, logits, forced
+
+    before = dict(_kernels.launches)
+    enc_k, logits_k, tokens = run()
+    check_path("distiller reference", {k: n - before[k] for k, n in _kernels.launches.items()},
+               WINDOW_PATH)
+    enc_r, logits_r, _ = plain_run(lambda: run(tokens))
+    check(enc_k.shape == (b, DISTILL_CTX, cfg.n_audio_state), f"encoder {enc_k.shape}")
+    err = (enc_k.float() - enc_r.float()).abs().max().item()
+    scale = enc_r.float().abs().max().item()
+    log(f"reference: distiller encoder states [{b}, {DISTILL_CTX}] max_abs_err={err:.6g} "
+        f"tol={rel_tol * scale:.6g}")
+    check(bool(torch.isfinite(enc_k.float()).all()) and err <= rel_tol * scale,
+          "distiller: encoder states disagree with the plain path")
+    for i, (a, r) in enumerate(zip(logits_k, logits_r)):
+        compare_logits(f"distiller logits [{b}] step {i}", a, r, rel_tol, (b, cfg.n_vocab))
+
+
 def offline_reference(engine: WhisperEngine, steps: int = 4, rel_tol: float = 5e-2) -> None:
     """A seek window of the offline path (B = 1) on the kernel path against
     the plain path: prepare_mel of a log_mel_full window, then teacher-forced
@@ -2768,6 +2866,200 @@ def spec_reference(engine: WhisperEngine, draft: WhisperEngine, err: float) -> N
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: fine-tuning, draft distillation, the distilled draft served
+# ---------------------------------------------------------------------------
+
+TRAIN_BATCH = 2
+TRAIN_TOKENS = 48
+TRAIN_STEPS = 3
+DISTILL_CTX = 512
+DISTILL_BATCH = 8  # the teacher's pseudo-labelling batch (its largest bucket <= 8)
+DISTILL_ARGS = ("--layers", "2", "--enc_ctx", str(DISTILL_CTX), "--seq", "48", "--batch", "4",
+                "--pool", "48", "--steps", "200")
+DISTILL_STAGES = ("audio_pool", "pseudo_label", "precompute", "train")
+
+
+def distill_phase(dev: torch.device) -> tuple[dict, WhisperEngine]:
+    """(b) The distiller CLI at large-v3 on the seed's random teacher (the
+    engine of phases 4-9): each stage's time and launches (the stages are
+    wrapped where main looks them up), its KD losses and held-out
+    agreements, and the written draft loaded through loader.load_engine.
+    Returns the figures and the draft engine."""
+    import shutil
+    import tempfile
+
+    from whisperlive_tpu_torch import loader
+    from whisperlive_tpu_torch.cli import distill as distill_cli
+
+    stages: dict = {}
+
+    def staged(name, fn):
+        def run(*a, **kw):
+            torch.cuda.synchronize(dev)
+            before, t0 = dict(_kernels.launches), time.monotonic()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize(dev)
+            stages[name] = {"s": time.monotonic() - t0,
+                            "launches": {k: n - before[k] for k, n in _kernels.launches.items()}}
+            if name == "train":
+                stages[name]["result"] = out[1:]  # losses, agreement before, after
+            return out
+        return run
+
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_draft_")
+    saved = {name: getattr(distill_cli, name) for name in DISTILL_STAGES}
+    try:
+        for name, fn in saved.items():
+            setattr(distill_cli, name, staged(name, fn))
+        t0 = time.monotonic()
+        rc = distill_cli.main(["--model", MODEL, *DISTILL_ARGS, "--device", str(dev),
+                               "--out", out_dir])
+        total_s = time.monotonic() - t0
+        check(rc == 0, f"cli.distill exited {rc}")
+        t0 = time.monotonic()
+        draft = loader.load_engine("distill-large-v3", out_dir, device=dev)
+        load_s = time.monotonic() - t0
+        ctx = loader.draft_distill_ctx(out_dir)
+    finally:
+        for name, fn in saved.items():
+            setattr(distill_cli, name, fn)
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+    for name in DISTILL_STAGES:
+        log(f"distiller stage {name}: {stages[name]['s']:.6g} s, launches "
+            f"{ {k: n for k, n in stages[name]['launches'].items() if n} }")
+    rest_s = total_s - sum(stages[n]["s"] for n in DISTILL_STAGES)
+    log(f"distiller: {total_s:.6g} s in cli.distill.main ({rest_s:.6g} s of it the teacher "
+        f"engine's build and the draft's save), draft engine loaded in {load_s:.6g} s")
+    check_path("distiller's pseudo-labelling", stages["pseudo_label"]["launches"], WINDOW_PATH)
+    check_path("distiller's precompute", stages["precompute"]["launches"], ("fused_attention",),
+               absent=[k for k in KERNELS if k != "fused_attention"])
+    check_path("distiller's KD steps", stages["train"]["launches"], (), absent=KERNELS)
+    losses, acc0, acc1 = stages["train"]["result"]
+    first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+    log(f"distiller KD: {len(losses)} steps, loss {losses[0]:.6g} -> {losses[-1]:.6g} (mean of "
+        f"the first 10 {first:.6g}, of the last 10 {last:.6g}); held-out teacher-forced "
+        f"agreement {acc0:.6g} before, {acc1:.6g} after")
+    check(bool(np.isfinite(losses).all()) and last < first, "the KD loss did not fall")
+    check(acc1 > acc0, f"held-out agreement did not rise ({acc0} -> {acc1})")
+    check(ctx == DISTILL_CTX, f"the draft records distill_enc_ctx {ctx}, not {DISTILL_CTX}")
+    check(draft.cfg.n_text_layer == 2 and draft.decoder_int8, "the draft engine's shape")
+    figures = {"stage_s": {n: stages[n]["s"] for n in DISTILL_STAGES}, "main_s": total_s,
+               "draft_load_s": load_s, "steps": len(losses), "loss_first10": first,
+               "loss_last10": last, "agreement_before": acc0, "agreement_after": acc1,
+               "pseudo_label_launches": stages["pseudo_label"]["launches"]}
+    return figures, draft
+
+
+def finetune_phase(dev: torch.device) -> dict:
+    """(a) make_train_step at large-v3 full width from the seed's random
+    tree upcast to float32 master weights, bf16 compute: TRAIN_STEPS steps
+    of B = TRAIN_BATCH mel [B,3000,128] from speech-like audio with
+    TRAIN_TOKENS token rows (warmup 1: the first step runs at lr 0). The
+    parameters are unchanged after step 1 and every leaf moved after step 2;
+    K1 never launches (the training encoder's attention is plain), and K1
+    called on inputs that require grad raises without launching; a
+    save_checkpoint / load_checkpoint round trip is bit-equal, and one more
+    step from the saved and from the restored state gives the same loss."""
+    import shutil
+    import tempfile
+
+    from whisperlive_tpu_torch import training
+    from whisperlive_tpu_torch.models.safetensors_io import flatten_tree
+    from whisperlive_tpu_torch.ops import mel as mel_ops
+
+    cfg = wmod.WHISPER_CONFIGS[MODEL].replace(dtype=torch.bfloat16)
+    opt = training.make_optimizer(learning_rate=1e-5, warmup_steps=1, total_steps=TRAIN_STEPS)
+    torch.cuda.reset_peak_memory_stats(dev)
+    state = training.init_train_state(cfg, opt, wmod.init_params(cfg, SEED, torch.bfloat16, dev),
+                                      device=dev)
+    n_params = sum(t.numel() for t in training.leaves(state.params))
+    audio = np.stack([speech_like(30.0, 60 + i) for i in range(TRAIN_BATCH)])
+    tokens = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, cfg.n_vocab, (TRAIN_BATCH, TRAIN_TOKENS + 1)).astype(np.int32)).to(dev)
+    batch = {"mel": mel_ops.log_mel_spectrogram(torch.from_numpy(audio).to(dev), cfg.n_mels),
+             "tokens_in": tokens[:, :-1], "tokens_out": tokens[:, 1:],
+             "loss_mask": torch.ones((TRAIN_BATCH, TRAIN_TOKENS), device=dev)}
+    check(tuple(batch["mel"].shape) == (TRAIN_BATCH, 3000, cfg.n_mels), "the mel's shape")
+    step = training.make_train_step(cfg, opt)
+    start = {k: t.clone() for k, t in flatten_tree(state.params).items()}
+
+    losses, step_s = [], []
+    _kernels.reset_launches()
+    for n in range(TRAIN_STEPS):
+        torch.cuda.synchronize(dev)
+        t0 = time.monotonic()
+        state, loss = step(state, batch)
+        torch.cuda.synchronize(dev)
+        step_s.append(time.monotonic() - t0)
+        losses.append(float(loss))
+        now = flatten_tree(state.params)
+        if n == 0:
+            check(all(torch.equal(t, start[k]) for k, t in now.items()),
+                  "a parameter moved in the first step (learning rate 0)")
+        elif n == 1:
+            still = [k for k, t in now.items() if torch.equal(t, start[k])]
+            check(not still, f"leaves unchanged after the second step: {still[:5]}")
+    launches = dict(_kernels.launches)
+    del start, now
+    peak = torch.cuda.max_memory_allocated(dev)
+    log(f"fine-tune ({MODEL}, {n_params} float32 master parameters, bf16 compute, B = "
+        f"{TRAIN_BATCH}, T = {TRAIN_TOKENS}): losses {losses}, step times {step_s} s, "
+        f"max_memory_allocated {peak / 2**30:.6g} GiB, launches {launches}")
+    check(all(np.isfinite(losses)), f"non-finite loss: {losses}")
+    check(launches["fused_attention"] == 0, "K1 launched inside a train step")
+    q = torch.randn((1, 64, cfg.n_audio_head, 64), device=dev, dtype=torch.bfloat16)
+    q.requires_grad_(True)
+    try:
+        with torch.enable_grad():
+            attn_ops.fused_attention(q, q, q)
+        raised = None
+    except RuntimeError as e:
+        raised = str(e)
+    log(f"K1 on CUDA inputs that require grad raises: {raised!r}")
+    check(raised is not None and "no backward" in raised,
+          "K1 returned a result for inputs that require grad")
+    check(_kernels.launches["fused_attention"] == 0, "K1 launched on inputs that require grad")
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        t0 = time.monotonic()
+        training.save_checkpoint(tmp, state, cfg)
+        save_s = time.monotonic() - t0
+        size = sum(os.path.getsize(os.path.join(tmp, f)) for f in os.listdir(tmp))
+        # compared on the host (a mapping of the files), then restored onto
+        # the card once this state is gone: one state on the card at a time
+        mapped, cfg2 = training.load_checkpoint(tmp, "cpu")
+        check(cfg2 == cfg.replace(dtype=torch.float32) and mapped.step == state.step
+              and mapped.opt_state.count == state.opt_state.count, "restored config or step")
+        for name, mine, theirs in (("params", state.params, mapped.params),
+                                   ("mu", state.opt_state.mu, mapped.opt_state.mu),
+                                   ("nu", state.opt_state.nu, mapped.opt_state.nu)):
+            check_same_tree(f"training checkpoint {name}", mine, theirs)
+        del mapped
+        loss_saved = float(step(state, batch)[1])
+        del state
+        t0 = time.monotonic()
+        restored, _ = training.load_checkpoint(tmp, dev)
+        torch.cuda.synchronize(dev)
+        load_s = time.monotonic() - t0
+        check({t.device.type for t in training.leaves(restored.params)} == {"cuda"},
+              "the restored state is off the card")
+        loss_restored = float(step(restored, batch)[1])
+        del restored
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"fine-tune checkpoint: {size / 2**30:.6g} GiB written in {save_s:.6g} s, loaded "
+        f"onto the card in {load_s:.6g} s, bit-equal; step {TRAIN_STEPS + 1} loss from the "
+        f"saved state {loss_saved!r}, from the restored one {loss_restored!r}")
+    check(abs(loss_saved - loss_restored) <= 1e-5 * abs(loss_saved),
+          "the resumed step's loss differs")
+    return {"params": n_params, "losses": losses, "step_s": step_s,
+            "max_memory_allocated_gib": peak / 2**30, "checkpoint_gib": size / 2**30,
+            "save_s": save_s, "load_s": load_s, "resumed_loss": [loss_saved, loss_restored]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this test needs a CUDA card",
@@ -2832,15 +3124,19 @@ def main() -> int:
         "window": window_phase(engine),
         "continuous": continuous_phase(engine),
         "spec_window": spec_window_phase(engine, draft),
-        "spec_all": spec_continuous_phase(engine, draft),
+    }
+    spec_random = spec_continuous_phase(engine, draft)
+    paths.update({
+        "spec_all": spec_random.pop("launches"),
         "mixed_int4": mixed_phase(engine4, draft4),
         "beam_window": beam_window_phase(engine),
         "beam_pool": beam_pool_phase(engine),
         "hybrid_beam": hybrid_phase(engine),
         "word_timestamps": word_ts_phase(engine),
-    }
+    })
     offline = offline_phase(engine)
     window_reference(engine)
+    distill_reference(engine)
     offline_reference(engine)
     beam_reference(engine)
     beam_pool_reference(engine)
@@ -2849,6 +3145,23 @@ def main() -> int:
     err8 = verify_reference(engine)
     verify_reference(engine4)
     spec_reference(engine, draft, err8)
+
+    # phase 10: the distiller on the serving engine's own random teacher, its
+    # draft on the `all` pool, then the fine-tune with the engines freed
+    distilled, trained_draft = distill_phase(dev)
+    spec_trained = spec_continuous_phase(engine, trained_draft,
+                                         "continuous spec pool (all), distilled draft")
+    spec_trained.pop("launches")
+    log(f"distilled draft on the `all` pool: acceptance {spec_trained['acceptance']:.6g}, "
+        f"committed tokens per window round {spec_trained['committed_per_window_round']:.6g}, "
+        f"device time per pool verify round {spec_trained['device_ms_per_round']} ms; the "
+        f"random draft of phase 6: {spec_random['acceptance']:.6g}, "
+        f"{spec_random['committed_per_window_round']:.6g}, "
+        f"{spec_random['device_ms_per_round']} ms")
+    del engine, engine4, draft, draft4, trained_draft
+    gc.collect()
+    torch.cuda.empty_cache()
+    finetune = finetune_phase(dev)
 
     # each kernel's launches on the path it serves: the continuous path
     # (the server's default) for K1-K3 and K5, the window path for K4, and
@@ -2863,6 +3176,9 @@ def main() -> int:
     log(f"chip_smoke total: {time.monotonic() - t_start:.6g} s")
     print(json.dumps({"encoder_forward": encoder}))
     print(json.dumps({"offline": offline}))
+    print(json.dumps({"training": {"finetune": finetune, "distill": distilled,
+                                   "served_distilled_draft": spec_trained,
+                                   "served_random_draft": spec_random}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -52,13 +52,8 @@ def hf_dir(tmp_path_factory):
     return hf_checkpoint(tmp_path_factory.mktemp("hf") / "whisper-tiny-random")
 
 
-def leaves(tree, path=()):
-    for k, v in tree.items():
-        yield from leaves(v, path + (k,)) if isinstance(v, dict) else [(path + (k,), v)]
-
-
 def assert_trees_equal(a, b):
-    da, db = dict(leaves(a)), dict(leaves(b))
+    da, db = safetensors_io.flatten_tree(a), safetensors_io.flatten_tree(b)
     assert da.keys() == db.keys()
     for k, x in da.items():
         y = db[k]

@@ -86,6 +86,22 @@ def test_fused_attention_kernel_on_card(cuda_device, b, t, q_scale, strided):
     assert err <= 2.0**-6 * scale
 
 
+@pytest.mark.cuda
+def test_fused_attention_raises_for_inputs_that_require_grad(cuda_device):
+    """K1 has no backward pass: under grad mode, with inputs that require
+    grad, the wrapper raises and launches nothing (a result written through
+    raw pointers would carry no grad_fn); under torch.no_grad it launches."""
+    rng = np.random.default_rng(5)
+    q, k, v = (_gpu(rng, (1, 64, 20, 64)).requires_grad_(True) for _ in range(3))
+    n = _kernels.launches["fused_attention"]
+    with pytest.raises(RuntimeError, match="no backward pass"):
+        tattn.fused_attention(q, k, v)
+    assert _kernels.launches["fused_attention"] == n
+    with torch.no_grad():
+        out = tattn.fused_attention(q, k, v)
+    assert _kernels.launches["fused_attention"] == n + 1 and not out.requires_grad
+
+
 def _k2_inputs(m, k, n):
     rng = np.random.default_rng(m * 7 + k + n)
     x = _gpu(rng, (m, k))

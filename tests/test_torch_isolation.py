@@ -3,8 +3,9 @@ chip_smoke.py or kernel_variants.py, imports jax or any module of the JAX packag
 
 A subprocess installs a meta-path finder that refuses `jax`, `jaxlib` and
 every `whisperlive_tpu.` module, and the packages the card's machine lacks
-(`safetensors`, `orbax`, `tokenizers`: the checkpoint reader is the port's
-own, and `tokenizers` is reached only for a checkpoint's tokenizer.json),
+(`safetensors`, `orbax`, `optax`, `tokenizers`: the checkpoint reader and
+the optimizer are the port's own, and `tokenizers` is reached only for a
+checkpoint's tokenizer.json),
 then imports every module of the port, chip_smoke.py and kernel_variants.py. The host modules the port keeps its own copies of
 (tokenizer, session, VAD, word alignment) are also held against the
 originals on a few inputs; the alignment copy exactly, on random inputs.
@@ -35,7 +36,8 @@ _PROBE = textwrap.dedent(
     """
     import importlib, importlib.abc, pkgutil, sys
 
-    REFUSED = ("jax", "jaxlib", "whisperlive_tpu", "safetensors", "orbax", "tokenizers")
+    REFUSED = ("jax", "jaxlib", "whisperlive_tpu", "safetensors", "orbax", "optax",
+               "tokenizers")
 
     class Refuse(importlib.abc.MetaPathFinder):
         def find_spec(self, name, path=None, target=None):
@@ -57,7 +59,7 @@ _PROBE = textwrap.dedent(
     importlib.import_module("kernel_variants")
     bad = sorted(m for m in sys.modules if m.split(".")[0] in REFUSED)
     assert not bad, bad
-    print("IMPORTED", len(names))
+    print("IMPORTED", " ".join(names))
     """
 )
 
@@ -70,8 +72,10 @@ def test_port_imports_no_jax_and_no_jax_package():
         capture_output=True, text=True, timeout=300,
     )
     assert proc.returncode == 0, proc.stderr[-4000:]
-    n = int(proc.stdout.split("IMPORTED")[1])
-    assert n >= 30  # every module of the package, not an empty walk
+    names = proc.stdout.split("IMPORTED")[1].split()
+    assert len(names) >= 30  # every module of the package, not an empty walk
+    for name in ("training", "distill", "cli.distill"):
+        assert f"whisperlive_tpu_torch.{name}" in names
 
 
 @pytest.mark.parametrize("multilingual", [True, False])

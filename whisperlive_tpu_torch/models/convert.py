@@ -134,27 +134,6 @@ def load_hf_checkpoint(model_dir: str) -> tuple[WhisperConfig, Params]:
     return cfg, params_from_state_dict(safetensors_io.load_dir(model_dir), cfg)
 
 
-def _flatten(tree: Params, prefix: str = "") -> dict[str, torch.Tensor]:
-    out = {}
-    for k, v in tree.items():
-        if isinstance(v, dict):
-            out.update(_flatten(v, f"{prefix}{k}/"))
-        else:
-            out[f"{prefix}{k}"] = v
-    return out
-
-
-def _unflatten(flat: Mapping[str, torch.Tensor]) -> Params:
-    tree: Params = {}
-    for key, v in flat.items():
-        *path, leaf = key.split("/")
-        node = tree
-        for k in path:
-            node = node.setdefault(k, {})
-        node[leaf] = v
-    return tree
-
-
 def save_converted(path: str, cfg: WhisperConfig, params: Params,
                    extra_meta: dict | None = None, tokenizer_file: str | None = None) -> None:
     """Write a converted directory. extra_meta rides in config.json under
@@ -162,7 +141,7 @@ def save_converted(path: str, cfg: WhisperConfig, params: Params,
     `distill_enc_ctx`, so that serving can warn when a draft is deployed at
     another encoder context than it was trained for)."""
     os.makedirs(path, exist_ok=True)
-    safetensors_io.save_file(_flatten(params), os.path.join(path, PARAMS_FILE))
+    safetensors_io.save_tree(params, os.path.join(path, PARAMS_FILE))
     meta = {k: v for k, v in dataclasses.asdict(cfg).items() if k != "dtype"}
     meta.update(extra_meta or {})
     with open(os.path.join(path, "config.json"), "w") as f:
@@ -185,4 +164,4 @@ def load_converted(path: str) -> tuple[WhisperConfig, Params]:
     with open(os.path.join(path, "config.json")) as f:
         meta = json.load(f)
     cfg = WhisperConfig(**{k: v for k, v in meta.items() if k in fields})
-    return cfg, _unflatten(safetensors_io.load_file(os.path.join(path, PARAMS_FILE)))
+    return cfg, safetensors_io.load_tree(os.path.join(path, PARAMS_FILE))

@@ -119,3 +119,30 @@ def save_file(tensors: dict[str, torch.Tensor], path: str,
             if t.dtype == torch.bfloat16:
                 t = t.view(torch.int16)
             f.write(t.numpy().data)
+
+
+def flatten_tree(tree: dict, prefix: str = "") -> dict[str, torch.Tensor]:
+    """{path: tensor} of a nested dict of tensors, in key order, each path
+    its keys joined with "/" (the names save_tree writes)."""
+    out = {}
+    for k, v in tree.items():
+        out.update(flatten_tree(v, f"{prefix}{k}/") if isinstance(v, dict) else {prefix + k: v})
+    return out
+
+
+def save_tree(tree: dict, path: str) -> None:
+    """Write a nested dict of tensors as one file, its keys joined with "/"."""
+    save_file(flatten_tree(tree), path)
+
+
+def load_tree(path: str) -> dict:
+    """The nested dict of tensors save_tree wrote (CPU tensors over a
+    copy-on-write mapping of the file, as load_file returns them)."""
+    tree: dict = {}
+    for key, v in load_file(path).items():
+        *parents, leaf = key.split("/")
+        node = tree
+        for k in parents:
+            node = node.setdefault(k, {})
+        node[leaf] = v
+    return tree

@@ -272,22 +272,35 @@ def _conv1d(x: torch.Tensor, p: Params, stride: int) -> torch.Tensor:
     return y.transpose(1, 2)
 
 
+def _self_attention(x: torch.Tensor, p: Params, n_head: int, attend) -> torch.Tensor:
+    """The q, k, v projections of x, attend(q, k, v) and the output projection."""
+    q = _split_heads(_linear(x, p["q"]), n_head)
+    k = _split_heads(_linear(x, p["k"]), n_head)
+    v = _split_heads(_linear(x, p["v"]), n_head)
+    return _linear(_merge_heads(attend(q, k, v)), p["o"])
+
+
+def _encoder_stem(p: Params, cfg: WhisperConfig, mel: torch.Tensor) -> torch.Tensor:
+    """The two convolutions and the position table: mel [B, T_mel, n_mels]
+    -> [B, T_mel/2, d]."""
+    x = mel.to(cfg.dtype)
+    x = F.gelu(_conv1d(x, p["conv1"], 1), approximate="none")
+    x = F.gelu(_conv1d(x, p["conv2"], 2), approximate="none")
+    return x + p["pos"][: x.shape[1]].to(cfg.dtype)
+
+
+def _encoder_block(x: torch.Tensor, lp: Params, n_head: int, attend) -> torch.Tensor:
+    x = x + _self_attention(_layer_norm(x, lp["attn_ln"]), lp["attn"], n_head, attend)
+    return x + _mlp(_layer_norm(x, lp["mlp_ln"]), lp["mlp"])
+
+
 def encode(params: Params, cfg: WhisperConfig, mel: torch.Tensor) -> torch.Tensor:
     """mel [B, T_mel, n_mels] -> encoder states [B, T_mel/2, d]; the
     self-attention of every layer is the K1 kernel."""
     p = params["encoder"]
-    x = mel.to(cfg.dtype)
-    x = F.gelu(_conv1d(x, p["conv1"], 1), approximate="none")
-    x = F.gelu(_conv1d(x, p["conv2"], 2), approximate="none")
-    x = x + p["pos"][: x.shape[1]].to(cfg.dtype)
+    x = _encoder_stem(p, cfg, mel)
     for i in range(cfg.n_audio_layer):
-        lp = layer(p["layers"], i)
-        h = _layer_norm(x, lp["attn_ln"])
-        q = _split_heads(_linear(h, lp["attn"]["q"]), cfg.n_audio_head)
-        k = _split_heads(_linear(h, lp["attn"]["k"]), cfg.n_audio_head)
-        v = _split_heads(_linear(h, lp["attn"]["v"]), cfg.n_audio_head)
-        x = x + _linear(_merge_heads(fused_attention(q, k, v)), lp["attn"]["o"])
-        x = x + _mlp(_layer_norm(x, lp["mlp_ln"]), lp["mlp"])
+        x = _encoder_block(x, layer(p["layers"], i), cfg.n_audio_head, fused_attention)
     return _layer_norm(x, p["ln_post"])
 
 
@@ -637,6 +650,32 @@ def quantize_decoder_weights(params: Params) -> Params:
     new_dec["layers"] = quant(dec["layers"])
     new_dec["embed8"] = torch.clamp(torch.round(embed / e_s[:, None]), -127, 127).to(torch.int8)
     new_dec["embed_s"] = e_s.to(torch.bfloat16)
+    return {"encoder": params["encoder"], "decoder": new_dec}
+
+
+def dequantize_decoder_weights(params: Params, dtype: torch.dtype = torch.float32) -> Params:
+    """Inverse of quantize_decoder_weights: dense decoder weights carrying
+    exactly the values the int8 kernels dequantize to (w8 * s per output
+    channel, embed8 * embed_s per row, in float32, then cast to `dtype`;
+    biases kept), so that the training forwards reproduce the int8 serving
+    decoder's numerics. A tree that is not quantized is returned as is."""
+    dec = params["decoder"]
+    if "embed8" not in dec:
+        return params
+
+    def deq(node):
+        if isinstance(node, dict) and "w8" in node:
+            out = {"w": (node["w8"].float() * node["s"].float()[..., None, :]).to(dtype)}
+            if "b" in node:
+                out["b"] = node["b"]
+            return out
+        if isinstance(node, dict):
+            return {k: deq(v) for k, v in node.items()}
+        return node
+
+    new_dec = {k: v for k, v in dec.items() if k not in ("embed8", "embed_s")}
+    new_dec["layers"] = deq(dec["layers"])
+    new_dec["embed"] = (dec["embed8"].float() * dec["embed_s"].float()[:, None]).to(dtype)
     return {"encoder": params["encoder"], "decoder": new_dec}
 
 

@@ -59,9 +59,19 @@ def fused_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> to
 
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Bidirectional fused attention (encoder). q, k, v [B, T, H, 64] bf16,
-    read through their strides; returns a contiguous [B, T, H, 64] bf16."""
+    read through their strides; returns a contiguous [B, T, H, 64] bf16.
+
+    The kernel has no backward pass (neither has the TPU kernel it ports):
+    on CUDA tensors that require grad under grad mode it raises rather than
+    return a result cut from the autograd graph."""
     if runs_on_cpu(q, k, v):
         return fused_attention_ref(q, k, v)
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        raise RuntimeError(
+            "fused_attention (K1, csrc/fused_attention.cu) has no backward pass, in this "
+            "package or in the JAX package's Pallas kernel: differentiate through the plain "
+            "attention (whisperlive_tpu_torch.training.encode_train) or call it under "
+            "torch.no_grad()")
     require(q.dim() == 4 and q.shape == k.shape == v.shape,
             f"q, k, v must share a [B, T, H, hd] shape: {q.shape} {k.shape} {v.shape}")
     b, t, h, hd = q.shape
