@@ -1,5 +1,6 @@
-"""Drive the PyTorch port's serving paths, its offline file path and its
-training and distillation path once on one CUDA card.
+"""Drive the PyTorch port's serving paths (the websocket server, REST,
+diarization and translation), its offline file path and its training and
+distillation path once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -168,10 +169,38 @@ a result):
    restores onto the card gives the same loss (within 1e-5). The step times,
    torch.cuda.max_memory_allocated and the checkpoint's size and times
    are printed, and all of phase 10 as {"training": ...}.
+11. The rest of serving, on the int8 engine before the engines are freed.
+   (a) REST through its aiohttp-free core (rest.handle_transcription) on a
+   TorchBackend over a continuous pool (phase 5's configuration) and the
+   window scheduler: a 35 s speech-like WAV (a 30 s window on the window
+   route, K4; the rest on the pool, K5) as json, verbose_json with word
+   timestamps, srt, vtt, text and stream=true, a 12 s raw f32 upload, and
+   with two known speakers enrolled (alice, bob: source-filter voices that
+   the speaker embedder tells apart), 35 s WAVs of 30 s of one voice then
+   5 s of the other, in both orders. Each request launches K1-K3
+   and K4 or K5 by its route; the SSE events, json, srt, vtt and text
+   equal the verbose_json segments formatted; words are ordered and in
+   their segments; every segment with MIN_AUDIO_S of the file's audio
+   inside one voice's part carries that voice's name, and the first seek
+   window has one; a wrong key gives 401 and a 2 rpm limit 429
+   on the third request. (b) A SMALL100-shaped checkpoint dir (random
+   bf16 weights from SEED + 2 at alirezamsh/small100's widths, HF keys,
+   the port's safetensors writer, a toy SentencePiece vocabulary that
+   spells the visible tokenizer's words), the translator loaded from it on
+   the card, then a diarized and a translated (fr) streaming session on
+   the continuous backend: every committed segment with MIN_AUDIO_S of
+   audio has a speaker, and every translated text equals a fresh
+   translation of its source on the card (beam 5, max_new 200); the load
+   time, the time and decode steps a segment. (c) The same weights in
+   bf16 against float32 on the card: encoder states and teacher-forced
+   logits of 4 sources at the 64-token bucket within 5e-2 and 5e-3 of
+   max|ref|, free-running greedy tokens over 16 steps equal up to a tie. Printed as
+   {"rest_of_serving": ...}.
 
 The line before the last is {"kernels": [...]}, after {"encoder_forward":
-[...]}, {"offline": {...}} and {"training": {...}}; the last line is
-{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+[...]}, {"offline": {...}}, {"training": {...}} and {"rest_of_serving":
+{...}}; the last line is {"ok": true, "device": {"platform": "gpu", "kind":
+..., "count": ...}}.
 """
 
 from __future__ import annotations
@@ -189,6 +218,7 @@ import time
 import numpy as np
 import torch
 
+from whisperlive_tpu_torch.diarization import MIN_AUDIO_S
 from whisperlive_tpu_torch.engine.continuous import ContinuousEngine, ContinuousScheduler
 from whisperlive_tpu_torch.engine.engine import TranscribeOptions, WhisperEngine
 from whisperlive_tpu_torch.engine.scheduler import BatchResult, BatchScheduler
@@ -285,6 +315,31 @@ def speech_like(seconds: float, seed: int = 0) -> np.ndarray:
     f0 = 140 + 40 * np.sin(2 * np.pi * 2.1 * t)
     sig = sum(np.sin(2 * np.pi * k * f0 * t) / k for k in (1, 2, 3))
     sig = sig * (0.55 + 0.45 * np.sin(2 * np.pi * 3.7 * t)) + 0.02 * rng.standard_normal(t.shape)
+    return (0.12 * sig / np.max(np.abs(sig))).astype(np.float32)
+
+
+# Two speaker profiles that the speaker embedder tells apart (cosine ~0.07
+# between them, ~1.0 within one); speech_like's variants all embed alike.
+VOICES = {
+    "alice": dict(f0=210.0, formants=((850, 90), (2000, 140), (3000, 220)), tilt=0.8),
+    "bob": dict(f0=105.0, formants=((450, 80), (1100, 120), (2400, 200)), tilt=1.4),
+}
+
+
+def voice(seconds: float, seed: int, f0: float, formants, tilt: float) -> np.ndarray:
+    """A source-filter voice: 13 harmonics of a gliding f0 falling off as
+    1/k**tilt, shaped by formant resonances (centre, width in Hz), with
+    syllabic amplitude modulation and a little noise (passes the VAD gate)."""
+    n = int(16000 * seconds)
+    t = np.arange(n) / 16000.0
+    rng = np.random.default_rng(seed)
+    phase = 2 * np.pi * np.cumsum(f0 * (1 + 0.05 * np.sin(2 * np.pi * 2.1 * t))) / 16000.0
+    sig = sum(np.sin(k * phase) / k ** tilt for k in range(1, 14))
+    freqs = np.fft.rfftfreq(n, 1 / 16000)
+    envelope = 0.03 + sum(np.exp(-0.5 * ((freqs - fc) / bw) ** 2) for fc, bw in formants)
+    sig = np.fft.irfft(np.fft.rfft(sig) * envelope, n=n)
+    sig = sig * (0.65 + 0.35 * np.sin(2 * np.pi * 3.7 * t))
+    sig = sig / np.max(np.abs(sig)) + 0.01 * rng.standard_normal(n)
     return (0.12 * sig / np.max(np.abs(sig))).astype(np.float32)
 
 
@@ -1098,11 +1153,14 @@ class CountingBackend(backends_mod.TorchBackend):
 
 
 async def run_session(server, backend, uid, language, audio, delay_s=0.0, use_vad=True,
-                      word_timestamps=False):
+                      word_timestamps=False, extra=None, settle=None):
+    """One streaming session through the server's connection handler.
+    `extra` adds handshake fields; `settle(ws)` must hold (within 300 s)
+    before the connection closes."""
     await asyncio.sleep(delay_s)
     ws = FakeWebSocket()
     handshake = {"uid": uid, "language": language, "task": "transcribe", "model": MODEL,
-                 "use_vad": use_vad, "word_timestamps": word_timestamps}
+                 "use_vad": use_vad, "word_timestamps": word_timestamps, **(extra or {})}
     ws.incoming.put_nowait(json.dumps(handshake))
     task = asyncio.create_task(server.recv_audio(ws))
     step = int(16000 * FRAME_S)
@@ -1123,16 +1181,19 @@ async def run_session(server, backend, uid, language, audio, delay_s=0.0, use_va
         if done > at_eos or (done and drained):
             break
         await asyncio.sleep(0.1)
+    while settle is not None and not settle(ws) and time.monotonic() < deadline:
+        await asyncio.sleep(0.1)
     ws.incoming.put_nowait(FakeWebSocket.CLOSE)
     await task
     return ws
 
 
-def serve(backend, sessions) -> tuple[list, float]:
+def serve(backend, sessions, translation_model_dir=None) -> tuple[list, float]:
     """Run the sessions through the server's connection handler, with every
     launch counter reset to 0 just before; returns (sockets, wall seconds).
     The caller stops its schedulers and then reads the counters."""
     server = TranscriptionServer()  # attributes as serve() sets them
+    server.translation_model_dir = translation_model_dir
     server.backend = backend
     server.backend_name = "torch"
     server.client_manager = ClientManager(max_clients=4, max_connection_time=600)
@@ -3060,6 +3121,452 @@ def finetune_phase(dev: torch.device) -> dict:
             "save_s": save_s, "load_s": load_s, "resumed_loss": [loss_saved, loss_restored]}
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: REST, live diarization and translation
+# ---------------------------------------------------------------------------
+
+REST_FILE_S = 35.0  # two seek windows: 30 s on the window route, the rest on the pool
+REST_RAW_S = 12.0  # one window inside the pool's content cap
+KNOWN_SPLIT_S = 30.0  # known-speaker files: the first voice fills the first seek window
+KNOWN_ORDERS = (("alice", "bob"), ("bob", "alice"))
+REST_FORMATS = ("json", "verbose_json", "srt", "vtt", "text")
+# alirezamsh/small100 config.json: 12 encoder and 3 decoder layers at M2M100's widths
+SMALL100 = dict(vocab_size=128112, d_model=1024, encoder_layers=12, decoder_layers=3,
+                encoder_attention_heads=16, decoder_attention_heads=16, encoder_ffn_dim=4096,
+                decoder_ffn_dim=4096, max_position_embeddings=1024, pad_token_id=1,
+                bos_token_id=0, eos_token_id=2, decoder_start_token_id=2, scale_embedding=True,
+                activation_function="relu", model_type="m2m100")
+LIVE_SESSION_S = 16.0  # the translator shares the host with the pool: calls slow down
+TRANSLATE_BUCKET = 64
+TRANSLATE_REF_SOURCES = 4
+TRANSLATE_REF_STEPS = 16
+
+
+def wav_bytes(audio: np.ndarray) -> bytes:
+    """16-bit mono 16 kHz WAV of `audio`, in memory."""
+    import io
+    import wave
+
+    buf = io.BytesIO()
+    with wave.open(buf, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(16000)
+        w.writeframes((np.clip(audio, -1, 1) * 32767).astype(np.int16).tobytes())
+    return buf.getvalue()
+
+
+def rest_request(backend, fields: dict, data: bytes, filename: str = "a.wav",
+                 known: tuple = (), names: tuple = ()) -> dict:
+    """One request through the REST core (rest.handle_transcription, what the
+    aiohttp app wraps), with the launch counters reset just before and read
+    after; the backend's route counts of its windows."""
+    from whisperlive_tpu_torch.serving import rest
+
+    chunks: list[bytes] = []
+
+    async def write(chunk: bytes) -> None:
+        chunks.append(chunk)
+
+    routes = {"window": 0, "continuous": 0}
+    pick = backends_mod.TorchBackend._pick_scheduler
+
+    def counted(self, *a, **kw):
+        sched = pick(self, *a, **kw)
+        routes["window" if sched is self.scheduler else "continuous"] += 1
+        return sched
+
+    backend._pick_scheduler = counted.__get__(backend)
+    _kernels.reset_launches()
+    t0 = time.monotonic()
+    try:
+        status, ctype, body = asyncio.run(rest.handle_transcription(
+            backend, fields, data, filename, list(known), list(names), write))
+    finally:
+        del backend._pick_scheduler
+    torch.cuda.synchronize()
+    seconds = time.monotonic() - t0
+    launches = dict(_kernels.launches)
+    check(status == 200, f"REST {fields}: status {status}: {body}")
+    for name in ("fused_attention", "int8_matmul", "int8_matmul_t"):
+        check(launches[name] > 0, f"REST {fields}: {name} not launched")
+    check(routes["window"] == 0 or launches["cross_attention_int8"] > 0,
+          f"REST {fields}: a window-route window without K4")
+    check(routes["continuous"] == 0 or launches["cross_attention_int8_skip"] > 0,
+          f"REST {fields}: a pool window without K5")
+    check(sum(routes.values()) > 0, f"REST {fields}: no window reached a scheduler")
+    log(f"REST {fields} ({len(data)} bytes): {seconds:.6g} s host time, routes {routes}, "
+        f"launches {launches}")
+    return dict(seconds=seconds, ctype=ctype, body=body, sse=b"".join(chunks).decode(),
+                routes=routes, launches=launches)
+
+
+def rest_phase(engine: WhisperEngine) -> dict:
+    """(a) The REST endpoint's core on the continuous pool and the window
+    scheduler: every response format and the SSE stream of one 35 s file,
+    a raw f32 upload, known-speaker labels, and the auth and rate gate."""
+    from whisperlive_tpu_torch.serving import rest
+
+    cs = ContinuousScheduler(engine, n_slots=CONT_SLOTS, steps_per_chunk=8, cross_ctx=640,
+                             enc_buckets=(512, 1500))
+    window = BatchScheduler(engine, max_batch_size=BATCH, batch_window_ms=50)
+    window.start()
+    cs.start()
+    backend = backends_mod.TorchBackend(window, model_name=MODEL, continuous_scheduler=cs)
+    audio = speech_like(REST_FILE_S, 21)
+    wav = wav_bytes(audio)
+    out: dict = {}
+    try:
+        for fmt in REST_FORMATS:
+            fields = {"response_format": fmt, "language": "en"}
+            if fmt == "verbose_json":
+                fields["timestamp_granularities"] = "word"
+            out[fmt] = rest_request(backend, fields, wav)
+        out["stream"] = rest_request(backend, {"stream": "true", "language": "en"}, wav)
+        out["raw_f32"] = rest_request(backend, {"response_format": "verbose_json",
+                                                "language": "en"},
+                                      speech_like(REST_RAW_S, 22).tobytes(), "upload.bin")
+        # both voices enrolled, alice first; one file opens with alice's voice
+        # for the first seek window and ends with bob's, the other the reverse
+        known = tuple((f"{name}.wav", wav_bytes(voice(6.0, 23 + i, **VOICES[name])))
+                      for i, name in enumerate(VOICES))
+        for first, second in KNOWN_ORDERS:
+            two_voices = np.concatenate([voice(KNOWN_SPLIT_S, 31, **VOICES[first]),
+                                         voice(REST_FILE_S - KNOWN_SPLIT_S, 32,
+                                               **VOICES[second])])
+            out[f"known_{first}_first"] = rest_request(
+                backend, {"response_format": "verbose_json", "language": "en"},
+                wav_bytes(two_voices), known=known, names=tuple(VOICES))
+    finally:
+        cs.stop()
+        window.stop()
+
+    verbose = json.loads(out["verbose_json"]["body"])
+    segs = verbose["segments"]
+    check(bool(segs) and verbose["duration"] == REST_FILE_S, "verbose_json: no segments")
+    check(segs[-1]["end"] > 30.0, "verbose_json: the second seek window decoded nothing")
+    check(all(s["tokens"] for s in segs), "verbose_json: a segment without tokens")
+    n_words = check_offline_words("REST verbose_json", segs)
+    events = out["stream"]["sse"].split("\n\n")
+    check(events[-2:] == ["data: [DONE]", ""], f"SSE: does not end with [DONE]: {events[-3:]}")
+    sse = [json.loads(e[len("data: "):]) for e in events[:-2]]
+    check([(e["text"], e["start"], e["end"]) for e in sse]
+          == [(s["text"], s["start"], s["end"]) for s in segs],
+          "SSE events differ from the verbose_json segments")
+    check(json.loads(out["json"]["body"]) == {"text": verbose["text"]},
+          "json differs from the verbose_json text")
+    for fmt in ("srt", "vtt", "text"):
+        check((out[fmt]["ctype"], out[fmt]["body"]) == rest._format_response(
+            segs, verbose["language"], verbose["duration"], fmt), f"{fmt} differs from the "
+              "verbose_json segments formatted")
+    raw = json.loads(out["raw_f32"]["body"])
+    check(raw["duration"] == REST_RAW_S and bool(raw["segments"]), "raw f32 upload: no segments")
+    # a segment that holds MIN_AUDIO_S of the file's audio (random weights also
+    # place segments past the file's end) inside one voice's part carries that
+    # voice's name; the first seek window lies inside the first part
+    labels = {}
+    for first, second in KNOWN_ORDERS:
+        labelled = json.loads(out[f"known_{first}_first"]["body"])["segments"]
+        inside = []
+        for s in labelled:
+            end = min(s["end"], REST_FILE_S)
+            if end - s["start"] >= MIN_AUDIO_S and (end <= KNOWN_SPLIT_S
+                                                    or s["start"] >= KNOWN_SPLIT_S):
+                inside.append((s, first if end <= KNOWN_SPLIT_S else second))
+        labels[f"{first}_first"] = [(s["start"], s["end"], s.get("speaker")) for s in labelled]
+        check(any(name == first for _, name in inside)
+              and all(s.get("speaker") == name for s, name in inside),
+              f"known speakers, {first} first: (start, end, label) {labels[f'{first}_first']}")
+    # the gate in front of every /v1/ request
+    path = rest.ENDPOINT
+    denied = rest.check_access(path, "Bearer wrong", "1.2.3.4", "k3y", rest.RateLimiter(0))
+    check(denied is not None and denied[0] == 401, f"wrong key: {denied}")
+    check(rest.check_access(path, "Bearer k3y", "1.2.3.4", "k3y", rest.RateLimiter(0)) is None,
+          "right key refused")
+    limiter = rest.RateLimiter(2)
+    gates = [rest.check_access(path, "", "1.2.3.4", None, limiter) for _ in range(3)]
+    check(gates[:2] == [None, None] and gates[2] is not None and gates[2][0] == 429,
+          f"rate limit 2 rpm: {gates}")
+    result = {
+        "file_s": REST_FILE_S,
+        "requests": {k: {"host_s": v["seconds"], "routes": v["routes"],
+                         "launches": v["launches"]} for k, v in out.items()},
+        "segments": len(segs), "words": n_words,
+        "known_speaker_labels": labels,
+    }
+    log(f"REST: {len(segs)} segments, {n_words} words, labels "
+        f"{result['known_speaker_labels']}; host s per request "
+        + ", ".join(f"{k} {v['seconds']:.6g}" for k, v in out.items()))
+    return result
+
+
+def small100_state_dict(seed: int, dev: torch.device) -> dict[str, torch.Tensor]:
+    """Random bf16 SMALL100 weights in HF M2M100ForConditionalGeneration's
+    key layout, made on the card: projections N(0, 1/sqrt(fan_in)), biases
+    N(0, 0.02), the shared embedding N(0, 0.5), layer norms at one and zero.
+    (Projections at 4/sqrt(fan_in) make the 12 encoder layers chaotic: bf16
+    and float32 then part by 68% of max|ref|.)"""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    d, f = SMALL100["d_model"], SMALL100["encoder_ffn_dim"]
+    sd: dict[str, torch.Tensor] = {}
+
+    def lin(name, d_out, d_in):
+        sd[f"{name}.weight"] = (torch.randn(d_out, d_in, generator=g, device=dev)
+                                / d_in ** 0.5).to(torch.bfloat16)
+        sd[f"{name}.bias"] = (torch.randn(d_out, generator=g, device=dev) * 0.02
+                              ).to(torch.bfloat16)
+
+    def ln(name):
+        sd[f"{name}.weight"] = torch.ones(d, dtype=torch.bfloat16, device=dev)
+        sd[f"{name}.bias"] = torch.zeros(d, dtype=torch.bfloat16, device=dev)
+
+    sd["model.shared.weight"] = (torch.randn(SMALL100["vocab_size"], d, generator=g, device=dev)
+                                 * 0.5).to(torch.bfloat16)
+    for side, n in (("encoder", SMALL100["encoder_layers"]),
+                    ("decoder", SMALL100["decoder_layers"])):
+        for i in range(n):
+            pre = f"model.{side}.layers.{i}"
+            attns = ("self_attn", "encoder_attn") if side == "decoder" else ("self_attn",)
+            for attn in attns:
+                for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
+                    lin(f"{pre}.{attn}.{proj}", d, d)
+                ln(f"{pre}.{attn}_layer_norm")
+            lin(f"{pre}.fc1", f, d)
+            lin(f"{pre}.fc2", d, f)
+            ln(f"{pre}.final_layer_norm")
+        ln(f"model.{side}.layer_norm")
+    return sd
+
+
+def write_small100_dir(path: str, dev: torch.device) -> None:
+    """A SMALL100-shaped checkpoint dir: config.json, model.safetensors
+    (random weights from SEED + 2) and a toy tokenizer whose vocab.json
+    fills every id below the language tokens, and whose SentencePiece
+    pieces spell VisibleTokenizer's words (" t1234")."""
+    from whisperlive_tpu_torch import small100_tokenizer as spm
+    from whisperlive_tpu_torch.models import safetensors_io
+
+    u = spm.SPIECE_UNDERLINE
+    chars = [u, "t"] + [str(i) for i in range(10)]
+    pieces = [("<unk>", 0.0, 2), ("<s>", 0.0, 3), ("</s>", 0.0, 3)]
+    pieces += [(c, -2.0, 1) for c in chars] + [(u + "t", -0.5, 1)]
+    spm.write_spm_model(os.path.join(path, "sentencepiece.bpe.model"), pieces)
+    vocab = {"<s>": 0, "<pad>": 1, "</s>": 2, "<unk>": 3}
+    for p, _, kind in pieces:
+        if kind == 1:
+            vocab[p] = len(vocab)
+    n_text = SMALL100["vocab_size"] - len(spm.FAIRSEQ_LANGUAGE_CODES) - 8
+    while len(vocab) < n_text:
+        vocab[f"{u}w{len(vocab)}"] = len(vocab)
+    with open(os.path.join(path, "vocab.json"), "w") as f:
+        json.dump(vocab, f)
+    with open(os.path.join(path, "tokenizer_config.json"), "w") as f:
+        json.dump({"tokenizer_class": "SMALL100Tokenizer"}, f)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(SMALL100, f)
+    safetensors_io.save_file(small100_state_dict(SEED + 2, dev),
+                             os.path.join(path, "model.safetensors"))
+
+
+def live_phase(engine: WhisperEngine, model_dir: str) -> dict:
+    """(b) A diarized and a translated streaming session on the continuous
+    backend, the translator loaded from `model_dir` on the card."""
+    from whisperlive_tpu_torch.models import m2m100 as m2m
+    from whisperlive_tpu_torch.translation import TorchTranslator
+
+    t0 = time.monotonic()
+    translator = TorchTranslator.shared(model_dir)
+    torch.cuda.synchronize()
+    load_s = time.monotonic() - t0
+    leaves = []
+    wmod.tree_map(leaves.append, translator.params)
+    check(all(t.device.type == "cuda" and t.dtype == torch.bfloat16 for t in leaves),
+          "translator parameters off the card or not bf16")
+    n_params = sum(t.numel() for t in leaves)
+    log(f"translator: SMALL100-shaped, {n_params} parameters, loaded in {load_s:.6g} s, beam "
+        f"{translator.beam_size}, max_new {translator.max_new}")
+
+    cs = ContinuousScheduler(engine, n_slots=CONT_SLOTS, steps_per_chunk=8, cross_ctx=640,
+                             enc_buckets=(512, 1500))
+    window = BatchScheduler(engine, max_batch_size=BATCH, batch_window_ms=50)
+    window.start()
+    cs.start()
+
+    def translated_all(ws) -> bool:
+        done = {(s["start"], s["end"]) for m in ws.sent for s in m.get("translated_segments", [])}
+        committed = {(s["start"], s["end"]) for m in ws.sent for s in m.get("segments", [])
+                     if s.get("completed")}
+        return committed <= done
+
+    try:
+        backend = CountingBackend(window, model_name=MODEL, continuous_scheduler=cs)
+        sessions = [
+            dict(uid="live-diarized", language="en", audio=np.concatenate(
+                [speech_like(LIVE_SESSION_S / 2, 25), 0.7 * speech_like(LIVE_SESSION_S / 2, 26)]),
+                 extra={"enable_diarization": True, "max_speakers": 2}),
+            dict(uid="live-translated", language="en", audio=speech_like(LIVE_SESSION_S, 27),
+                 extra={"enable_translation": True, "target_language": "fr"},
+                 settle=translated_all),
+        ]
+        sockets, wall = serve(backend, sessions, translation_model_dir=model_dir)
+    finally:
+        cs.stop()
+        window.stop()
+    launches = dict(_kernels.launches)
+    check_calls(backend, [s["uid"] for s in sessions], 4)
+    check_sockets(sockets)
+    for name in CONTINUOUS_PATH:
+        check(launches[name] > 0, f"kernel {name} was not launched by the live sessions")
+
+    completed = {}
+    for m in sockets[0].sent:
+        for s in m.get("segments", []):
+            if s.get("completed"):
+                completed[(s["start"], s["end"])] = s
+    diarized = list(completed.values())
+    heard = [s for s in diarized if float(s["end"]) - float(s["start"]) >= MIN_AUDIO_S]
+    check(bool(heard), f"the diarized session committed no segment of {MIN_AUDIO_S} s: {diarized}")
+    check(all("speaker" in s for s in heard),
+          f"a committed segment without a speaker: {diarized}")
+
+    sources = {}
+    for m in sockets[1].sent:
+        for s in m.get("segments", []):
+            if s.get("completed"):
+                sources[(s["start"], s["end"])] = s["text"]
+    translated = [s for m in sockets[1].sent for s in m.get("translated_segments", [])]
+    check(bool(translated), "the translated session received no translated_segments")
+    check(set(sources) <= {(s["start"], s["end"]) for s in translated},
+          "a committed segment was never translated")
+    steps, seconds = [], []
+    forward = m2m._cached_forward
+
+    def counting_forward(*a, **kw):
+        steps[-1] += 1
+        return forward(*a, **kw)
+
+    m2m._cached_forward = counting_forward
+    try:
+        for s in translated:
+            steps.append(-1)  # the prefix pass is not a decode step
+            t0 = time.monotonic()
+            fresh = translator.translate(sources[(s["start"], s["end"])], "fr")
+            torch.cuda.synchronize()
+            seconds.append(time.monotonic() - t0)
+            check(fresh == s["text"], f"translated text {s['text']!r} differs from a fresh "
+                  f"translation {fresh!r} of {sources[(s['start'], s['end'])]!r}")
+    finally:
+        m2m._cached_forward = forward
+    result = {"wall_s": wall, "translator_load_s": load_s, "translator_params": n_params,
+              "diarized_segments": len(diarized), "labelled_segments": len(heard),
+              "speakers": sorted({s["speaker"] for s in heard}),
+              "translated_segments": len(translated),
+              "translate_s_per_segment": statistics.median(seconds),
+              "decode_steps_per_segment": statistics.median(steps),
+              "launches": launches}
+    log(f"live sessions: {wall:.6g} s wall; diarized {len(diarized)} segments, {len(heard)} "
+        f"of {MIN_AUDIO_S} s or more, speakers "
+        f"{result['speakers']}; {len(translated)} translated segments, translate "
+        f"{seconds} s, decode steps {steps}; launches {launches}")
+    return result
+
+
+def translation_reference(model_dir: str, dev: torch.device, rel_tol: float = 5e-2,
+                          logit_rel_tol: float = 5e-3) -> dict:
+    """(c) The SMALL100-shaped model on the card in bf16 (the translator's)
+    against the same weights in float32: encoder states within rel_tol and
+    teacher-forced logits within logit_rel_tol of max|ref| (their sound
+    readings: 2.4e-2 and 8.9e-4) for 4 sources at the 64-token bucket, and
+    the free-running greedy tokens of the first 16 steps, equal up to a tie
+    within twice the measured logit error."""
+    from whisperlive_tpu_torch.models import m2m100 as m2m
+    from whisperlive_tpu_torch.models import safetensors_io
+    from whisperlive_tpu_torch.translation import TorchTranslator
+
+    bf16 = TorchTranslator.shared(model_dir)
+    cfg32 = bf16.cfg.replace(dtype=torch.float32)
+    p32 = m2m.cast_params(m2m.params_from_state_dict(safetensors_io.load_dir(model_dir), cfg32),
+                          torch.float32, dev)
+    rng = np.random.default_rng(SEED + 3)
+    n, t = TRANSLATE_REF_SOURCES, TRANSLATE_BUCKET
+    src = np.full((n, t), cfg32.pad_token_id, np.int64)
+    for i, length in enumerate((t, 40, 17, 5)):
+        src[i, :length] = rng.integers(3, cfg32.vocab_size, length)
+        src[i, length - 1] = cfg32.eos_token_id
+    src = torch.from_numpy(src).to(dev)
+    mask = src != cfg32.pad_token_id
+    with torch.inference_mode():
+        ref_tokens = m2m.generate_greedy(p32, cfg32, src, None, max_new=TRANSLATE_REF_STEPS)
+        tgt = torch.cat([torch.full((n, 1), cfg32.eos_token_id, device=dev), ref_tokens], 1)
+        enc = {}
+        logits = {}
+        for label, cfg, params in (("bf16", bf16.cfg, bf16.params), ("f32", cfg32, p32)):
+            enc[label] = m2m.encode(params, cfg, src, mask)
+            logits[label] = m2m.decode(params, cfg, tgt[:, :-1], enc[label], mask)
+        bf16_tokens = m2m.generate_greedy(bf16.params, bf16.cfg, src, None,
+                                          max_new=TRANSLATE_REF_STEPS)
+    torch.cuda.synchronize()
+    check(enc["bf16"].shape == (n, t, cfg32.d_model) and enc["bf16"].dtype == torch.bfloat16,
+          f"encoder states {enc['bf16'].shape} {enc['bf16'].dtype}")
+    e_bf, e_32 = enc["bf16"].float()[mask], enc["f32"][mask]
+    err = (e_bf - e_32).abs().max().item()
+    scale = e_32.abs().max().item()
+    log(f"reference: SMALL100 encoder states max_abs_err={err:.6g} tol={rel_tol * scale:.6g}")
+    check(bool(torch.isfinite(e_bf).all()) and err <= rel_tol * scale,
+          "SMALL100 encoder states disagree")
+    rows = n * TRANSLATE_REF_STEPS
+    ties_only = compare_logits("SMALL100 teacher-forced logits",
+                               logits["bf16"].reshape(rows, -1), logits["f32"].reshape(rows, -1),
+                               logit_rel_tol, (rows, cfg32.vocab_size))
+    check(ties_only, "SMALL100 greedy tokens differ beyond a tie")
+    logit_err = (logits["bf16"] - logits["f32"]).abs().max().item()
+    same = (bf16_tokens == ref_tokens).all(1).tolist()
+    first_diff = [int((r != q).nonzero()[0]) if not ok else None
+                  for r, q, ok in zip(bf16_tokens, ref_tokens, same)]
+    log(f"reference: SMALL100 greedy {TRANSLATE_REF_STEPS} steps, bf16 equal to float32 on "
+        f"{sum(same)}/{n} sources; first differing step {first_diff}")
+    # up to its first differing step a source's bf16 run saw the float32
+    # prefix, so the float32 logits there say whether the two picks tie
+    for i, j in enumerate(first_diff):
+        if j is not None:
+            row = logits["f32"][i, j]
+            gap = (row[ref_tokens[i, j]] - row[bf16_tokens[i, j]]).item()
+            check(gap <= 2 * logit_err, f"SMALL100 greedy, source {i}: step {j} picks a token "
+                  f"{gap:.6g} below float32's, beyond a tie ({2 * logit_err:.6g})")
+    del p32
+    return {"encoder_max_abs_err": err, "encoder_max_abs_ref": scale,
+            "logits_max_abs_err": logit_err, "greedy_equal_sources": sum(same),
+            "greedy_first_diff": first_diff}
+
+
+def rest_of_serving_phase(engine: WhisperEngine, dev: torch.device) -> dict:
+    """Phase 11: (a) REST, (b) live diarization and translation, (c) the
+    translation model against float32."""
+    import shutil
+    import tempfile
+
+    from whisperlive_tpu_torch.translation import TorchTranslator
+
+    t_start = time.monotonic()
+    result = {"rest": rest_phase(engine)}
+    model_dir = tempfile.mkdtemp(prefix="chip_smoke_small100_")
+    try:
+        t0 = time.monotonic()
+        write_small100_dir(model_dir, dev)
+        result["small100_write_s"] = time.monotonic() - t0
+        result["live"] = live_phase(engine, model_dir)
+        result["translation_reference"] = translation_reference(model_dir, dev)
+    finally:
+        TorchTranslator._shared.pop(model_dir, None)
+        shutil.rmtree(model_dir, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    result["phase_s"] = time.monotonic() - t_start
+    log(f"phase 11: {result['phase_s']:.6g} s")
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this test needs a CUDA card",
@@ -3145,6 +3652,7 @@ def main() -> int:
     err8 = verify_reference(engine)
     verify_reference(engine4)
     spec_reference(engine, draft, err8)
+    rest_of_serving = rest_of_serving_phase(engine, dev)
 
     # phase 10: the distiller on the serving engine's own random teacher, its
     # draft on the `all` pool, then the fine-tune with the engines freed
@@ -3179,6 +3687,7 @@ def main() -> int:
     print(json.dumps({"training": {"finetune": finetune, "distill": distilled,
                                    "served_distilled_draft": spec_trained,
                                    "served_random_draft": spec_random}}))
+    print(json.dumps({"rest_of_serving": rest_of_serving}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -9,7 +9,10 @@ The reference's WhisperLive parity flags are accepted with its defaults,
 `--omp_num_threads` sets OMP_NUM_THREADS and torch's thread count (the
 fixture restores it), `--compute_dtype` reaches the
 engine, and `--beam_size` / `--beam_mode` size the continuous pool as the
-reference does (the last two build a tiny CPU model).
+reference does (the last two build a tiny CPU model). `--enable_rest`,
+`--rest_port`, `--cors_origins`, `--rate_limit_rpm` and `--fake_transcriber`
+parse with the reference's defaults and help, and reach the server as
+`rest_port` and `rest_kwargs`, or as FakeBackend named "fake".
 """
 
 import os
@@ -140,3 +143,46 @@ def test_beam_flags_size_the_continuous_pool(monkeypatch, mode, slots, lanes, hy
         assert backend.scheduler.engine.beam_chunk == (24 if hybrid else 0)
     finally:
         run_server.stop_backend(backend)
+
+
+REST_FLAGS = ("enable_rest", "rest_port", "cors_origins", "rate_limit_rpm", "fake_transcriber")
+
+
+def test_rest_and_fake_flags_default_as_the_reference(served):
+    run_server.main([])
+    args, ref = served["args"], jrun_server.build_parser().parse_args([])
+    for name in REST_FLAGS:
+        assert getattr(args, name) == getattr(ref, name), name
+    assert served["rest_port"] is None  # REST stays off without --enable_rest
+    assert served["rest_kwargs"] == {"cors_origins": ["*"], "api_key": None,
+                                      "rate_limit_rpm": 0}
+    helps = {a.dest: a.help for a in run_server.build_parser()._actions}
+    ref_helps = {a.dest: a.help for a in jrun_server.build_parser()._actions}
+    for name in REST_FLAGS:
+        assert helps[name] == ref_helps[name], name
+
+
+def test_rest_flags_reach_the_server(served):
+    argv = ["--enable_rest", "--rest_port", "9393", "--cors_origins", "http://a,http://b",
+            "--rate_limit_rpm", "30", "--api_key", "k"]
+    run_server.main(argv)
+    ref = jrun_server.build_parser().parse_args(argv)
+    for name in REST_FLAGS:
+        assert getattr(served["args"], name) == getattr(ref, name), name
+    assert served["rest_port"] == 9393
+    assert served["rest_kwargs"] == {"cors_origins": ["http://a", "http://b"], "api_key": "k",
+                                      "rate_limit_rpm": 30}
+
+
+def test_fake_transcriber_serves_the_fake_backend(monkeypatch):
+    from whisperlive_tpu_torch.serving.backends import FakeBackend
+
+    seen = {}
+    monkeypatch.setattr(TranscriptionServer, "run",
+                        lambda self, backend, **kw: seen.update(kw, backend=backend))
+    threads = torch.get_num_threads()
+    try:
+        run_server.main(["--fake_transcriber", "--model", "large-v3"])  # no model is built
+    finally:
+        torch.set_num_threads(threads)
+    assert type(seen["backend"]) is FakeBackend and seen["backend_name"] == "fake"

@@ -75,6 +75,48 @@ def test_hf_checkpoint_converts_bit_equal_to_jax(hf_dir):
     assert "b" not in tree["encoder"]["layers"]["attn"]["k"]
 
 
+def test_whisper_conversion_unchanged_by_the_k_bias_option(hf_dir):
+    """k_bias (M2M100's key-projection bias) defaults off: Whisper's tree is
+    bit for bit what the blocks give with k_bias=False, and the JAX
+    converter's leaves, with no key bias anywhere."""
+    path, model = hf_dir
+    sd = {k[len("model."):]: v for k, v in model.state_dict().items() if k.startswith("model.")}
+    _, tree = tconvert.load_hf_checkpoint(path)
+    for side, n, cross in (("encoder", 2, False), ("decoder", 2, True)):
+        explicit = tconvert._stack([tconvert._block(sd, f"{side}.layers.{i}", cross, k_bias=False)
+                                    for i in range(n)])
+        assert_trees_equal(tree[side]["layers"], explicit)
+        for attn in ("attn", "cross_attn") if cross else ("attn",):
+            assert "b" not in tree[side]["layers"][attn]["k"]
+
+
+def test_k_bias_reads_the_key_bias_as_jax():
+    """With k_bias=True the key projections carry their bias, leaf for leaf
+    as the JAX converter's _block_params(k_bias=True)."""
+    rng = np.random.default_rng(5)
+    d, f = 8, 16
+    sd = {}
+    for attn in ("self_attn", "encoder_attn"):
+        for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            sd[f"l.{attn}.{proj}.weight"] = torch.from_numpy(rng.standard_normal((d, d),
+                                                                                 np.float32))
+            sd[f"l.{attn}.{proj}.bias"] = torch.from_numpy(rng.standard_normal(d, np.float32))
+    for ln in ("self_attn_layer_norm", "encoder_attn_layer_norm", "final_layer_norm"):
+        sd[f"l.{ln}.weight"] = torch.ones(d)
+        sd[f"l.{ln}.bias"] = torch.zeros(d)
+    sd["l.fc1.weight"], sd["l.fc1.bias"] = torch.ones(f, d), torch.zeros(f)
+    sd["l.fc2.weight"], sd["l.fc2.bias"] = torch.ones(d, f), torch.zeros(d)
+    ours = tconvert._block(sd, "l", cross=True, k_bias=True)
+    ref = jconvert._block_params(sd, "l", cross=True, k_bias=True)
+    flat, jflat = safetensors_io.flatten_tree(ours), safetensors_io.flatten_tree(
+        jax.tree.map(lambda x: torch.from_numpy(np.asarray(x)), ref))
+    assert flat.keys() == jflat.keys()
+    for k in flat:
+        assert torch.equal(flat[k], jflat[k]), k
+    assert torch.equal(ours["attn"]["k"]["b"], sd["l.self_attn.k_proj.bias"])
+    assert torch.equal(ours["cross_attn"]["k"]["b"], sd["l.encoder_attn.k_proj.bias"])
+
+
 def test_encoder_and_logits_match_transformers(hf_dir):
     from whisperlive_tpu_torch.cli.convert import VERIFY_TOL, verify_encoder
 

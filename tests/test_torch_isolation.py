@@ -3,12 +3,16 @@ chip_smoke.py or kernel_variants.py, imports jax or any module of the JAX packag
 
 A subprocess installs a meta-path finder that refuses `jax`, `jaxlib` and
 every `whisperlive_tpu.` module, and the packages the card's machine lacks
-(`safetensors`, `orbax`, `optax`, `tokenizers`: the checkpoint reader and
-the optimizer are the port's own, and `tokenizers` is reached only for a
-checkpoint's tokenizer.json),
-then imports every module of the port, chip_smoke.py and kernel_variants.py. The host modules the port keeps its own copies of
-(tokenizer, session, VAD, word alignment) are also held against the
-originals on a few inputs; the alignment copy exactly, on random inputs.
+(`safetensors`, `orbax`, `optax`, `tokenizers`, `aiohttp`, `websockets`,
+`websocket`, `transformers`, `sentencepiece`: the checkpoint reader, the
+optimizer and the SMALL100 tokenizer are the port's own, `tokenizers` and
+`transformers` are reached only for a checkpoint that needs them, and the
+servers' and the client's network packages only inside the functions that
+open a connection), then imports every module of the port, chip_smoke.py
+and kernel_variants.py. The host modules the port keeps its own copies of
+(tokenizer, session, VAD, word alignment, SMALL100 tokenizer, diarization
+and its speaker embedders) are also held against the originals on a few
+inputs; the alignment copy exactly, on random inputs.
 """
 
 import os
@@ -21,11 +25,19 @@ from pathlib import Path
 import numpy as np
 import pytest
 
+from whisperlive_tpu import diarization as jdiar
+from whisperlive_tpu import small100_tokenizer as jspm
+from whisperlive_tpu.audio import speaker_model as jsm
 from whisperlive_tpu.audio import vad as jvad
+from whisperlive_tpu.audio import wespeaker as jws
 from whisperlive_tpu.engine import align as jalign
 from whisperlive_tpu.engine import tokenizer as jtok
 from whisperlive_tpu.serving import session as jsession
+from whisperlive_tpu_torch import diarization as tdiar
+from whisperlive_tpu_torch import small100_tokenizer as tspm
+from whisperlive_tpu_torch.audio import speaker_model as tsm
 from whisperlive_tpu_torch.audio import vad as tvad
+from whisperlive_tpu_torch.audio import wespeaker as tws
 from whisperlive_tpu_torch.engine import align as talign
 from whisperlive_tpu_torch.engine import tokenizer as ttok
 from whisperlive_tpu_torch.serving import session as tsession
@@ -37,7 +49,8 @@ _PROBE = textwrap.dedent(
     import importlib, importlib.abc, pkgutil, sys
 
     REFUSED = ("jax", "jaxlib", "whisperlive_tpu", "safetensors", "orbax", "optax",
-               "tokenizers")
+               "tokenizers", "aiohttp", "websockets", "websocket", "transformers",
+               "sentencepiece")
 
     class Refuse(importlib.abc.MetaPathFinder):
         def find_spec(self, name, path=None, target=None):
@@ -74,7 +87,8 @@ def test_port_imports_no_jax_and_no_jax_package():
     assert proc.returncode == 0, proc.stderr[-4000:]
     names = proc.stdout.split("IMPORTED")[1].split()
     assert len(names) >= 30  # every module of the package, not an empty walk
-    for name in ("training", "distill", "cli.distill"):
+    for name in ("training", "distill", "cli.distill", "serving.rest", "translation",
+                 "models.m2m100", "diarization", "client.client", "cli.run_client"):
         assert f"whisperlive_tpu_torch.{name}" in names
 
 
@@ -173,3 +187,33 @@ def test_align_copy_matches_original(seed):
                 mod.is_segment_anomaly(merged))
 
     assert run(talign, tok_t) == run(jalign, tok_j)
+
+
+def test_small100_tokenizer_copy_matches_original(tmp_path):
+    u = "\u2581"
+    pieces = [("<unk>", 0.0, 2), ("<s>", 0.0, 3), ("</s>", 0.0, 3), (u, -1.0, 1),
+              ("a", -2.0, 1), ("b", -2.0, 1), ("ab", -0.5, 1), (u + "ab", -0.2, 1)]
+    tspm.write_spm_model(str(tmp_path / "t.model"), pieces)
+    jspm.write_spm_model(str(tmp_path / "j.model"), pieces)
+    assert (tmp_path / "t.model").read_bytes() == (tmp_path / "j.model").read_bytes()
+    read = tspm.read_spm_model(str(tmp_path / "t.model"))
+    assert read == jspm.read_spm_model(str(tmp_path / "t.model"))
+    a, b = tspm.SPMBpe(read), jspm.SPMBpe(read)
+    for text in ("ab ba abab", "  b", "xyz ab"):
+        assert a.encode(text) == b.encode(text)
+        assert tspm.SPMBpe.decode(a.encode(text)) == jspm.SPMBpe.decode(b.encode(text))
+    assert tspm.FAIRSEQ_LANGUAGE_CODES == jspm.FAIRSEQ_LANGUAGE_CODES
+    assert tspm.is_small100_checkpoint(str(tmp_path)) == jspm.is_small100_checkpoint(
+        str(tmp_path))
+
+
+def test_diarization_copies_match_originals():
+    audio = (np.random.default_rng(4).standard_normal(16000) * 0.1).astype(np.float32)
+    pairs = [(tdiar.SpectralEmbedder(), jdiar.SpectralEmbedder()),
+             (tsm.LearnedSpeakerEmbedder(), jsm.LearnedSpeakerEmbedder()),
+             (tws.WeSpeakerEmbedder(), jws.WeSpeakerEmbedder())]
+    for ours, ref in pairs:
+        np.testing.assert_array_equal(ours(audio), ref(audio))
+    for name in ("SAMPLE_RATE", "MIN_AUDIO_S", "SIMILARITY_THRESHOLD", "EMA_KEEP"):
+        assert getattr(tdiar, name) == getattr(jdiar, name)
+    assert vars(tws.LITE) == vars(jws.LITE) and vars(tws.R34) == vars(jws.R34)

@@ -7,7 +7,9 @@ dir; the first non-empty wins) or, without one, builds random weights from
 --seed; then a WhisperEngine on --device (CUDA by default; a missing card
 is an error), the window BatchScheduler and, by default, the continuous
 slot scheduler, warms both up, and serves through the port's
-TranscriptionServer with a TorchBackend.
+TranscriptionServer with a TorchBackend. --enable_rest also serves the
+OpenAI-compatible REST API on --rest_port (with --cors_origins and
+--rate_limit_rpm); --fake_transcriber serves FakeBackend, no model.
 Port of whisperlive_tpu/cli/run_server.py without multi-host serving;
 --no_continuous_batching serves the window path alone. The reference's
 WhisperLive parity flags (--backend, --trt_multilingual, --trt_py_session,
@@ -109,6 +111,11 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--cache_path", "-c", type=str, default="~/.cache/whisper-live-tpu/",
                         help="Converted-checkpoint cache directory (accepted for parity; "
                              "checkpoints are read from -tpu/-fw/-trt).")
+    parser.add_argument("--enable_rest", action="store_true",
+                        help="Enable the OpenAI-compatible REST API.")
+    parser.add_argument("--rest_port", type=int, default=9091)
+    parser.add_argument("--cors_origins", type=str, default="*",
+                        help="Comma-separated allowed CORS origins for REST.")
     parser.add_argument("--beam_size", type=int, default=1,
                         help="Beam width for streaming decodes (1 = greedy; the reference's "
                              "transcriber defaults to 5; wider beams shrink the effective "
@@ -153,6 +160,10 @@ def build_parser() -> argparse.ArgumentParser:
                         help="Prometheus /metrics port.")
     parser.add_argument("--api_key", type=str, default=os.environ.get("WL_API_KEY"),
                         help="Require 'Authorization: Bearer <key>' / ?token=.")
+    parser.add_argument("--rate_limit_rpm", type=int, default=0,
+                        help="Per-IP REST rate limit (requests/minute, 0=off).")
+    parser.add_argument("--fake_transcriber", action="store_true",
+                        help="Serve a deterministic fake model (protocol testing).")
     parser.add_argument("--no_warmup", action="store_true",
                         help="Skip the warm-up decodes (and kernel build) at startup.")
     return parser
@@ -168,8 +179,14 @@ def continuous_pool_size(args) -> tuple[int, int]:
 
 
 def create_backend(args):
-    """Engine, started schedulers and backend from the CLI flags."""
+    """The backend of the CLI flags: FakeBackend with --fake_transcriber,
+    else an engine with its started schedulers behind TorchBackend."""
     import torch
+
+    from whisperlive_tpu_torch.serving.backends import FakeBackend
+
+    if args.fake_transcriber:
+        return FakeBackend()
 
     from whisperlive_tpu_torch.device import resolve_device
     from whisperlive_tpu_torch.engine.scheduler import BatchScheduler
@@ -300,6 +317,8 @@ def warn_draft_ctx(args, for_continuous: bool) -> None:
 
 
 def stop_backend(backend) -> None:
+    if not hasattr(backend, "scheduler"):  # FakeBackend
+        return
     backend.scheduler.stop()
     for pool in (backend.continuous_scheduler, backend.spec_scheduler):
         if pool is not None:
@@ -322,16 +341,23 @@ def main(argv=None) -> None:
 
     server = TranscriptionServer()
     server.raw_pcm_default = args.raw_pcm_input
+    rest_kwargs = dict(
+        cors_origins=args.cors_origins.split(","),
+        api_key=args.api_key,
+        rate_limit_rpm=args.rate_limit_rpm,
+    )
     try:
         server.run(
             backend,
             host=args.host,
             port=args.port,
-            backend_name="torch",
+            backend_name="fake" if args.fake_transcriber else "torch",
             max_clients=args.max_clients,
             max_connection_time=args.max_connection_time,
             api_key=args.api_key,
             metrics_port=args.metrics_port,
+            rest_port=args.rest_port if args.enable_rest else None,
+            rest_kwargs=rest_kwargs,
         )
     finally:
         stop_backend(backend)

@@ -66,25 +66,26 @@ def _ln(sd: Mapping[str, Any], prefix: str) -> Params:
     return {"scale": _t(sd[f"{prefix}.weight"]), "bias": _t(sd[f"{prefix}.bias"])}
 
 
-def _attn(sd: Mapping[str, Any], prefix: str) -> Params:
-    # Whisper's key projection has no bias
+def _attn(sd: Mapping[str, Any], prefix: str, k_bias: bool = False) -> Params:
+    """One HF attention block. k_bias=False is Whisper's convention (no
+    key-projection bias); M2M100 (models/m2m100.py) sets True."""
     return {
         "q": _linear(sd, f"{prefix}.q_proj"),
-        "k": _linear(sd, f"{prefix}.k_proj", bias=False),
+        "k": _linear(sd, f"{prefix}.k_proj", bias=k_bias),
         "v": _linear(sd, f"{prefix}.v_proj"),
         "o": _linear(sd, f"{prefix}.out_proj"),
     }
 
 
-def _block(sd: Mapping[str, Any], prefix: str, cross: bool) -> Params:
+def _block(sd: Mapping[str, Any], prefix: str, cross: bool, k_bias: bool = False) -> Params:
     p = {
-        "attn": _attn(sd, f"{prefix}.self_attn"),
+        "attn": _attn(sd, f"{prefix}.self_attn", k_bias),
         "attn_ln": _ln(sd, f"{prefix}.self_attn_layer_norm"),
         "mlp": {"fc1": _linear(sd, f"{prefix}.fc1"), "fc2": _linear(sd, f"{prefix}.fc2")},
         "mlp_ln": _ln(sd, f"{prefix}.final_layer_norm"),
     }
     if cross:
-        p["cross_attn"] = _attn(sd, f"{prefix}.encoder_attn")
+        p["cross_attn"] = _attn(sd, f"{prefix}.encoder_attn", k_bias)
         p["cross_attn_ln"] = _ln(sd, f"{prefix}.encoder_attn_layer_norm")
     return p
 

@@ -12,8 +12,9 @@ the adaptive submission cadence, mixed speculative routing (full
 re-decodes to a second, speculative continuous pool, with hysteresis on its
 acceptance) and hybrid beam serving (beam_mode="refresh": greedy
 incremental partials on the continuous pool, beamed full re-decodes on the
-window scheduler in preemptible segments). The backend interface
-TranscriptionServer expects:
+window scheduler in preemptible segments). FakeBackend, one word a second
+of audio, serves the protocol tests and --fake_transcriber. The backend
+interface TranscriptionServer and the REST endpoint expect:
 
     async def transcribe(chunk, options, *, language, previous_tokens, uid, ...)
         -> BatchResult | None
@@ -26,6 +27,7 @@ import dataclasses
 import logging
 import os
 import time
+from types import SimpleNamespace
 from typing import Optional, Sequence
 
 import numpy as np
@@ -244,6 +246,11 @@ class TorchBackend:
         self._prefix_streak.pop(uid, None)
         self._rt_ema.pop(uid, None)
 
+    def _adjust_options(self, topts: TranscribeOptions, chunk: np.ndarray) -> TranscribeOptions:
+        """Per-request option hook, the identity here (benchmarks override
+        it, e.g. to emulate trained weights' decode lengths)."""
+        return topts
+
     def _trim_prefix(self, tokens: Sequence[int]) -> tuple[int, ...]:
         """Stable part of a previous hypothesis: drop trailing specials and
         timestamps, then the last four text tokens (the unstable zone next
@@ -279,6 +286,7 @@ class TorchBackend:
                 return None  # silence: nothing decoded, cursor stays
 
         topts = transcribe_options_from_session(options, language, beam_size=self.beam_size)
+        topts = self._adjust_options(topts, chunk)
         # the prefix plan is resolved before routing: hybrid beam splits on
         # it; its mutations apply after routing
         prefix_eligible = (
@@ -362,3 +370,61 @@ class TorchBackend:
                 self._prefix_cache.pop(uid, None)
                 self._prefix_streak.pop(uid, None)
         return result
+
+
+class FakeBackend:
+    """Deterministic streaming transcriber: one word per second of audio.
+
+    Used by the hermetic server/client tests and by `--fake_transcriber`
+    (handy for protocol debugging without a model, and the analogue of the
+    reference's mocked-transcriber test seam)."""
+
+    def __init__(self, latency_s: float = 0.0):
+        self.latency_s = latency_s
+
+    async def transcribe(
+        self,
+        chunk: np.ndarray,
+        options: SessionOptions,
+        *,
+        language: Optional[str] = None,
+        previous_tokens: Sequence[int] = (),
+        uid: str = "",
+        include_unfinished: bool = True,
+        window_anchor_s: Optional[float] = None,
+        refresh_audio=None,
+    ) -> BatchResult:
+        if self.latency_s:
+            await asyncio.sleep(self.latency_s)
+        duration = len(chunk) / 16000.0
+        segments = []
+        whole = int(duration)
+        for i in range(whole):
+            segments.append(
+                SimpleNamespace(
+                    start=float(i),
+                    end=float(i + 1),
+                    text=f" word{i}",
+                    tokens=[],
+                    no_speech_prob=0.0,
+                    words=None,
+                )
+            )
+        if duration > whole:
+            segments.append(
+                SimpleNamespace(
+                    start=float(whole),
+                    end=duration,
+                    text=" partial",
+                    tokens=[],
+                    no_speech_prob=0.0,
+                    words=None,
+                )
+            )
+        return BatchResult(
+            segments=segments,
+            language=language or options.language or "en",
+            language_prob=0.99,
+            duration=duration,
+            advance_s=duration,
+        )

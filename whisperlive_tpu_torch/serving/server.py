@@ -18,10 +18,9 @@ Wire protocol (byte-compatible, SURVEY §2 "WebSocket wire protocol"):
                      {"uid", "segments": [...]},
                      {"uid", "message": "DISCONNECT"}
 
-The port's copy of whisperlive_tpu/serving/server.py. Speaker diarization,
-built-in translation and the REST endpoint raise NotImplementedError naming
-their ROADMAP.md item; the websockets import stays lazy (inside serve()),
-so the connection handler runs without the package.
+The port's copy of whisperlive_tpu/serving/server.py. The websockets and
+aiohttp imports stay lazy (inside serve() and the REST module's
+start_rest_server), so the connection handler runs without either package.
 """
 
 from __future__ import annotations
@@ -45,14 +44,6 @@ from whisperlive_tpu_torch.serving.session import (
 from whisperlive_tpu_torch.utils import metrics as wl_metrics
 
 logger = logging.getLogger(__name__)
-
-NOT_PORTED_DIARIZATION = (
-    "speaker diarization is not ported yet: ROADMAP.md open item 13"
-)
-NOT_PORTED_TRANSLATION = (
-    "built-in translation is not ported yet: ROADMAP.md open item 12"
-)
-NOT_PORTED_REST = "the REST endpoint is not ported yet: ROADMAP.md open item 9"
 
 END_OF_AUDIO = b"END_OF_AUDIO"
 MIN_CHUNK_S = 1.0  # minimum tail before a decode is scheduled (base.py:118)
@@ -403,14 +394,27 @@ class TranscriptionServer:
         )
         client.audio_format = audio_format
         if options.enable_diarization:
-            raise NotImplementedError(NOT_PORTED_DIARIZATION)
+            from whisperlive_tpu_torch.diarization import SpeakerDiarizer
+
+            diarizer = SpeakerDiarizer(max_speakers=options.max_speakers)
+            client.session.speaker_identifier = diarizer.make_identifier()
+            client.diarizer = diarizer
         if options.enable_translation:
             if self.translator_factory is not None:
                 client.translator = self.translator_factory(
                     client, options.target_language
                 )
             else:
-                raise NotImplementedError(NOT_PORTED_TRANSLATION)
+                from whisperlive_tpu_torch.translation import (
+                    TranslationWorker,
+                    make_translator,
+                )
+
+                client.translator = TranslationWorker(
+                    client,
+                    options.target_language,
+                    make_translator(self.translation_model_dir),
+                )
             client.session.translation_queue = client.translator.queue
         self.client_manager.add_client(websocket, client)
         wl_metrics.track_connection_accepted()
@@ -490,7 +494,11 @@ class TranscriptionServer:
 
         rest_runner = None
         if rest_port:
-            raise NotImplementedError(NOT_PORTED_REST)
+            from whisperlive_tpu_torch.serving.rest import start_rest_server
+
+            rest_runner = await start_rest_server(
+                backend=backend, port=rest_port, **(rest_kwargs or {})
+            )
 
         self._shutdown = asyncio.Event()
         async with ws_serve(self.recv_audio, host, port, max_size=2**24) as server:

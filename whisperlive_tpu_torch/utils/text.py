@@ -1,12 +1,53 @@
-"""SRT/VTT subtitle writing for the offline CLI.
+"""Terminal subtitle rendering, SRT/VTT writing (whisper_live/utils.py twin).
 
-The port's copy of the subtitle half of whisperlive_tpu/utils/text.py
-(whisper_live/utils.py twin); the terminal rendering stays with the client.
+The port's copy of whisperlive_tpu/utils/text.py: the client renders the
+rolling transcript, the offline CLI and the REST endpoint write subtitles.
 """
 
 from __future__ import annotations
 
+import os
+import textwrap
 from typing import List
+
+
+def clear_screen() -> None:
+    os.system("cls" if os.name == "nt" else "clear")
+
+
+def print_transcript(
+    text, translated: bool = False, timestamps: bool = False, max_lines: int = 0
+) -> None:
+    """Wrapped terminal rendering of the rolling transcript (utils.py:10-35).
+
+    timestamps=True renders `[start -> end] text` lines from segment dicts,
+    with continuation lines indented under the text column; otherwise
+    `text` is a list of plain strings (joined with spaces when translated).
+    """
+    try:
+        cols = os.get_terminal_size().columns
+    except OSError:
+        cols = 80
+    wrap_width = max(cols - 6, 20)
+    lines: List[str] = []
+    if timestamps:
+        for t in text:
+            prefix = f'[{t["start"]} -> {t["end"]}] '
+            wrapper = textwrap.TextWrapper(
+                width=wrap_width, subsequent_indent=" " * len(prefix)
+            )
+            lines.extend(wrapper.wrap(f'{prefix}{t["text"]}'))
+    else:
+        joined = " ".join(text) if translated else list(text)
+        wrapper = textwrap.TextWrapper(width=wrap_width)
+        if translated:
+            lines = wrapper.wrap(joined)
+        else:
+            for t in joined:
+                lines.extend(wrapper.wrap(t))
+    if max_lines:
+        lines = lines[-max_lines:]
+    print("\n".join(lines))
 
 
 def format_time(seconds: float, vtt: bool = False) -> str:
