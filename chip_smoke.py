@@ -1,6 +1,7 @@
 """Drive the PyTorch port's serving paths (the websocket server, REST,
-diarization and translation), its offline file path and its training and
-distillation path once on one CUDA card.
+diarization and translation), its offline file path, its training and
+distillation path and its tensor and data parallelism (two ranks) once on
+one CUDA card.
 
     python3 chip_smoke.py
 
@@ -197,9 +198,34 @@ a result):
    max|ref|, free-running greedy tokens over 16 steps equal up to a tie. Printed as
    {"rest_of_serving": ...}.
 
+12. Tensor and data parallelism over two ranks on the one card (rank 0 this
+   process, rank 1 spawned with torch.multiprocessing; gloo on the card's
+   tensors, since NCCL refuses two ranks on one GPU; the backend printed on
+   a line of its own), through the functions the server CLI calls
+   (init_multihost, multihost_shardings, WhisperEngine(shardings=...),
+   MultihostContinuousEngine over an HMAC-authenticated OpLeader /
+   OpFollower with WL_OPS_SECRET set, run_follower). (a) Phase 3 also holds
+   K1, K2, K4 and K5 at the shapes a rank of a tp = 2 and a tp = 4 group
+   gives them (`sharded_shapes` in their entries). (b) tp = 2 at large-v3,
+   32 + 32 layers, 10 heads a rank, int8 decoder and cross-KV, random bf16
+   weights from the seed: rank 0 serves phase 5's three sessions through the
+   op log (phase 5's pool, no warmup), rank 1 replays it; each rank's kernel
+   launches, row-parallel all-reduces (3 a decoder layer) and host time per
+   step and per insert, and a torch.profiler window over two chunks on rank
+   0 (device busy share, the device-host copies' share, the host time
+   inside the reduces). Then the prefill and PAR_STEPS teacher-forced steps
+   against the tp = 1 engine of phases 4-11 on the same weights: within
+   PAR_REL_TOL of max|ref| at every step, and the greedy tokens equal or
+   parting only at a tie (the first divergence and the top-2 margins
+   printed). (c) dp = 2 at full depth: two replicas, 2 x 8 slots, one wave
+   of two windows seated one in each replica, tokens equal to the tp = 1
+   pool's. (d) One tp = 2 fine-tune step of phase 10's configuration at
+   PAR_TRAIN_LAYERS + PAR_TRAIN_LAYERS layers, full width: the loss within
+   PAR_TRAIN_REL_TOL of tp = 1's, no K1 launch. Printed as {"parallel": ...}.
+
 The line before the last is {"kernels": [...]}, after {"encoder_forward":
-[...]}, {"offline": {...}}, {"training": {...}} and {"rest_of_serving":
-{...}}; the last line is {"ok": true, "device": {"platform": "gpu", "kind":
+[...]}, {"offline": {...}}, {"training": {...}}, {"rest_of_serving":
+{...}} and {"parallel": {...}}; the last line is {"ok": true, "device": {"platform": "gpu", "kind":
 ..., "count": ...}}.
 """
 
@@ -903,7 +929,96 @@ def kernel_phase(dev: torch.device) -> dict:
     results["cross_attention_int8"] = k4_phase(randn, int8, dev, h, hd, t_enc)
     results["cross_attention_int8_skip"] = k5_phase(randn, int8, dev, h, hd)
     results.update(window_kernel_phase(randn, int8, dev, h, hd, t_enc))
+    for name, cases in sharded_kernel_phase(randn, int8, dev, cfg).items():
+        results[name]["sharded_shapes"] = cases
+        results[name]["max_abs_err"] = max([results[name]["max_abs_err"]]
+                                           + [c["max_abs_err"] for c in cases])
     return results
+
+
+# the tensor-parallel degrees whose per-rank shapes phase 3 checks
+SHARDED_TPS = (2, 4)
+
+
+def sharded_kernel_phase(randn, int8, dev, cfg) -> dict:
+    """K1, K2, K4 and K5 at the shapes one rank of a tp = 2 and a tp = 4
+    group gives them at large-v3 (phase 12 runs tp = 2): K1 at q/k/v
+    [B, 1500, H/tp, 64]; K2 at the pool's M = CONT_SLOTS over every
+    decoder linear's slice (q/k/v and the cross q [d, d/tp], o [d/tp, d],
+    fc1 [d, 4d/tp], fc2 [4d/tp, d]), warm and cold; K4 at the window
+    batch's [B, H/tp, 1500, 128] and K5 at the pool's [8, H/tp, 640, 128]
+    with all rows and half of them active, warm and cold. The same
+    tolerances, bounds and library calls as their main entries; K3 is
+    unchanged (the logits are whole on every rank)."""
+    h, hd, t_enc, d = cfg.n_audio_head, cfg.head_dim, cfg.n_audio_ctx, cfg.n_text_state
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out = {"fused_attention": [], "int8_matmul": [], "cross_attention_int8": [],
+           "cross_attention_int8_skip": []}
+    k2_done = set()
+    for tp in SHARDED_TPS:
+        hl = h // tp
+        q, k, v = (randn(BATCH, t_enc, hl, hd) for _ in range(3))
+        shape = f"q/k/v [{BATCH},{t_enc},{hl},{hd}] (tp={tp})"
+        r = compare("fused_attention", shape, lambda: attn_ops.fused_attention(q, k, v),
+                    lambda: attn_ops.fused_attention_ref(q, k, v), 2.0**-6)
+        qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        r["library_ms"] = library_time("sdpa", lambda: sdpa(qh, kh, vh))
+        r.update(bound(4 * BATCH * t_enc * hl * hd * 2, 4 * BATCH * hl * t_enc * t_enc * hd))
+        out["fused_attention"].append(r)
+        for kk, n in ((d, d // tp), (d // tp, d), (d, 4 * d // tp), (4 * d // tp, d)):
+            if (kk, n) in k2_done:
+                continue
+            k2_done.add((kk, n))
+            m = CONT_SLOTS
+            x, w8, sc = randn(m, kk), int8(kk, n), randn(n, scale=0.01).abs()
+            r = compare("int8_matmul", f"x [{m},{kk}] w8 [{kk},{n}] (tp={tp})",
+                        lambda x=x, w8=w8, sc=sc: qmm.int8_matmul(x, w8, sc),
+                        lambda x=x, w8=w8, sc=sc: qmm.int8_matmul_ref(x, w8, sc), 2.0**-7)
+            w8_nk = w8.t().contiguous()
+            r["library_ms"] = library_time(
+                "_weight_int8pack_mm",
+                lambda x=x, w=w8_nk, sc=sc: torch._weight_int8pack_mm(x, w, sc))
+            r.update(k2_bound(m, kk, n))
+            copies = -(-COLD_BYTES // (kk * n))
+            w8s = [w8] + [int8(kk, n) for _ in range(copies - 1)]
+            r["cold_ms"] = median_ms(rotating(
+                [lambda w=w, x=x, sc=sc: qmm.int8_matmul(x, w, sc) for w in w8s]),
+                iters=10, reps=copies)
+            del w8s
+            log(f"int8_matmul (tp={tp}) [{m},{kk}]x[{kk},{n}]: cold {r['cold_ms']:.6g} ms "
+                f"({copies} copies), bound {r['bound_ms']:.6g} ms ({r['bound_by']})")
+            out["int8_matmul"].append(r)
+        qd, kvp = randn(BATCH, hl, hd, scale=0.05), int8(BATCH, hl, t_enc, 2 * hd)
+        label = f"q [{BATCH},{hl},{hd}] kvp [{BATCH},{hl},{t_enc},{2 * hd}] (tp={tp})"
+        r = compare("cross_attention_int8", label,
+                    lambda: attn_ops.cross_attention_int8(qd, kvp, None),
+                    lambda: attn_ops.cross_attention_int8_ref(qd, kvp, None), 1e-3, per_row=True)
+        work = cross_int8_work(hl, hd, [t_enc] * BATCH, BATCH, False)
+        r.update(bound(*work), library_ms=None)
+        r["cold"] = cross_cold("cross_attention_int8 " + label,
+                               lambda kv: attn_ops.cross_attention_int8(qd, kv, None), (kvp,),
+                               qd, slice(None), work, int8_kv_bf16)
+        out["cross_attention_int8"].append(r)
+        b5 = CONT_SLOTS
+        q5, kv5 = randn(b5, hl, hd, scale=0.05), int8(b5, hl, K5_T, 2 * hd)
+        ln = torch.full((b5,), K5_T, dtype=torch.int32, device=dev)
+        for n_act in (b5, b5 // 2):
+            ac = torch.tensor([i < n_act for i in range(b5)], device=dev)
+            label = (f"q [{b5},{hl},{hd}] kvp [{b5},{hl},{K5_T},{2 * hd}] {n_act}/{b5} active "
+                     f"(tp={tp})")
+            r = compare("cross_attention_int8_skip", label,
+                        lambda ac=ac: attn_ops.cross_attention_int8_skip(q5, kv5, ln, ac),
+                        lambda ac=ac: attn_ops.cross_attention_int8_skip_ref(q5, kv5, ln, ac),
+                        2.0**-6, rows=ac, per_row=True)
+            work = cross_int8_work(hl, hd, [K5_T] * n_act, b5, True)
+            r.update(bound(*work), library_ms=None)
+            r["cold"] = cross_cold(
+                "cross_attention_int8_skip " + label,
+                lambda kv, ac=ac: attn_ops.cross_attention_int8_skip(q5, kv, ln, ac), (kv5,),
+                q5, ac, work, int8_kv_bf16)
+            out["cross_attention_int8_skip"].append(r)
+    torch.cuda.empty_cache()
+    return out
 
 
 def window_kernel_phase(randn, int8, dev, h: int, hd: int, t_enc: int) -> dict:
@@ -1169,11 +1284,14 @@ async def run_session(server, backend, uid, language, audio, delay_s=0.0, use_va
         await asyncio.sleep(FRAME_S)  # real-time pace
     ws.incoming.put_nowait(b"END_OF_AUDIO")
     # after the end of audio the session transcribes what is left of its
-    # tail: close once a call has finished after it (or, with no call in
-    # flight, the whole tail was already committed)
-    at_eos = backend.n_calls(uid)
+    # tail: close once a call that started after the server took the end
+    # has finished (a call in flight then covers only the audio it was
+    # given), or, with no call in flight, the whole tail was committed
     client = server.client_manager.get_client(ws)
     deadline = time.monotonic() + 300
+    while client and not client.eos and time.monotonic() < deadline:
+        await asyncio.sleep(0.01)
+    at_eos = backend.started.get(uid, 0)
     while time.monotonic() < deadline:
         done = backend.n_calls(uid)
         drained = done == backend.started.get(uid, 0) and client and \
@@ -3567,6 +3685,530 @@ def rest_of_serving_phase(engine: WhisperEngine, dev: torch.device) -> dict:
     return result
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: tensor and data parallelism
+# ---------------------------------------------------------------------------
+
+PAR_TP = 2
+PAR_STEPS = 8  # teacher-forced decode steps after the prefill, (b)
+# of max|ref|, as every bf16 logits comparison of this script: the tp = 2
+# partial sums meet in another order (rounded to bf16 before the reduce),
+# and on this card two bf16 orders of the tp = 1 engine (kernels against
+# their plain versions) already part by ~1.6% of max|ref|
+PAR_REL_TOL = 5e-2
+PAR_DP_WINDOWS_S = (7.0, 9.0)  # (c): one window per data replica
+PAR_TRAIN_LAYERS = 4  # (d): the fine-tune's depth, cut from 32 + 32
+PAR_TRAIN_REL_TOL = 1e-3
+# a collective waits this long for the other rank before failing the phase
+PAR_TIMEOUT_S = 300.0
+# the ranks' device type ("cpu" only to rehearse the phase without a card)
+PAR_DEVICE = "cuda"
+# the module settings rank 1 takes from rank 0 (a rehearsal changes them)
+PAR_SETTINGS = ("MODEL", "PAR_DEVICE", "PAR_STEPS", "PAR_TRAIN_LAYERS", "PAR_DP_WINDOWS_S",
+                "CONT_SESSION_S", "MAX_NEW_TOKENS", "TRAIN_TOKENS", "CONT_SLOTS", "BATCH")
+
+
+def sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def free_cache(dev: torch.device) -> None:
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+# phase 5's pool geometry
+PAR_POOL = dict(n_slots=CONT_SLOTS, steps_per_chunk=8, cross_ctx=640, enc_buckets=(512, 1500),
+                prompt_pad=192, ring=128)
+# the row-parallel reduces of models/whisper.py and their host seconds,
+# counted by count_reduces
+REDUCES = {"n": 0, "s": 0.0}
+
+
+def count_reduces() -> None:
+    """Count and time (host clock) every all-reduce of a row-parallel
+    linear: a wrapper around parallel.mesh.reduce_from_model, which
+    models/whisper.py looks up at each call. Over gloo a reduce of a card
+    tensor copies it to the host, so its host time includes the wait for
+    the kernels queued before it."""
+    from whisperlive_tpu_torch.parallel import mesh as pmesh
+
+    plain = pmesh.reduce_from_model
+
+    def counted(x):
+        REDUCES["n"] += 1
+        t0 = time.perf_counter()
+        out = plain(x)
+        REDUCES["s"] += time.perf_counter() - t0
+        return out
+
+    pmesh.reduce_from_model = counted
+
+
+def counting_engine_class():
+    from whisperlive_tpu_torch.parallel.serve_multihost import MultihostContinuousEngine
+
+    class CountingMultihostEngine(MultihostContinuousEngine):
+        """The op-log engine, with each op kind's kernel launches, row
+        reduces, calls and host seconds summed (on the leader and on the
+        follower alike)."""
+
+        def _count(self, kind, fn, *args, **kw):
+            stats = self.op_stats.setdefault(kind, {"calls": 0, "s": 0.0, "reduces": 0,
+                                                    "launches": dict.fromkeys(KERNELS, 0)})
+            before, n0 = dict(_kernels.launches), REDUCES["n"]
+            sync(self.eng.device)
+            t0 = time.monotonic()
+            out = fn(*args, **kw)
+            sync(self.eng.device)
+            stats["s"] += time.monotonic() - t0
+            stats["calls"] += 1
+            stats["reduces"] += REDUCES["n"] - n0
+            for k in KERNELS:
+                stats["launches"][k] += _kernels.launches[k] - before[k]
+            return out
+
+        def insert(self, *args, **kw):
+            return self._count("insert", super().insert, *args, **kw)
+
+        def step(self):
+            return self._count("step", super().step)
+
+    CountingMultihostEngine.op_stats = None
+    return CountingMultihostEngine
+
+
+def per_op(stats: dict, steps_per_chunk: int) -> dict:
+    """Launches and reduces per decode step and per insert, and the host
+    time of a step, from an engine's op_stats."""
+    out = {}
+    for kind, unit in (("step", steps_per_chunk), ("insert", 1)):
+        st = stats.get(kind)
+        if not st or not st["calls"]:
+            continue
+        n = st["calls"] * unit
+        out[kind] = {"calls": st["calls"], "host_ms": st["s"] / n * 1e3,
+                     "reduces": st["reduces"] / n,
+                     "launches": {k: v / n for k, v in st["launches"].items() if v}}
+    return out
+
+
+def greedy_logits(engine: WhisperEngine, cross: dict, prompt: list[int], sot: int, steps: int,
+                  forced: list[int] | None = None) -> tuple[list[torch.Tensor], list[int]]:
+    """The prefill's and `steps` decode steps' logits [V] of item 0, each
+    step fed the previous argmax (or `forced`'s token): (logits, tokens)."""
+    cfg, dev = engine.cfg, engine.device
+    prompt_arr, prompt_len = engine._pad_prompts([prompt])
+    prompts, plen = engine._tensor(prompt_arr), engine._tensor(prompt_len)
+    pad = prompt_arr.shape[1]
+    tokens = []
+    with torch.inference_mode():
+        self_kv = wmod.init_self_kv(cfg, 1, pad + steps + 1, device=dev)
+        logits, _ = wmod.decode_prefill(engine.params, cfg, prompts, plen, self_kv, cross,
+                                        sot_idx=engine._tensor(np.asarray([sot], np.int32)))
+        out = [logits[0].float()]
+        for i in range(steps + 1):
+            tokens.append(forced[i] if forced is not None else int(out[-1].argmax()))
+            if i == steps:
+                break
+            t = torch.tensor([tokens[-1]], dtype=torch.int32, device=dev)
+            out.append(wmod.decode_step(engine.params, cfg, t, plen + i, pad + i, plen, pad,
+                                        self_kv, cross)[0].float())
+    return out, tokens
+
+
+def parallel_profile(cb, chunks: int = 2) -> dict:
+    """torch.profiler over `chunks` step chunks of the leader's pool with
+    three slots decoding: the device's busy share of the wall time (CUDA
+    event time over wall), the collectives' device share (their
+    device-host copies' CUDA time over wall) and their host share (the
+    host time inside the row-parallel reduces over wall, which with gloo
+    includes the wait for the kernels queued before each reduce)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    prompt, sot = cb.eng.build_prompt(
+        backends_mod.transcribe_options_from_session(SessionOptions(language="en")),
+        language="en")
+    windows = np.zeros((3, 480000), np.float32)
+    for i in range(3):
+        windows[i, :96000] = speech_like(6.0, 20 + i)
+    cb.insert(windows, [prompt] * 3, [sot] * 3, [True] * 3, [0, 1, 2], [0.0] * 3, [True] * 3,
+              [1.0] * 3, [cb.ring - 1] * 3, enc_ctx=512)
+    cb.step()
+    r0 = dict(REDUCES)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        for _ in range(chunks):
+            cb.step()
+        wall = time.monotonic() - t0
+    events = prof.key_averages()
+    on_card = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    n = chunks * cb.steps_per_chunk
+    busy = device_us(on_card) / 1e6 / wall if on_card else None
+    copies = device_us(on_card, re.compile("[Mm]emcpy")) / 1e6 / wall if on_card else None
+    host = (REDUCES["s"] - r0["s"]) / wall
+    out = {"steps": n, "wall_ms_per_step": wall / n * 1e3, "device_busy_share": busy,
+           "collective_copy_device_share": copies, "collective_host_share": host,
+           "reduces_per_step": (REDUCES["n"] - r0["n"]) / n}
+    log(f"tp={PAR_TP} step profile (rank 0, {n} steps, 3 of {cb.n_slots} slots decoding): "
+        f"wall {out['wall_ms_per_step']:.6g} ms a step under the profiler, "
+        + ("device time not measured (no CUDA events)" if busy is None else
+           f"device busy share {busy:.6g}, device-host copies' share {copies:.6g}")
+        + f", host share inside the row-parallel reduces {host:.6g} "
+        f"({out['reduces_per_step']:.6g} reduces a step)")
+    return out
+
+
+def parallel_tp_serving(rank: int, dev: torch.device, engine, ops_port: int) -> dict:
+    """(b) tp = 2 at large-v3, 32 + 32 layers: each rank builds the engine
+    from the seed's whole tree and keeps its heads; rank 0 serves phase 5's
+    sessions through the op log and rank 1 replays it; then, on both ranks
+    in step, the teacher-forced and greedy comparison with the tp = 1
+    engine (rank 0's phase-4 engine, the same weights)."""
+    from whisperlive_tpu_torch.parallel import multihost
+    from whisperlive_tpu_torch.parallel import serve_multihost as smh
+
+    import torch.distributed as dist
+
+    cfg = wmod.WHISPER_CONFIGS[MODEL]
+    sh = multihost.multihost_shardings(tp=PAR_TP)
+    check(sh.tp == PAR_TP and sh.dp == 1, f"grid dp={sh.dp} x tp={sh.tp}")
+    t0 = time.monotonic()
+    params = wmod.init_params(cfg, SEED, torch.bfloat16, dev)
+    eng2 = WhisperEngine(cfg, params, device=dev, batch_buckets=(1, 2, BATCH), decoder_int8=True,
+                         cross_kv_bits=8,
+                         tokenizer=VisibleTokenizer(TokenSpec(cfg.n_vocab, multilingual=True)),
+                         shardings=sh)
+    del params
+    sync(dev)
+    free_cache(dev)
+    build_s = time.monotonic() - t0
+    q = eng2.params["decoder"]["layers"]["attn"]["q"]
+    check(tuple(q["w8"].shape) == (cfg.n_text_layer, cfg.n_text_state,
+                                   cfg.n_text_state // PAR_TP), f"rank {rank}'s q slice")
+    log(f"rank {rank}: tp={PAR_TP} engine (int8 decoder, int8 cross-KV, "
+        f"{cfg.n_text_head // PAR_TP} heads a rank) built in {build_s:.6g} s")
+    engine_cls = counting_engine_class()
+    out = {"build_s": build_s}
+    if rank == 0:
+        leader = smh.OpLeader(ops_port, n_followers=1)
+        cb = engine_cls(eng2, leader=leader, **PAR_POOL)
+        cb.op_stats = {}
+        cs = ContinuousScheduler(eng2, cb=cb)
+        window = BatchScheduler(eng2, max_batch_size=BATCH)  # never started: not replayed
+        cs.start()
+        try:
+            backend = CountingBackend(window, model_name=MODEL, continuous_scheduler=cs,
+                                      continuous_only=True)
+            sessions = [
+                dict(uid="tp-en", language="en", audio=speech_like(CONT_SESSION_S, 5)),
+                dict(uid="tp-detect", language=None, audio=speech_like(CONT_SESSION_S, 6),
+                     use_vad=False),
+                dict(uid="tp-late", language="en", audio=speech_like(CONT_SESSION_S - 2.0, 7),
+                     delay_s=2.0),
+            ]
+            sockets, wall = serve(backend, sessions)
+        finally:
+            cs.stop()
+        launches = dict(_kernels.launches)
+        # a tp = 2 call over gloo on one card decodes a window in 15-22 s,
+        # longer than a 10 s session: the call in flight at its end and
+        # the tail's call make two a session, unless the first commits it all
+        check_calls(backend, [s["uid"] for s in sessions], len(sessions))
+        check_sockets(sockets)
+        check_path(f"tp={PAR_TP} continuous path (rank 0)", launches, CONTINUOUS_PATH)
+        ts = cs.tick_stats
+        out.update(sessions_wall_s=wall, backend_calls=len(backend.calls), chunks=ts["ticks"],
+                   steps=cb.gstep, step_host_ms=ts["step_s"] / max(cb.gstep, 1) * 1e3,
+                   launches=launches)
+        out["profile"] = parallel_profile(cb)
+        serving_stats = per_op(cb.op_stats, cb.steps_per_chunk)
+        out["op_log"] = dict(leader.stats, bytes_per_op=leader.stats["bytes"]
+                             / max(leader.stats["ops"], 1))
+        cb.stop_followers()
+    else:
+        cb = engine_cls(eng2, **PAR_POOL)
+        cb.op_stats = {}
+        chan = smh.OpFollower(("127.0.0.1", ops_port))
+        out["replayed_ops"] = smh.run_follower(cb, chan)
+        chan.close()
+        serving_stats = per_op(cb.op_stats, cb.steps_per_chunk)
+    # every rank's per-op figures (the profile window's ops included) on both
+    gathered = [None, None]
+    dist.all_gather_object(gathered, serving_stats)
+    for r, st in enumerate(gathered if rank == 0 else ()):
+        for kind, figures in st.items():
+            log(f"rank {r} per {kind} (over {figures['calls']} {kind} ops): kernel launches "
+                f"{figures['launches']}, row-parallel all-reduces {figures['reduces']:.6g}, "
+                f"host time {figures['host_ms']:.6g} ms")
+    out["per_rank"] = gathered
+    step0 = gathered[0].get("step")
+    check(step0 is not None and step0["reduces"] == 3 * cfg.n_text_layer,
+          f"a tp={PAR_TP} decode step must all-reduce 3 x {cfg.n_text_layer} times")
+    check(all(g.get("step", {}).get("launches") == step0["launches"] for g in gathered),
+          "the ranks launched different kernels a step")
+
+    # teacher-forced and greedy against the tp = 1 engine, both ranks in step
+    opts = backends_mod.transcribe_options_from_session(SessionOptions(language="en"))
+    prompt, sot = eng2.build_prompt(opts, language="en")
+    audio = np.zeros((1, 480000), np.float32)
+    audio[0, :128000] = speech_like(8.0, 40)
+    ref = [None]
+    if rank == 0:
+        _, cross1 = engine.prepare(audio)
+        ref_logits, ref_tokens = greedy_logits(engine, cross1, prompt, sot, PAR_STEPS)
+        ref = [ref_tokens]
+        # the card's bf16 noise between two orders at tp = 1: the plain path
+        # teacher forced on the same tokens
+        plain_logits = plain_run(lambda: greedy_logits(
+            engine, engine.prepare(audio)[1], prompt, sot, PAR_STEPS, forced=ref_tokens)[0])
+        floor = [(a - b).abs().max().item() for a, b in zip(plain_logits, ref_logits)]
+    dist.broadcast_object_list(ref, src=0)
+    _, cross2 = eng2.prepare(audio)
+    forced_logits, _ = greedy_logits(eng2, cross2, prompt, sot, PAR_STEPS, forced=ref[0])
+    free_logits, tokens2 = greedy_logits(eng2, cross2, prompt, sot, PAR_STEPS)
+    if rank == 0:
+        errs = []
+        for i, (a, b) in enumerate(zip(forced_logits, ref_logits)):
+            err, scale = (a - b).abs().max().item(), b.abs().max().item()
+            errs.append(err)
+            check(bool(torch.isfinite(a).all()) and a.shape == (cfg.n_vocab,),
+                  f"tp={PAR_TP} logits at step {i}")
+            check(err <= PAR_REL_TOL * scale, f"tp={PAR_TP} teacher-forced logits at step {i}: "
+                  f"max_abs_err {err} over {PAR_REL_TOL} x max|ref| {scale}")
+        first = next((i for i, (a, b) in enumerate(zip(tokens2, ref[0])) if a != b), None)
+        gap = None
+        if first is not None:
+            b = ref_logits[first]
+            gap = (b[ref[0][first]] - b[tokens2[first]]).item()
+            check(gap <= 2 * max(errs), f"tp={PAR_TP} greedy tokens part at step {first} by a "
+                  f"tp=1 logit gap {gap}, more than a tie (2 x {max(errs)})")
+        top2 = [torch.topk(b, 2).values for b in ref_logits]
+        margins = [(t[0] - t[1]).item() for t in top2]
+        log(f"tp={PAR_TP} against tp=1 (prefill + {PAR_STEPS} steps): teacher-forced max_abs_err "
+            f"per step {[round(e, 6) for e in errs]} (tol {PAR_REL_TOL} x max|ref| = "
+            f"{PAR_REL_TOL * ref_logits[0].abs().max().item():.6g} at the prefill; tp=1's plain "
+            f"path against its kernels on the same tokens {[round(e, 6) for e in floor]}); greedy "
+            f"tokens {'equal' if first is None else f'part at step {first}, tp=1 gap {gap:.6g}'}"
+            f"; tp=1 top-2 margins {[round(m, 4) for m in margins]}")
+        out.update(teacher_forced_max_abs_err=errs, tp1_plain_max_abs_err=floor,
+                   greedy_first_divergence=first,
+                   greedy_gap=gap, top2_margins=margins)
+    del eng2, cross2
+    free_cache(dev)
+    return out
+
+
+def parallel_dp_serving(rank: int, dev: torch.device, engine, ops_port: int) -> dict:
+    """(c) dp = 2: two replicas of the whole large-v3 engine (one a rank)
+    and 2 x 8 slots; one wave of two windows lands one in each replica
+    (the scheduler spreads a wave over the replicas). The tokens must be
+    exactly the tp = 1 pool's, each window inserted alone there (an insert
+    of one window, as each replica sees it: the rows are independent)."""
+    from whisperlive_tpu_torch.engine.scheduler import BatchRequest
+    from whisperlive_tpu_torch.parallel import multihost
+    from whisperlive_tpu_torch.parallel import serve_multihost as smh
+
+    cfg = wmod.WHISPER_CONFIGS[MODEL]
+    sh = multihost.multihost_shardings(tp=1, dp=2)
+    check(sh.dp == 2 and sh.tp == 1, "dp grid")
+    params = wmod.init_params(cfg, SEED, torch.bfloat16, dev)
+    eng = WhisperEngine(cfg, params, device=dev, batch_buckets=(1, 2, BATCH), decoder_int8=True,
+                        cross_kv_bits=8,
+                        tokenizer=VisibleTokenizer(TokenSpec(cfg.n_vocab, multilingual=True)),
+                        shardings=sh)
+    del params
+    pool = dict(PAR_POOL, n_slots=2 * CONT_SLOTS)
+    opts = TranscribeOptions(language="en", temperatures=(0.0,), log_prob_threshold=None,
+                             no_speech_threshold=None, compression_ratio_threshold=None,
+                             max_new_tokens=MAX_NEW_TOKENS)
+    audios = [speech_like(s, 50 + i) for i, s in enumerate(PAR_DP_WINDOWS_S)]
+    out = {}
+    if rank == 0:
+        leader = smh.OpLeader(ops_port, n_followers=1)
+        cb = smh.MultihostContinuousEngine(eng, leader=leader, **pool)
+        check(cb.dp_sharded and cb.local_slots == CONT_SLOTS, "the dp pool must shard its slots")
+        seated = []
+        insert = cb.insert
+
+        def recorded(*args, **kw):
+            seated.extend(args[4] if len(args) > 4 else kw["slot_ids"])
+            return insert(*args, **kw)
+
+        cb.insert = recorded
+        cs = ContinuousScheduler(eng, cb=cb)
+        futs = [cs.submit(BatchRequest(audio=a, options=opts, uid=f"dp{i}"))
+                for i, a in enumerate(audios)]
+        t0 = time.monotonic()
+        cs.start()
+        try:
+            got = [tuple(f.result(timeout=300).raw_tokens) for f in futs]
+        finally:
+            cs.stop()
+            cb.stop_followers()
+        wall = time.monotonic() - t0
+        replicas = sorted({cb.owner(s) for s in seated})
+        check(replicas == [0, 1], f"the windows landed in replicas {replicas}, not both")
+        ref_cs = ContinuousScheduler(engine, **PAR_POOL)
+        ref_cs.start()
+        try:
+            want = [tuple(ref_cs.submit(BatchRequest(audio=a, options=opts, uid=f"ref{i}"))
+                          .result(timeout=300).raw_tokens) for i, a in enumerate(audios)]
+        finally:
+            ref_cs.stop()
+        check(all(len(t) > 0 for t in got), "a dp window decoded no token")
+        check(got == want, f"dp=2 tokens differ from tp=1's: {got} vs {want}")
+        log(f"dp=2 (full depth, 2 x {CONT_SLOTS} slots): windows seated in slots {seated} "
+            f"(replicas {replicas}), {sum(map(len, got))} tokens equal to the tp=1 pool's, "
+            f"{wall:.6g} s wall, op log {leader.stats}")
+        out.update(slots=seated, replicas=replicas, tokens=[len(t) for t in got], wall_s=wall,
+                   op_log=dict(leader.stats))
+    else:
+        cb = smh.MultihostContinuousEngine(eng, **pool)
+        chan = smh.OpFollower(("127.0.0.1", ops_port))
+        out["replayed_ops"] = smh.run_follower(cb, chan)
+        chan.close()
+    del eng, cb
+    free_cache(dev)
+    return out
+
+
+def parallel_finetune(rank: int, dev: torch.device) -> dict:
+    """(d) One tp = 2 fine-tune step of phase 10's configuration (B =
+    TRAIN_BATCH mel [B,3000,128], TRAIN_TOKENS tokens, bf16 compute,
+    float32 master weights), the depth cut to PAR_TRAIN_LAYERS + PAR_TRAIN_LAYERS
+    layers at full width: its loss within PAR_TRAIN_REL_TOL of tp = 1's on
+    rank 0 (the same weights and batch)."""
+    from whisperlive_tpu_torch import training
+    from whisperlive_tpu_torch.ops import mel as mel_ops
+    from whisperlive_tpu_torch.parallel import multihost
+
+    import torch.distributed as dist
+
+    cfg = wmod.WHISPER_CONFIGS[MODEL].replace(
+        dtype=torch.bfloat16, n_audio_layer=PAR_TRAIN_LAYERS, n_text_layer=PAR_TRAIN_LAYERS)
+    opt = training.make_optimizer(learning_rate=1e-5, warmup_steps=1, total_steps=TRAIN_STEPS)
+    audio = np.stack([speech_like(30.0, 60 + i) for i in range(TRAIN_BATCH)])
+    tokens = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, cfg.n_vocab, (TRAIN_BATCH, TRAIN_TOKENS + 1)).astype(np.int32)).to(dev)
+    batch = {"mel": mel_ops.log_mel_spectrogram(torch.from_numpy(audio).to(dev), cfg.n_mels),
+             "tokens_in": tokens[:, :-1], "tokens_out": tokens[:, 1:],
+             "loss_mask": torch.ones((TRAIN_BATCH, TRAIN_TOKENS), device=dev)}
+    out = {}
+    loss1 = [None]
+    if rank == 0:
+        state = training.init_train_state(cfg, opt, wmod.init_params(cfg, SEED, torch.bfloat16,
+                                                                       dev), device=dev)
+        t0 = time.monotonic()
+        _, loss = training.make_train_step(cfg, opt)(state, batch)
+        loss1 = [float(loss)]
+        out["tp1_step_s"] = time.monotonic() - t0
+        del state
+        free_cache(dev)
+    dist.broadcast_object_list(loss1, src=0)
+    sh = multihost.multihost_shardings(tp=PAR_TP)
+    state = training.init_train_state(cfg, opt, wmod.init_params(cfg, SEED, torch.bfloat16, dev),
+                                      device=dev, shardings=sh)
+    step = training.make_train_step(cfg, opt, shardings=sh)
+    _kernels.reset_launches()
+    sync(dev)
+    t0 = time.monotonic()
+    state, loss = step(state, batch)
+    sync(dev)
+    step_s = time.monotonic() - t0
+    loss2 = float(loss)
+    rel = abs(loss2 - loss1[0]) / abs(loss1[0])
+    check(np.isfinite(loss2), f"rank {rank}: tp={PAR_TP} loss {loss2}")
+    check(rel <= PAR_TRAIN_REL_TOL, f"rank {rank}: tp={PAR_TP} loss {loss2} vs tp=1 {loss1[0]}: "
+          f"relative {rel} over {PAR_TRAIN_REL_TOL}")
+    check(_kernels.launches["fused_attention"] == 0, "the training encoder launched K1")
+    log(f"rank {rank}: tp={PAR_TP} fine-tune step ({PAR_TRAIN_LAYERS} + {PAR_TRAIN_LAYERS} layers, "
+        f"full width): loss {loss2:.8g} vs tp=1 {loss1[0]:.8g} (relative {rel:.3g}), "
+        f"step {step_s:.6g} s")
+    out.update(loss_tp2=loss2, loss_tp1=loss1[0], rel=rel, tp2_step_s=step_s)
+    del state
+    free_cache(dev)
+    return out
+
+
+def parallel_phase(rank: int, coordinator: str, ops_ports: tuple[int, int],
+                   engine: WhisperEngine | None = None) -> dict:
+    """Phase 12 on one rank of a world of two on this card (rank 0 is this
+    script's process with the tp = 1 engine of phases 4-11, rank 1 a
+    spawned process), through the functions the server CLI calls:
+    init_multihost, multihost_shardings, WhisperEngine(shardings=...),
+    MultihostContinuousEngine over OpLeader / OpFollower and run_follower,
+    with WL_OPS_SECRET set."""
+    from whisperlive_tpu_torch.parallel import multihost
+
+    import torch.distributed as dist
+
+    t_start = time.monotonic()
+    os.environ.setdefault("WL_OPS_SECRET", "chip-smoke-phase-12")
+    check(multihost.init_multihost(coordinator, 1, 0, device=PAR_DEVICE, local_ranks=2,
+                                   local_rank=rank, timeout_s=PAR_TIMEOUT_S), "init_multihost")
+    dev = multihost.device()
+    backend = multihost.backend()
+    if rank == 0:
+        print(f"parallel backend: {backend} ({torch.cuda.device_count()} card(s), 2 ranks "
+              f"on {dev})", flush=True)
+    check(backend == ("gloo" if dev.type != "cuda" or torch.cuda.device_count() < 2 else "nccl"),
+          f"backend {backend} for 2 ranks on {torch.cuda.device_count()} card(s)")
+    count_reduces()
+    out = {"backend": backend, "world": dist.get_world_size()}
+    try:
+        out["tp_serving"] = parallel_tp_serving(rank, dev, engine, ops_ports[0])
+        out["dp_serving"] = parallel_dp_serving(rank, dev, engine, ops_ports[1])
+        out["finetune"] = parallel_finetune(rank, dev)
+        multihost.barrier("phase-12-end")
+    finally:
+        dist.destroy_process_group()
+    out["phase_s"] = time.monotonic() - t_start
+    return out
+
+
+def parallel_rank_main(index: int, coordinator: str, ops_ports: tuple[int, int],
+                       settings: dict) -> None:
+    """Rank 1 of phase 12, in a process of its own (torch.multiprocessing,
+    spawn), with rank 0's PAR_SETTINGS."""
+    globals().update(settings)
+    backends_mod._DISABLE_GATES = True  # as build_engine sets it on rank 0
+    backends_mod.STREAMING_MAX_NEW_TOKENS = MAX_NEW_TOKENS
+    if PAR_DEVICE == "cuda":
+        _kernels.library()
+    parallel_phase(index + 1, coordinator, ops_ports)
+
+
+def run_parallel_phase(engine: WhisperEngine) -> dict:
+    """Spawn rank 1, run rank 0 here, and join rank 1 (which must exit 0)."""
+    import socket
+
+    import torch.multiprocessing as mp
+
+    ports = []
+    for _ in range(3):
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            ports.append(sock.getsockname()[1])
+    coordinator = f"127.0.0.1:{ports[0]}"
+    settings = {name: globals()[name] for name in PAR_SETTINGS}
+    ctx = mp.start_processes(parallel_rank_main,
+                             args=(coordinator, (ports[1], ports[2]), settings),
+                             nprocs=1, join=False, start_method="spawn")
+    try:
+        result = parallel_phase(0, coordinator, (ports[1], ports[2]), engine)
+        while not ctx.join(timeout=300):
+            pass
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.terminate()
+                p.join(10)
+    check(all(p.exitcode == 0 for p in ctx.processes), "phase 12's rank 1 failed")
+    log(f"phase 12: {result['phase_s']:.6g} s")
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this test needs a CUDA card",
@@ -3653,6 +4295,9 @@ def main() -> int:
     verify_reference(engine4)
     spec_reference(engine, draft, err8)
     rest_of_serving = rest_of_serving_phase(engine, dev)
+    # phase 12: tp = 2, dp = 2 and a tp = 2 fine-tune step over two ranks on
+    # this card, held against the int8 engine of phases 4-11
+    parallel = run_parallel_phase(engine)
 
     # phase 10: the distiller on the serving engine's own random teacher, its
     # draft on the `all` pool, then the fine-tune with the engines freed
@@ -3688,6 +4333,7 @@ def main() -> int:
                                    "served_distilled_draft": spec_trained,
                                    "served_random_draft": spec_random}}))
     print(json.dumps({"rest_of_serving": rest_of_serving}))
+    print(json.dumps({"parallel": parallel}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -12,7 +12,12 @@ engine, and `--beam_size` / `--beam_mode` size the continuous pool as the
 reference does (the last two build a tiny CPU model). `--enable_rest`,
 `--rest_port`, `--cors_origins`, `--rate_limit_rpm` and `--fake_transcriber`
 parse with the reference's defaults and help, and reach the server as
-`rest_port` and `rest_kwargs`, or as FakeBackend named "fake".
+`rest_port` and `rest_kwargs`, or as FakeBackend named "fake". `--tp`,
+`--dp`, `--multihost_ops_port` and `--multihost_ops_host` parse with the
+reference's defaults and help; a world of more than one rank refuses what
+it cannot replay and starts its ranks, and one such server (tp = 2 on the
+CPU, a tiny random model, the follower a spawned process) decodes a
+request through the op log.
 """
 
 import os
@@ -186,3 +191,97 @@ def test_fake_transcriber_serves_the_fake_backend(monkeypatch):
     finally:
         torch.set_num_threads(threads)
     assert type(seen["backend"]) is FakeBackend and seen["backend_name"] == "fake"
+
+
+PARALLEL_FLAGS = ("tp", "dp", "multihost_ops_port", "multihost_ops_host")
+
+
+@pytest.mark.parametrize("argv", [[], ["--tp", "2", "--dp", "3", "--multihost_ops_port",
+                                       "19191", "--multihost_ops_host", "10.0.0.7"]])
+def test_parallel_flags_parse_as_the_reference(argv):
+    args = run_server.build_parser().parse_args(argv)
+    ref = jrun_server.build_parser().parse_args(argv)
+    for name in PARALLEL_FLAGS:
+        assert getattr(args, name) == getattr(ref, name), name
+    helps = {a.dest: a.help for a in run_server.build_parser()._actions}
+    ref_helps = {a.dest: a.help for a in jrun_server.build_parser()._actions}
+    for name in PARALLEL_FLAGS:
+        assert helps[name] == ref_helps[name], name
+
+
+@pytest.mark.parametrize("argv,refusal", [
+    (["--tp", "2", "--fake_transcriber"], "no multi-host mode"),
+    (["--tp", "2", "--no_continuous_batching"], "requires continuous batching"),
+    (["--dp", "2", "--beam_size", "5", "--beam_mode", "refresh"], "--beam_mode full"),
+    (["--tp", "2", "--draft_model", "distil-large-v3", "--continuous_spec",
+      "--continuous_spec_mode", "mixed"], "use 'all'"),
+])
+def test_multi_rank_server_refuses_what_it_cannot_replay(monkeypatch, argv, refusal):
+    monkeypatch.setattr(run_server, "launch_ranks", lambda args: pytest.fail("launched"))
+    threads = torch.get_num_threads()
+    try:
+        with pytest.raises(SystemExit, match=refusal):
+            run_server.main(argv + ["--device", "cpu"])
+    finally:
+        torch.set_num_threads(threads)
+
+
+def test_multi_rank_server_launches_its_ranks(monkeypatch):
+    seen = {}
+    monkeypatch.setattr(run_server, "launch_ranks", lambda args: seen.update(args=args))
+    threads = torch.get_num_threads()
+    try:
+        run_server.main(["--tp", "2", "--device", "cpu", "--enable_rest"])
+    finally:
+        torch.set_num_threads(threads)
+    args = seen["args"]
+    assert args.tp == 2 and run_server.resolve_dp(args) == 1
+    # REST is off and the content cap is the whole context (resolved later)
+    assert not args.enable_rest and args.continuous_cross_ctx == 0
+    assert run_server.resolve_dp(run_server.build_parser().parse_args([])) == 1
+
+
+def test_tp2_server_decodes_through_the_op_log(monkeypatch):
+    """`--tp 2 --device cpu`: the command spawns rank 1 (a follower), serves
+    as rank 0, and a request decodes through the op log; the follower exits
+    when the leader stops it."""
+    import socket
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from whisperlive_tpu_torch.engine.engine import TranscribeOptions
+    from whisperlive_tpu_torch.engine.scheduler import BatchRequest
+    from whisperlive_tpu_torch.parallel import mesh, multihost
+
+    seen = {}
+
+    def serve(args, backend):
+        cs = backend.continuous_scheduler
+        opts = TranscribeOptions(language="en", temperatures=(0.0,), log_prob_threshold=None,
+                                 no_speech_threshold=None, compression_ratio_threshold=None,
+                                 max_new_tokens=8)
+        req = BatchRequest(audio=np.zeros(32000, np.float32), options=opts, uid="u")
+        seen.update(result=cs.submit(req).result(timeout=120), cb=cs.cb,
+                    continuous_only=backend.continuous_only)
+
+    monkeypatch.setattr(run_server, "run_server", serve)
+    monkeypatch.setenv("WL_OPS_SECRET", "test-secret")
+    monkeypatch.setenv("PYTHONPATH", os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    threads = torch.get_num_threads()
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    try:
+        run_server.main(["--tp", "2", "--device", "cpu", "--model", "tiny", "--no_warmup",
+                         "--continuous_slots", "2", "--multihost_ops_port", str(port)])
+    finally:
+        torch.set_num_threads(threads)
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        mesh._MODEL_GROUP = None
+        multihost._LOCAL_RANKS, multihost._BACKEND, multihost._DEVICE = 1, None, None
+    assert seen["continuous_only"] and seen["cb"].multihost
+    assert seen["cb"].shardings.tp == 2 and seen["cb"].cross_ctx == 1500
+    assert seen["result"].raw_tokens

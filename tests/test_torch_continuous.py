@@ -43,6 +43,7 @@ from whisperlive_tpu_torch.models.bridge import from_jax_params
 from whisperlive_tpu_torch.ops import attention as tattn
 from whisperlive_tpu_torch.ops import decoding as tdec
 from whisperlive_tpu_torch.ops import ring_rules
+from whisperlive_tpu_torch.parallel.mesh import EngineShardings
 from whisperlive_tpu_torch.serving import backends as tbackends
 from whisperlive_tpu_torch.serving.session import SessionOptions
 
@@ -384,8 +385,10 @@ def test_continuous_scheduler_matches_jax(engines):
 
 
 def test_continuous_scheduler_refuses_unported_options():
-    """Shardings stay refused; beam lanes (not with a draft) and word
-    timestamps are taken: such requests queue instead of failing."""
+    """Beam lanes (not with a draft) and word timestamps are taken: such
+    requests queue instead of failing. Shardings are taken too
+    (parallel/mesh.py): a tensor-parallel degree that does not divide the
+    heads is refused, int8 or int4."""
     _, te = make_engines("float")
     assert tcont.ContinuousEngine(te, n_slots=2, beam_width=2).n_rows == 4
     with pytest.raises(ValueError, match="beam_width=1"):
@@ -396,10 +399,10 @@ def test_continuous_scheduler_refuses_unported_options():
         assert not fut.done() and sched._queue.qsize() > 0
     cfg = tw.WhisperConfig(**DIMS)
     params = tw.init_params(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md open item 15"):
-        TEngine(cfg, params, device="cpu", shardings=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP.md open item 15"):
-        TEngine(cfg, params, device="cpu", cross_kv_bits=4, shardings=object())
+    with pytest.raises(ValueError, match="must divide attention heads"):
+        TEngine(cfg, params, device="cpu", shardings=EngineShardings(tp=3))
+    with pytest.raises(ValueError, match="must divide attention heads"):
+        TEngine(cfg, params, device="cpu", cross_kv_bits=4, shardings=EngineShardings(tp=3))
     with pytest.raises(ValueError, match="cross_kv_bits"):
         TEngine(cfg, params, device="cpu", cross_kv_bits=3)
 

@@ -7,9 +7,10 @@ every `whisperlive_tpu.` module, and the packages the card's machine lacks
 `websocket`, `transformers`, `sentencepiece`: the checkpoint reader, the
 optimizer and the SMALL100 tokenizer are the port's own, `tokenizers` and
 `transformers` are reached only for a checkpoint that needs them, and the
-servers' and the client's network packages only inside the functions that
-open a connection), then imports every module of the port, chip_smoke.py
-and kernel_variants.py. The host modules the port keeps its own copies of
+servers', the client's and the cluster router's network packages only
+inside the functions that open a connection), then imports every module of
+the port (the parallel package, the router and its CLI among them),
+chip_smoke.py and kernel_variants.py. The host modules the port keeps its own copies of
 (tokenizer, session, VAD, word alignment, SMALL100 tokenizer, diarization
 and its speaker embedders) are also held against the originals on a few
 inputs; the alignment copy exactly, on random inputs.
@@ -88,7 +89,9 @@ def test_port_imports_no_jax_and_no_jax_package():
     names = proc.stdout.split("IMPORTED")[1].split()
     assert len(names) >= 30  # every module of the package, not an empty walk
     for name in ("training", "distill", "cli.distill", "serving.rest", "translation",
-                 "models.m2m100", "diarization", "client.client", "cli.run_client"):
+                 "models.m2m100", "diarization", "client.client", "cli.run_client",
+                 "parallel", "parallel.mesh", "parallel.multihost", "parallel.serve_multihost",
+                 "serving.cluster", "cli.run_cluster"):
         assert f"whisperlive_tpu_torch.{name}" in names
 
 

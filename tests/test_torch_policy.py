@@ -1,5 +1,6 @@
-"""Policies of the port: no JAX import, no quiet CPU run, refusals of what is
-not ported yet (shardings), what is (int4 cross-KV, beam search, word
+"""Policies of the port: no JAX import, no quiet CPU run, refusals of
+configurations it cannot run (a tp that does not divide the heads), what it
+takes (int4 cross-KV, beam search, word
 alignment, WL_BEAM_CHUNK), and chip_smoke.py's refusal to run without a
 card."""
 
@@ -16,6 +17,7 @@ from tests.test_torch_model import small_configs
 from whisperlive_tpu_torch import device as device_policy
 from whisperlive_tpu_torch.engine.engine import TranscribeOptions, WhisperEngine
 from whisperlive_tpu_torch.models import whisper as tw
+from whisperlive_tpu_torch.parallel.mesh import EngineShardings
 
 torch.set_num_threads(2)
 
@@ -63,15 +65,17 @@ def tiny_params():
     return tcfg, tw.init_params(tcfg, 0)
 
 
-@pytest.mark.parametrize("kw,env", [
-    (dict(cross_kv_bits=4, shardings=object()), {}),
-    (dict(shardings=object()), {}),
+@pytest.mark.parametrize("kw,error,match", [
+    (dict(cross_kv_bits=4, shardings=EngineShardings(tp=3)), ValueError,
+     "must divide attention heads"),
+    (dict(shardings=object()), TypeError, "EngineShardings"),
 ])
-def test_engine_refuses_unported_configurations(tiny_params, monkeypatch, kw, env):
+def test_engine_refuses_unported_configurations(tiny_params, kw, error, match):
+    """Shardings are ported (parallel/mesh.py): what stays refused is a
+    tensor-parallel degree that does not divide the heads, and a sharding
+    that is not the port's rank description."""
     tcfg, params = tiny_params
-    for key, value in env.items():
-        monkeypatch.setenv(key, value)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(error, match=match):
         WhisperEngine(tcfg, params, device="cpu", **kw)
 
 

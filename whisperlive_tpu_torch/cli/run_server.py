@@ -10,11 +10,10 @@ slot scheduler, warms both up, and serves through the port's
 TranscriptionServer with a TorchBackend. --enable_rest also serves the
 OpenAI-compatible REST API on --rest_port (with --cors_origins and
 --rate_limit_rpm); --fake_transcriber serves FakeBackend, no model.
-Port of whisperlive_tpu/cli/run_server.py without multi-host serving;
---no_continuous_batching serves the window path alone. The reference's
-WhisperLive parity flags (--backend, --trt_multilingual, --trt_py_session,
---no_single_model, --batch_inference), --cache_path and --compilation_cache
-are accepted and change nothing here.
+Port of whisperlive_tpu/cli/run_server.py; --no_continuous_batching serves
+the window path alone. The reference's WhisperLive parity flags (--backend,
+--trt_multilingual, --trt_py_session, --no_single_model, --batch_inference),
+--cache_path and --compilation_cache are accepted and change nothing here.
 
 Beam search (the reference transcriber decodes at beam 5):
 
@@ -33,6 +32,25 @@ Speculative decoding, with a draft loaded from --draft_path or random from
     ... --continuous_spec --continuous_spec_mode mixed
                                                    full re-decodes on a second,
                                                    speculative pool
+
+Tensor and data parallelism (one process per rank, parallel/mesh.py): with
+--tp or --dp above 1 the command starts its host's ranks itself
+(torch.multiprocessing, spawn). Rank 0 serves; every other rank replays
+the continuous pool's device ops from rank 0's op log
+(parallel/serve_multihost.py, HMAC-authenticated with WL_OPS_SECRET), so a
+server of more than one rank serves the continuous path only:
+
+    --tp 2                            heads and MLP units over 2 ranks
+    --tp 2 --dp 2                     2 replicas, the slot pool dp times
+                                      --continuous_slots
+    WL_COORDINATOR=host0:29500 WL_NUM_PROCS=2 WL_PROC_ID=<i>
+                                      the same command on every host: host i
+                                      runs ranks i * L .. i * L + L - 1 of the
+                                      tp * dp world (L = tp * dp / hosts; tp
+                                      must divide L)
+
+Ranks sharing a card (as on a one-card machine) talk over gloo on the
+card's tensors; ranks with a card each over NCCL.
 """
 
 from __future__ import annotations
@@ -166,7 +184,75 @@ def build_parser() -> argparse.ArgumentParser:
                         help="Serve a deterministic fake model (protocol testing).")
     parser.add_argument("--no_warmup", action="store_true",
                         help="Skip the warm-up decodes (and kernel build) at startup.")
+    parser.add_argument("--tp", type=int, default=1,
+                        help="Tensor-parallel degree over the local device mesh.")
+    parser.add_argument("--dp", type=int, default=None,
+                        help="Data-parallel replicas for SERVING: the "
+                             "continuous slot pool scales to dp x "
+                             "--continuous_slots and its state shards over "
+                             "the mesh's data axis (each replica decodes "
+                             "its own slots). Default: n_devices // tp "
+                             "when --tp or --dp is given, else 1.")
+    parser.add_argument("--multihost_ops_port", type=int, default=19090,
+                        help="TCP port of the multi-host serving op log "
+                             "(parallel/serve_multihost.py). Active when "
+                             "WL_COORDINATOR/WL_NUM_PROCS/WL_PROC_ID are "
+                             "set: process 0 serves and broadcasts every "
+                             "device op; the others replay them. All "
+                             "hosts must launch with IDENTICAL flags. "
+                             "The channel is HMAC-authenticated with "
+                             "WL_OPS_SECRET (set it on every host).")
+    parser.add_argument("--multihost_ops_host", type=str, default=None,
+                        help="Interface the leader binds the op log on. "
+                             "Default: the WL_COORDINATOR host (the pod-"
+                             "internal interface the followers already "
+                             "reach) — NOT 0.0.0.0; the op stream carries "
+                             "every session's raw audio.")
     return parser
+
+
+def resolve_dp(args) -> int:
+    """--dp, or n_devices // tp (at least 1) over every host when --tp or
+    --dp is given, else 1."""
+    if args.dp is not None:
+        return args.dp
+    if args.tp == 1:
+        return 1
+    n_dev = torch.cuda.device_count() if torch.device(args.device).type == "cuda" else 0
+    hosts = int(os.environ.get("WL_NUM_PROCS", "1"))
+    return max(1, n_dev * hosts // args.tp)
+
+
+def _build_engine(args, shardings):
+    """The engine (and its compute dtype and checkpoint dir) of a rank from
+    the CLI flags, on the rank's device; shared by the multi-process leader
+    and its followers, whose engines must be built EXACTLY like the
+    leader's (the op log's handshake checks a signature, but the same
+    weights and geometry are on the operator: launch every host with the
+    same flags and checkpoint). Every rank loads or draws the whole tree
+    and keeps its slice."""
+    from whisperlive_tpu_torch.engine.engine import WhisperEngine
+    from whisperlive_tpu_torch.loader import resolve_model
+    from whisperlive_tpu_torch.parallel import multihost
+
+    device = multihost.device()
+    dtype = ({"bfloat16": torch.bfloat16, "float32": torch.float32}[args.compute_dtype]
+             if args.compute_dtype else None)
+    ckpt = args.tpu_model_path or args.faster_whisper_custom_model_path or args.trt_model_path
+    cfg, params, tokenizer = resolve_model(args.model, ckpt, dtype, device, args.seed)
+    engine = WhisperEngine(cfg, params, tokenizer=tokenizer, device=device,
+                           compute_dtype=dtype, shardings=shardings)
+    return engine, dtype, ckpt
+
+
+def _continuous_pool_kwargs(args, shardings) -> dict:
+    """Geometry of the continuous slot pool: one definition, so the
+    multi-process leader and its followers build identical pools."""
+    n_slots, lanes = continuous_pool_size(args)
+    if shardings is not None and shardings.dp > 1:
+        n_slots *= shardings.dp
+    return dict(n_slots=n_slots, steps_per_chunk=args.steps_per_chunk,
+                cross_ctx=args.continuous_cross_ctx, beam_width=lanes, spec_k=args.spec_k)
 
 
 def continuous_pool_size(args) -> tuple[int, int]:
@@ -316,6 +402,190 @@ def warn_draft_ctx(args, for_continuous: bool) -> None:
                         "with --enc_ctx 0 (full)", d_ctx)
 
 
+def check_multihost_flags(args) -> None:
+    """Refuse the modes a multi-rank server cannot run: only the continuous
+    pool's ops are replayed on the follower ranks, so nothing may need the
+    window scheduler. The content cap defaults to the whole encoder
+    context, so no window is long enough to need the window path."""
+    if args.fake_transcriber:
+        raise SystemExit("--fake_transcriber has no multi-host mode")
+    if not args.continuous_batching:
+        raise SystemExit("multi-host serving requires continuous batching "
+                         "(drop --no_continuous_batching)")
+    if args.beam_size > 1 and args.beam_mode == "refresh":
+        raise SystemExit("--beam_mode refresh routes full re-decodes through the window "
+                         "scheduler, which multi-host serving cannot replay; use "
+                         "--beam_mode full")
+    if args.continuous_spec and args.continuous_spec_mode == "mixed" and (
+            args.draft_model or args.draft_path):
+        raise SystemExit("--continuous_spec_mode mixed needs a second continuous pool, "
+                         "whose ops are not replayed on follower ranks; use 'all' with "
+                         "multi-host serving")
+    if args.enable_rest:
+        # REST files ride the window scheduler's seek loop
+        logging.warning("multi-host serving disables the REST API")
+        args.enable_rest = False
+    if args.continuous_cross_ctx is None:
+        args.continuous_cross_ctx = 0  # the whole context, resolved with the engine
+
+
+def _multihost_pool(args, shardings):
+    """(engine, draft or None, pool kwargs) of a rank of a multi-process
+    server: built the same way on the leader and on every follower."""
+    from whisperlive_tpu_torch.loader import load_engine
+
+    engine, dtype, _ = _build_engine(args, shardings)
+    if args.continuous_cross_ctx == 0:
+        args.continuous_cross_ctx = engine.cfg.n_audio_ctx
+    draft = None
+    if args.draft_model or args.draft_path:
+        if args.continuous_spec:
+            warn_draft_ctx(args, for_continuous=True)
+            draft = load_engine(args.draft_model or "distil-large-v3", args.draft_path,
+                                engine.device, dtype, seed=args.seed + 1, shardings=shardings)
+        else:
+            logging.warning("multi-host serving uses a draft only with --continuous_spec; "
+                            "window-path speculation is disabled")
+    return engine, draft, _continuous_pool_kwargs(args, shardings)
+
+
+def create_multihost_backend(args, shardings, world: int, coordinator: str):
+    """The leader's backend: a continuous pool whose every device op is
+    published to the world's other ranks before it runs, behind a
+    TorchBackend that serves the continuous path only. The window
+    scheduler is built (the backend reads engine metadata from it) but
+    never started: its ops are not replayed. The op log binds on
+    --multihost_ops_host, else on the coordinator's host (the internal
+    interface the followers already reach, never 0.0.0.0: the stream
+    carries every session's audio)."""
+    from whisperlive_tpu_torch.engine.continuous import ContinuousScheduler
+    from whisperlive_tpu_torch.engine.scheduler import BatchScheduler
+    from whisperlive_tpu_torch.parallel import serve_multihost as smh
+    from whisperlive_tpu_torch.serving.backends import TorchBackend
+
+    engine, draft, pool = _multihost_pool(args, shardings)
+    leader = smh.OpLeader(args.multihost_ops_port, n_followers=world - 1,
+                          host=args.multihost_ops_host or coordinator.rsplit(":", 1)[0])
+    cb = smh.MultihostContinuousEngine(engine, leader=leader, draft_engine=draft, **pool)
+    logging.info("multi-host serving: leading %d follower ranks over the op log (port %d); "
+                 "%d slots over dp=%d x tp=%d", world - 1, args.multihost_ops_port,
+                 pool["n_slots"], shardings.dp, shardings.tp)
+    continuous = ContinuousScheduler(engine, cb=cb)
+    if not args.no_warmup:
+        continuous.warmup()
+    continuous.start()
+    scheduler = BatchScheduler(engine, max_batch_size=args.batch_max_size,
+                               batch_window_ms=args.batch_window_ms)
+    ckpt = args.tpu_model_path or args.faster_whisper_custom_model_path or args.trt_model_path
+    return TorchBackend(scheduler, model_name=ckpt or args.model,
+                        continuous_scheduler=continuous, beam_size=args.beam_size,
+                        beam_mode=args.beam_mode, continuous_only=True)
+
+
+def run_multihost_follower(args, shardings, coordinator: str) -> int:
+    """A follower rank: build the engines the leader builds, then replay
+    its op log (on the coordinator's host, rank 0's) until it stops. ->
+    the ops replayed."""
+    from whisperlive_tpu_torch.parallel import serve_multihost as smh
+
+    engine, draft, pool = _multihost_pool(args, shardings)
+    cb = smh.MultihostContinuousEngine(engine, draft_engine=draft, **pool)
+    leader = (coordinator.rsplit(":", 1)[0], args.multihost_ops_port)
+    logging.info("multi-host follower rank %d: replaying ops from %s:%d", shardings.rank,
+                 *leader)
+    chan = smh.OpFollower(leader)
+    try:
+        n = smh.run_follower(cb, chan)
+    finally:
+        chan.close()
+    logging.info("multi-host follower rank %d: leader stopped after %d ops", shardings.rank, n)
+    return n
+
+
+def serve_rank(index: int, args, coordinator: str, host: int, n_hosts: int,
+               local_ranks: int) -> None:
+    """One rank of a multi-process server: local rank index + 1 of this
+    host (the spawned children; the command's own process passes -1 and
+    is local rank 0). Rank 0 serves, the others follow."""
+    from whisperlive_tpu_torch.parallel import multihost
+
+    if index >= 0:  # a spawned child: its own logging and thread pool
+        logging.basicConfig(level=logging.INFO)
+        torch.set_num_threads(args.omp_num_threads)
+    multihost.init_multihost(coordinator, n_hosts, host, device=args.device,
+                             local_ranks=local_ranks, local_rank=index + 1)
+    shardings = multihost.multihost_shardings(tp=args.tp, dp=resolve_dp(args))
+    if not multihost.is_primary():
+        run_multihost_follower(args, shardings, coordinator)
+        return
+    backend = create_multihost_backend(args, shardings, n_hosts * local_ranks, coordinator)
+    try:
+        run_server(args, backend)
+    finally:
+        stop_backend(backend)
+
+
+def launch_ranks(args) -> None:
+    """Start this host's ranks of a tp x dp world (the other local ranks
+    spawned, local rank 0 in this process) and wait for them. Without
+    WL_COORDINATOR the world is this host's, meeting at a free local
+    port."""
+    import socket
+
+    import torch.multiprocessing as mp
+
+    world = args.tp * resolve_dp(args)
+    n_hosts = int(os.environ.get("WL_NUM_PROCS", "1"))
+    host = int(os.environ.get("WL_PROC_ID", "0"))
+    coordinator = os.environ.get("WL_COORDINATOR")
+    if coordinator is None:
+        if n_hosts != 1:
+            raise SystemExit("WL_NUM_PROCS > 1 needs WL_COORDINATOR (host:port of rank 0)")
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            coordinator = f"127.0.0.1:{sock.getsockname()[1]}"
+    if world % n_hosts:
+        raise SystemExit(f"tp * dp = {world} ranks do not divide over {n_hosts} hosts")
+    local_ranks = world // n_hosts
+    logging.info("host %d/%d: ranks %d..%d of dp=%d x tp=%d via %s", host, n_hosts,
+                 host * local_ranks, (host + 1) * local_ranks - 1, world // args.tp, args.tp,
+                 coordinator)
+    ctx = mp.start_processes(serve_rank, args=(args, coordinator, host, n_hosts, local_ranks),
+                             nprocs=local_ranks - 1, join=False, start_method="spawn")
+    try:
+        serve_rank(-1, args, coordinator, host, n_hosts, local_ranks)
+        while not ctx.join():
+            pass
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.terminate()
+
+
+def run_server(args, backend) -> None:
+    from whisperlive_tpu_torch.serving.server import TranscriptionServer
+
+    server = TranscriptionServer()
+    server.raw_pcm_default = args.raw_pcm_input
+    rest_kwargs = dict(
+        cors_origins=args.cors_origins.split(","),
+        api_key=args.api_key,
+        rate_limit_rpm=args.rate_limit_rpm,
+    )
+    server.run(
+        backend,
+        host=args.host,
+        port=args.port,
+        backend_name="fake" if args.fake_transcriber else "torch",
+        max_clients=args.max_clients,
+        max_connection_time=args.max_connection_time,
+        api_key=args.api_key,
+        metrics_port=args.metrics_port,
+        rest_port=args.rest_port if args.enable_rest else None,
+        rest_kwargs=rest_kwargs,
+    )
+
+
 def stop_backend(backend) -> None:
     if not hasattr(backend, "scheduler"):  # FakeBackend
         return
@@ -323,6 +593,9 @@ def stop_backend(backend) -> None:
     for pool in (backend.continuous_scheduler, backend.spec_scheduler):
         if pool is not None:
             pool.stop()
+    cb = getattr(backend.continuous_scheduler, "cb", None)
+    if getattr(cb, "multihost", False):
+        cb.stop_followers()
 
 
 def main(argv=None) -> None:
@@ -335,30 +608,13 @@ def main(argv=None) -> None:
     # torch read OMP_NUM_THREADS when this module imported it: set its pool
     # here too
     torch.set_num_threads(args.omp_num_threads)
+    if args.tp * resolve_dp(args) > 1 or int(os.environ.get("WL_NUM_PROCS", "1")) > 1:
+        check_multihost_flags(args)
+        launch_ranks(args)
+        return
     backend = create_backend(args)
-
-    from whisperlive_tpu_torch.serving.server import TranscriptionServer
-
-    server = TranscriptionServer()
-    server.raw_pcm_default = args.raw_pcm_input
-    rest_kwargs = dict(
-        cors_origins=args.cors_origins.split(","),
-        api_key=args.api_key,
-        rate_limit_rpm=args.rate_limit_rpm,
-    )
     try:
-        server.run(
-            backend,
-            host=args.host,
-            port=args.port,
-            backend_name="fake" if args.fake_transcriber else "torch",
-            max_clients=args.max_clients,
-            max_connection_time=args.max_connection_time,
-            api_key=args.api_key,
-            metrics_port=args.metrics_port,
-            rest_port=args.rest_port if args.enable_rest else None,
-            rest_kwargs=rest_kwargs,
-        )
+        run_server(args, backend)
     finally:
         stop_backend(backend)
 

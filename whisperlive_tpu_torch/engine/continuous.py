@@ -39,8 +39,19 @@ of corrupting it.
 
 ContinuousEngine is the slot pool (insert, step, release, harvest);
 ContinuousScheduler drains a request queue into it from one worker thread
-and is submit-compatible with BatchScheduler. WhisperEngine itself refuses
-shardings, not ported yet (ROADMAP.md open item 15).
+and is submit-compatible with BatchScheduler.
+
+Over a [dp, tp] grid (an engine built with shardings, parallel/mesh.py;
+one process per rank) the slots shard over the data group when dp divides
+them (`dp_sharded`): a rank owns the slots [dp_index * n / dp, (dp_index +
+1) * n / dp) and holds state for those alone, an insert encodes and
+prefills only on the tp group that owns its slot (so the collectives stay
+inside that group), and every rank steps its own rows. Every rank calls
+every op with the same global arguments in the same order (the op log of
+parallel/serve_multihost.py keeps followers in step with the leader's
+scheduler); a read of the step status, of the sampled plane, of the
+language probabilities or of an alignment pass is a gather or broadcast
+over the data group that every rank enters at the same point.
 """
 
 from __future__ import annotations
@@ -55,6 +66,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from whisperlive_tpu_torch.engine import continuous_state as cstate
 from whisperlive_tpu_torch.engine.continuous_step import spec_chunk, step_chunk
@@ -121,6 +133,22 @@ class ContinuousEngine:
         # each slot owns beam_width contiguous lane rows
         self.beam_width = max(int(beam_width), 1)
         self.n_rows = n_slots * self.beam_width
+        # dp x tp serving: with a data group of dp replicas the slots shard
+        # over it when dp divides them (a slot's lanes never straddle two
+        # replicas); each replica decodes its own slots, and the step runs
+        # no collective across replicas
+        self.shardings = getattr(engine, "shardings", None)
+        sh = self.shardings
+        self.dp_sharded = sh is not None and sh.dp > 1 and n_slots % sh.dp == 0
+        if sh is not None and sh.dp > 1 and not self.dp_sharded:
+            logger.warning(
+                "slot rows (%d = %d slots x %d lanes) do not divide dp=%d; slot state "
+                "stays unsharded over the data axis (size the pool as a multiple of dp "
+                "to use all replicas)", self.n_rows, n_slots, self.beam_width, sh.dp,
+            )
+        # the slots this rank holds state for: [slot_base, slot_base + local)
+        self.local_slots = n_slots // sh.dp if self.dp_sharded else n_slots
+        self.slot_base = sh.dp_index * self.local_slots if self.dp_sharded else 0
         self.prompt_pad = prompt_pad
         self.draft = draft_engine
         self.spec_k = int(spec_k) if draft_engine is not None else 0
@@ -180,11 +208,40 @@ class ContinuousEngine:
 
     # ------------------------------------------------------------------
 
+    # Multi-process serving hook (parallel/serve_multihost.py): True on the
+    # engine whose ops are published to follower ranks. The scheduler
+    # dispatches every device op (the alignment pass included) from its
+    # worker thread in every mode, so no op needs gating here.
+    multihost = False
+
+    def _fetch(self, x: torch.Tensor, rows: bool = False) -> np.ndarray:
+        """Device-to-host copy of a state value. rows: x is a plane of this
+        rank's slot rows, gathered over the data group first (a collective
+        every rank enters at the same op) into the whole pool's rows."""
+        if rows and self.dp_sharded:
+            parts = [torch.empty_like(x) for _ in range(self.shardings.dp)]
+            dist.all_gather(parts, x.contiguous(), group=self.shardings.data_group)
+            x = torch.cat(parts)
+        return x.cpu().numpy()
+
+    def _stage(self, x, dtype=None) -> torch.Tensor:
+        """Host-to-device copy of an op argument (the same host bytes on
+        every rank)."""
+        return self.eng._tensor(np.asarray(x, dtype) if dtype is not None else np.asarray(x))
+
+    def owner(self, slot: int) -> int:
+        """The data replica (dp index) that holds slot's state."""
+        return slot // self.local_slots if self.dp_sharded else 0
+
+    def _mine(self, slot: int) -> bool:
+        return not self.dp_sharded or self.owner(slot) == self.shardings.dp_index
+
     def init_state(self, seed: int = 0) -> None:
         eng = self.eng
         self.state = cstate.init_state(
-            eng.cfg, eng.spec, self.n_rows, self.prompt_pad, self.ring, self.cross_ctx,
-            eng.cross_kv_bits, eng.device, draft=self.draft, lanes=self.beam_width,
+            eng.cfg, eng.spec, self.local_slots * self.beam_width, self.prompt_pad, self.ring,
+            self.cross_ctx, eng.cross_kv_bits, eng.device, draft=self.draft,
+            lanes=self.beam_width,
         )
         self.gstep = 0
         self._row_temp[:] = 0.0
@@ -214,7 +271,41 @@ class ContinuousEngine:
         probabilities, or None when need_langs=False (then nothing is copied
         back to the host). The wave is padded to an insert bucket by
         repeating its last request and slot. enc_ctx: encoder positions for
-        the wave (an enc_buckets entry); every window must fit."""
+        the wave (an enc_buckets entry); every window must fit. A
+        dp-sharded pool seats on each replica the part of the wave whose
+        slots it owns (none: no device work there)."""
+        n_wave = len(slot_ids)
+        keep = [i for i, s in enumerate(slot_ids) if self._mine(s)]
+        lang_probs = None
+        if keep:
+            def sub(xs):
+                return None if xs is None else [xs[i] for i in keep]
+
+            lang_probs = self._insert_local(
+                np.asarray(windows)[keep], sub(prompts), sub(sot_idx), sub(lang_known),
+                [slot_ids[i] - self.slot_base for i in keep], sub(temps), sub(ts_en),
+                sub(rep), sub(max_new), sub(last_ts), sub(has_prefix), sub(pfx_last_ts),
+                sub(pfx_penult_ts), enc_ctx, sub(length_penalty))
+        self._row_temp[list(slot_ids)] = temps
+        self._row_rep[list(slot_ids)] = rep
+        if not need_langs:
+            return None
+        if not self.dp_sharded:
+            return self._fetch(lang_probs.float())[:n_wave]
+        # each replica fills the rows of its own part of the wave
+        eng = self.eng
+        n_lang = len(eng._lang_ids) if eng.tokenizer.spec.multilingual else 1
+        wave = torch.zeros((n_wave, n_lang), dtype=torch.float32, device=eng.device)
+        if keep:
+            wave[torch.as_tensor(keep, device=eng.device)] = lang_probs.float()[: len(keep)]
+        dist.all_reduce(wave, group=self.shardings.data_group)
+        return self._fetch(wave)
+
+    def _insert_local(self, windows, prompts, sot_idx, lang_known, slot_ids, temps, ts_en, rep,
+                      max_new, last_ts, has_prefix, pfx_last_ts, pfx_penult_ts, enc_ctx,
+                      length_penalty) -> torch.Tensor:
+        """Seat a wave in this rank's slots (local indices); -> the language
+        probabilities of the padded wave on the device."""
         eng = self.eng
         j = len(slot_ids)
         bucket = _bucket(j, INSERT_BUCKETS)
@@ -259,20 +350,14 @@ class ContinuousEngine:
             "length_penalty": length_penalty or [1.0] * j,
             "temperature": temps, "ts_enabled": ts_en, "rep_penalty": rep, "max_new": max_new,
         }
-        t = eng._tensor
+        t = self._stage
         with eng._lock:
-            lang_probs = cstate.insert(
+            return cstate.insert(
                 eng, self.state, self.gstep, self.cross_ctx, t(audio), t(parr), t(plen),
-                t(np.asarray(pad(sot_idx), np.int32)), t(np.asarray(pad(lang_known), bool)),
-                t(np.asarray(pad(slot_ids), np.int64)),
-                {name: t(np.asarray(pad(list(v)))) for name, v in rows.items()},
+                t(pad(sot_idx), np.int32), t(pad(lang_known), bool), t(pad(slot_ids), np.int64),
+                {name: t(pad(list(v))) for name, v in rows.items()},
                 draft=self.draft, lanes=self.beam_width,
             )
-        self._row_temp[list(slot_ids)] = temps
-        self._row_rep[list(slot_ids)] = rep
-        if not need_langs:
-            return None
-        return lang_probs.float().cpu().numpy()[:j]
 
     def step(self) -> np.ndarray:
         """Run one chunk of decode steps (verify rounds in a speculative
@@ -291,19 +376,20 @@ class ContinuousEngine:
                 step_chunk(eng, self.state, self.gstep, self.steps_per_chunk, self.ring,
                            self.prompt_pad, self.suppress_mask, lanes=self.beam_width, **flags)
             self.gstep += self.gstep_per_chunk
-            return cstate.pack_status(self.state, self.beam_width).cpu().numpy()
+            return self._fetch(cstate.pack_status(self.state, self.beam_width), rows=True)
 
     def release(self, slot_ids: list[int]) -> None:
         mask = np.zeros((self.n_slots,), bool)
         mask[list(slot_ids)] = True
+        local = mask[self.slot_base : self.slot_base + self.local_slots]
         with self.eng._lock:  # all lanes of each slot
-            cstate.release(self.state, self.eng._tensor(np.repeat(mask, self.beam_width)))
+            cstate.release(self.state, self._stage(np.repeat(local, self.beam_width)))
         self._row_temp[mask] = 0.0
         self._row_rep[mask] = 1.0
 
     def harvest_all(self) -> np.ndarray:
         """The whole sampled ring in one copy: [B, ring] int32."""
-        return self.state["sampled"].cpu().numpy()
+        return self._fetch(self.state["sampled"], rows=True)
 
     unroll = staticmethod(cstate.unroll)
     unroll_masked = staticmethod(cstate.unroll_masked)
@@ -321,9 +407,9 @@ class ContinuousEngine:
         """One finished slot's sampled tokens, ring-unrolled; `lane` selects
         a beam pool's winner (status column 5)."""
         r = slot * self.beam_width + lane
-        row = self.state["sampled"][r].cpu().numpy()
+        row = self._fetch(self.state["sampled"], rows=True)[r]
         if self.spec_k:
-            valid = self.state["tok_valid"][r].cpu().numpy()
+            valid = self._fetch(self.state["tok_valid"], rows=True)[r]
             return cstate.unroll_masked(row, valid, join_step, self.ring)
         return cstate.unroll(row, join_step, gen_len, self.ring)
 
@@ -332,10 +418,27 @@ class ContinuousEngine:
         """The alignment pass (WhisperEngine.align_maps) against this slot's
         resident, content-capped cross-KV (its lanes share one), copied to
         the host: (logits [1, seq_len, V], maps [L, 1, H, seq_len,
-        frames])."""
+        frames]). In a dp-sharded pool the replica owning the slot runs
+        the pass and broadcasts it over the data group."""
         eng = self.eng
-        sub_cross = eng.gather_cross(self.state["cross_kv"], [slot * self.beam_width])
-        return eng.align_maps(sub_cross, tokens_arr, cross_len, seq_len, num_frames)
+        out = None
+        if self._mine(slot):
+            local = (slot - self.slot_base) * self.beam_width
+            sub_cross = eng.gather_cross(self.state["cross_kv"], [local])
+            out = eng.align_maps(sub_cross, tokens_arr, cross_len, seq_len, num_frames)
+        if not self.dp_sharded:
+            return out
+        cfg = eng.cfg
+        shapes = ((1, seq_len, cfg.n_vocab),
+                  (cfg.n_text_layer, 1, cfg.n_text_head, seq_len, max(num_frames // 2, 1)))
+        src = self.shardings.data_rank(self.owner(slot))
+        sent = []
+        for i, shape in enumerate(shapes):
+            x = (torch.from_numpy(out[i]).to(eng.device) if out is not None
+                 else torch.empty(shape, dtype=torch.float32, device=eng.device))
+            dist.broadcast(x, src=src, group=self.shardings.data_group)
+            sent.append(x.cpu().numpy())
+        return sent[0], sent[1]
 
 
 class ContinuousScheduler:
@@ -359,9 +462,12 @@ class ContinuousScheduler:
         beam_width: int = 1,
         draft_engine: Optional[WhisperEngine] = None,
         spec_k: int = 4,
+        cb: Optional[ContinuousEngine] = None,
     ):
+        """cb: a slot pool built by the caller (multi-process serving passes
+        a MultihostContinuousEngine); the pool arguments are then unused."""
         self.engine = engine
-        self.cb = ContinuousEngine(
+        self.cb = cb if cb is not None else ContinuousEngine(
             engine, n_slots=n_slots, prompt_pad=prompt_pad, ring=ring,
             steps_per_chunk=steps_per_chunk, options=options, cross_ctx=cross_ctx,
             enc_buckets=enc_buckets, beam_width=beam_width, draft_engine=draft_engine,
@@ -526,6 +632,10 @@ class ContinuousScheduler:
 
     def _do_inserts(self) -> None:
         free = [b for b in range(self.cb.n_slots) if b not in self._slots]
+        if self.cb.dp_sharded:
+            # spread a wave over the data replicas: the slots in order of
+            # their index within a replica, then of the replica
+            free.sort(key=lambda b: (b % self.cb.local_slots, b // self.cb.local_slots))
         if not free or not self._pending:
             return
         k = min(len(free), max(INSERT_BUCKETS))

@@ -60,24 +60,25 @@ _ROW_FIELDS = {
 
 def cross_template(cfg: wmod.WhisperConfig, bits: int, b: int, tcap: int,
                    device: torch.device) -> dict:
-    """Zeroed cross-KV region of b slots capped at tcap positions."""
-    hd = cfg.n_text_state // cfg.n_text_head
-    scale = torch.zeros((cfg.n_text_layer, 2, b, 1, cfg.n_text_head, hd),
+    """Zeroed cross-KV region of b slots capped at tcap positions (this
+    rank's heads under tensor parallelism)."""
+    hd, h = cfg.head_dim, cfg.text_heads
+    scale = torch.zeros((cfg.n_text_layer, 2, b, 1, h, hd),
                         dtype=torch.bfloat16, device=device)
     if bits == 8:
         return {
-            "kv8": torch.zeros((cfg.n_text_layer, 1, b, cfg.n_text_head, tcap, 2 * hd),
+            "kv8": torch.zeros((cfg.n_text_layer, 1, b, h, tcap, 2 * hd),
                                dtype=torch.int8, device=device),
             "scale": scale,
         }
     if bits == 4:
         return {
-            "kv4": torch.zeros((cfg.n_text_layer, 2, b, cfg.n_text_head, tcap, hd // 2),
+            "kv4": torch.zeros((cfg.n_text_layer, 2, b, h, tcap, hd // 2),
                                dtype=torch.int8, device=device),
             "scale": scale,
         }
     return {
-        "kv": torch.zeros((cfg.n_text_layer, 2, b, tcap, cfg.n_text_head, hd),
+        "kv": torch.zeros((cfg.n_text_layer, 2, b, tcap, h, hd),
                           dtype=cfg.dtype, device=device),
         "scale": None,
     }

@@ -20,8 +20,15 @@ PyTorch runs eagerly, so the JAX `lax.while_loop` becomes a Python loop on
 the host whose only device-to-host sync per token is the termination check;
 a chunked (preemptible) beam decode syncs once per segment instead.
 Shapes stay bucketed (batch, prompt and generation budget) as in the JAX
-engine. Shardings are not ported yet and raise NotImplementedError naming
-their ROADMAP item.
+engine.
+
+With `shardings` (parallel/mesh.py EngineShardings, one process per rank)
+the engine holds this rank's tensor-parallel slice of the weights: every
+rank of a tp group builds the engine from the same full tree and then
+calls the same methods in the same order (SPMD; the continuous path keeps
+them in step through the op log of parallel/serve_multihost.py). The
+logits are whole on every rank and every draw uses a generator seeded the
+same way on each, so every rank samples the same tokens.
 """
 
 from __future__ import annotations
@@ -36,6 +43,7 @@ from typing import Any, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from whisperlive_tpu_torch.engine.tokenizer import (
     TokenSpec,
@@ -46,6 +54,7 @@ from whisperlive_tpu_torch import device as device_policy
 from whisperlive_tpu_torch.models import whisper as wmod
 from whisperlive_tpu_torch.ops import decoding as dec
 from whisperlive_tpu_torch.ops import mel as mel_ops
+from whisperlive_tpu_torch.parallel import mesh as pmesh
 
 logger = logging.getLogger(__name__)
 
@@ -233,17 +242,21 @@ class WhisperEngine:
         device: str | torch.device = "cuda",
         compute_dtype: torch.dtype | None = None,
     ):
-        if shardings is not None:
-            raise NotImplementedError(
-                "sharded engines are not ported yet: ROADMAP.md open item 15"
-            )
         self.device = device_policy.resolve_device(device)
+        self.shardings = shardings
+        tp = 1
+        if shardings is not None:
+            if not isinstance(shardings, pmesh.EngineShardings):
+                raise TypeError("shardings must be a parallel.mesh.EngineShardings (one "
+                                f"process per rank), not {type(shardings).__name__}")
+            shardings.validate(cfg)
+            tp = shardings.tp
         # bf16 on CUDA (the kernels take bf16), float32 on the CPU
         if compute_dtype is None:
             compute_dtype = device_policy.default_compute_dtype(self.device)
         if self.device.type == "cuda" and compute_dtype != torch.bfloat16:
             raise ValueError(f"the CUDA kernels take bfloat16, not {compute_dtype}")
-        self.cfg = cfg.replace(dtype=compute_dtype)
+        self.cfg = cfg.replace(dtype=compute_dtype, tp=tp)
         self.tokenizer = tokenizer or WhisperTokenizer(
             TokenSpec(cfg.n_vocab, multilingual=cfg.n_vocab >= 51865)
         )
@@ -273,6 +286,14 @@ class WhisperEngine:
         )
         if self.decoder_int8:
             self.params = wmod.quantize_decoder_weights(self.params)
+        # the whole tree's fingerprint, for the op log's handshake
+        self.params_fp = None
+        if shardings is not None:
+            self.params_fp = pmesh.params_fingerprint(self.params)
+            # quantized whole, then sliced: a row-parallel shard quantized
+            # alone would get other scales than the JAX engine's global
+            # ones (its int8 runs on the global arrays)
+            self.params = pmesh.shard_params(self.params, shardings)
         self._lock = threading.Lock()
         self._suppress_cache: dict[tuple, torch.Tensor] = {}
         self._lang_ids = torch.tensor(
@@ -929,8 +950,17 @@ class WhisperEngine:
                 self.params, self.cfg, self._tensor(arr), cross_kv,
                 cross_len=torch.tensor([cross_len], dtype=torch.int32, device=self.device),
             )
-            maps = maps[:, :, :, :seq_len, :frames].float().cpu().numpy()
-            return logits[:, :seq_len].cpu().numpy(), maps
+            maps = self._gather_heads(maps[:, :, :, :seq_len, :frames].float())
+            return logits[:, :seq_len].cpu().numpy(), maps.cpu().numpy()
+
+    def _gather_heads(self, maps: torch.Tensor) -> torch.Tensor:
+        """Cross-attention maps [L, B, H, ...] with every head: under tensor
+        parallelism the model group's heads side by side, in rank order."""
+        if self.cfg.tp == 1:
+            return maps
+        parts = [torch.empty_like(maps) for _ in range(self.cfg.tp)]
+        dist.all_gather(parts, maps.contiguous(), group=self.shardings.model_group)
+        return torch.cat(parts, dim=2)
 
     def align_prepare(self, text_tokens: Sequence[int], language: str | None = None,
                       task: str = "transcribe"):

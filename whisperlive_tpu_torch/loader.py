@@ -61,14 +61,16 @@ def resolve_model(size: str, ckpt: str | None, dtype: torch.dtype | None = None,
 
 
 def load_engine(size: str, ckpt: str | None, device: str | torch.device = "cuda",
-                compute_dtype: torch.dtype | None = None, seed: int = 0):
+                compute_dtype: torch.dtype | None = None, seed: int = 0, shardings=None):
     """resolve_model + a WhisperEngine on `device` with the engine's
-    defaults (compute dtype, decoder and cross-KV widths, buckets)."""
+    defaults (compute dtype, decoder and cross-KV widths, buckets). With
+    `shardings` (parallel/mesh.py) every rank loads or draws the whole tree
+    and the engine keeps this rank's slice."""
     from whisperlive_tpu_torch.engine.engine import WhisperEngine
 
     cfg, params, tokenizer = resolve_model(size, ckpt, compute_dtype, device, seed)
     return WhisperEngine(cfg, params, tokenizer=tokenizer, device=device,
-                         compute_dtype=compute_dtype)
+                         compute_dtype=compute_dtype, shardings=shardings)
 
 
 def draft_distill_ctx(ckpt: str | None) -> int | None:

@@ -143,7 +143,7 @@ def save_converted(path: str, cfg: WhisperConfig, params: Params,
     another encoder context than it was trained for)."""
     os.makedirs(path, exist_ok=True)
     safetensors_io.save_tree(params, os.path.join(path, PARAMS_FILE))
-    meta = {k: v for k, v in dataclasses.asdict(cfg).items() if k != "dtype"}
+    meta = {k: v for k, v in dataclasses.asdict(cfg).items() if k not in ("dtype", "tp")}
     meta.update(extra_meta or {})
     with open(os.path.join(path, "config.json"), "w") as f:
         json.dump(meta, f)
@@ -161,7 +161,7 @@ def load_converted(path: str) -> tuple[WhisperConfig, Params]:
             )
         raise ValueError(f"{path} holds neither an HF checkpoint nor a converted one "
                          f"({PARAMS_FILE})")
-    fields = {f.name for f in dataclasses.fields(WhisperConfig)} - {"dtype"}
+    fields = {f.name for f in dataclasses.fields(WhisperConfig)} - {"dtype", "tp"}
     with open(os.path.join(path, "config.json")) as f:
         meta = json.load(f)
     cfg = WhisperConfig(**{k: v for k, v in meta.items() if k in fields})

@@ -20,6 +20,13 @@ run their plain versions only for CPU tensors. Everything else (encoder
 linears, the cross-KV projection, linears at M > 512, the conv stem,
 self-attention, cross-attention of prompt-bucket prefills) is plain
 PyTorch, as the JAX package leaves it to XLA.
+
+Under tensor parallelism (cfg.tp > 1, parallel/mesh.py) a rank holds its
+slice of the heads and MLP units: every function here runs unchanged on
+the slice, the head axis of the caches and cross-KV is this rank's, and
+the output projection and fc2 all-reduce their partial sums over the
+model group before their bias. The logits stay whole: the tied embedding
+is on every rank, so every rank samples the same token.
 """
 
 from __future__ import annotations
@@ -44,6 +51,7 @@ from whisperlive_tpu_torch.ops.attention import (
     unpack_int4,
 )
 from whisperlive_tpu_torch.ops.quant_matmul import int8_matmul, int8_matmul_t
+from whisperlive_tpu_torch.parallel import mesh as pmesh
 
 Params = dict[str, Any]  # nested dict of tensors
 
@@ -67,10 +75,23 @@ class WhisperConfig:
     n_text_head: int = 6
     n_text_layer: int = 4
     dtype: torch.dtype = torch.float32  # compute dtype for matmuls
+    # tensor-parallel degree: a rank of a tp group holds n_head / tp heads
+    # and 4d / tp MLP units (parallel/mesh.py slices the weights) and
+    # all-reduces the row-parallel partial sums over its model group
+    tp: int = 1
 
     @property
     def head_dim(self) -> int:
         return self.n_text_state // self.n_text_head
+
+    @property
+    def audio_head_dim(self) -> int:
+        return self.n_audio_state // self.n_audio_head
+
+    @property
+    def text_heads(self) -> int:
+        """Decoder heads this rank holds (the self- and cross-KV head axis)."""
+        return self.n_text_head // self.tp
 
     def replace(self, **kw) -> "WhisperConfig":
         return dataclasses.replace(self, **kw)
@@ -237,6 +258,13 @@ def _split_heads(x: torch.Tensor, n_head: int) -> torch.Tensor:
     return x.reshape(b, t, n_head, d // n_head)
 
 
+def _split_head_dim(x: torch.Tensor, hd: int) -> torch.Tensor:
+    """[B, T, h * hd] -> [B, T, h, hd]: as many heads as x's width holds,
+    all of them or a tensor-parallel rank's share."""
+    b, t, d = x.shape
+    return x.reshape(b, t, d // hd, hd)
+
+
 def _merge_heads(x: torch.Tensor) -> torch.Tensor:
     b, t, h, hd = x.shape
     return x.reshape(b, t, h * hd)
@@ -255,8 +283,26 @@ def _attention(q, k, v, mask=None, return_probs=False):
     return (out, probs) if return_probs else out
 
 
-def _mlp(x: torch.Tensor, p: Params) -> torch.Tensor:
-    return _linear(F.gelu(_linear(x, p["fc1"]), approximate="none"), p["fc2"])
+def _to_model(x: torch.Tensor, tp: int) -> torch.Tensor:
+    """The input of a column-parallel block: f (identity forward, gradient
+    all-reduced over the model group) under tensor parallelism."""
+    return x if tp == 1 else pmesh.copy_to_model(x)
+
+
+def _row_linear(x: torch.Tensor, p: Params, tp: int) -> torch.Tensor:
+    """A row-parallel linear (o, fc2): under tensor parallelism x holds this
+    rank's share of the input features and the weight its rows, so the
+    product is a partial sum; the model group adds them up (g) and the
+    bias is added once, after the reduce."""
+    if tp == 1:
+        return _linear(x, p)
+    out = pmesh.reduce_from_model(_linear(x, {k: v for k, v in p.items() if k != "b"}))
+    return out + p["b"].to(x.dtype) if "b" in p else out
+
+
+def _mlp(x: torch.Tensor, p: Params, tp: int = 1) -> torch.Tensor:
+    h = F.gelu(_linear(_to_model(x, tp), p["fc1"]), approximate="none")
+    return _row_linear(h, p["fc2"], tp)
 
 
 # ---------------------------------------------------------------------------
@@ -272,12 +318,15 @@ def _conv1d(x: torch.Tensor, p: Params, stride: int) -> torch.Tensor:
     return y.transpose(1, 2)
 
 
-def _self_attention(x: torch.Tensor, p: Params, n_head: int, attend) -> torch.Tensor:
-    """The q, k, v projections of x, attend(q, k, v) and the output projection."""
-    q = _split_heads(_linear(x, p["q"]), n_head)
-    k = _split_heads(_linear(x, p["k"]), n_head)
-    v = _split_heads(_linear(x, p["v"]), n_head)
-    return _linear(_merge_heads(attend(q, k, v)), p["o"])
+def _self_attention(x: torch.Tensor, p: Params, hd: int, attend, tp: int = 1) -> torch.Tensor:
+    """The q, k, v projections of x into heads of hd channels, attend(q, k,
+    v) and the output projection (this rank's heads under tensor
+    parallelism)."""
+    x = _to_model(x, tp)
+    q = _split_head_dim(_linear(x, p["q"]), hd)
+    k = _split_head_dim(_linear(x, p["k"]), hd)
+    v = _split_head_dim(_linear(x, p["v"]), hd)
+    return _row_linear(_merge_heads(attend(q, k, v)), p["o"], tp)
 
 
 def _encoder_stem(p: Params, cfg: WhisperConfig, mel: torch.Tensor) -> torch.Tensor:
@@ -289,9 +338,9 @@ def _encoder_stem(p: Params, cfg: WhisperConfig, mel: torch.Tensor) -> torch.Ten
     return x + p["pos"][: x.shape[1]].to(cfg.dtype)
 
 
-def _encoder_block(x: torch.Tensor, lp: Params, n_head: int, attend) -> torch.Tensor:
-    x = x + _self_attention(_layer_norm(x, lp["attn_ln"]), lp["attn"], n_head, attend)
-    return x + _mlp(_layer_norm(x, lp["mlp_ln"]), lp["mlp"])
+def _encoder_block(x: torch.Tensor, lp: Params, hd: int, attend, tp: int = 1) -> torch.Tensor:
+    x = x + _self_attention(_layer_norm(x, lp["attn_ln"]), lp["attn"], hd, attend, tp)
+    return x + _mlp(_layer_norm(x, lp["mlp_ln"]), lp["mlp"], tp)
 
 
 def encode(params: Params, cfg: WhisperConfig, mel: torch.Tensor) -> torch.Tensor:
@@ -300,7 +349,8 @@ def encode(params: Params, cfg: WhisperConfig, mel: torch.Tensor) -> torch.Tenso
     p = params["encoder"]
     x = _encoder_stem(p, cfg, mel)
     for i in range(cfg.n_audio_layer):
-        x = _encoder_block(x, layer(p["layers"], i), cfg.n_audio_head, fused_attention)
+        x = _encoder_block(x, layer(p["layers"], i), cfg.audio_head_dim, fused_attention,
+                           cfg.tp)
     return _layer_norm(x, p["ln_post"])
 
 
@@ -310,12 +360,13 @@ def encode(params: Params, cfg: WhisperConfig, mel: torch.Tensor) -> torch.Tenso
 
 
 def compute_cross_kv(params: Params, cfg: WhisperConfig, enc: torch.Tensor) -> Params:
-    """Per-layer cross-attention K, V: {"kv": [L, 2, B, T, H, hd], "scale": None}."""
+    """Per-layer cross-attention K, V: {"kv": [L, 2, B, T, H, hd], "scale": None}
+    (H: this rank's heads under tensor parallelism)."""
     kvs = []
     for i in range(cfg.n_text_layer):
         ca = layer(params["decoder"]["layers"], i)["cross_attn"]
-        k = _split_heads(_linear(enc, ca["k"]), cfg.n_text_head)
-        v = _split_heads(_linear(enc, ca["v"]), cfg.n_text_head)
+        k = _split_head_dim(_linear(enc, ca["k"]), cfg.head_dim)
+        v = _split_head_dim(_linear(enc, ca["v"]), cfg.head_dim)
         kvs.append(torch.stack([k, v]))
     return {"kv": torch.stack(kvs), "scale": None}
 
@@ -426,16 +477,17 @@ def _cross_attend(qc: torch.Tensor, ckv: Params, dtype: torch.dtype,
 
 def init_self_kv(cfg: WhisperConfig, batch: int, cache_len: int | None = None,
                  device: torch.device | str = "cpu") -> torch.Tensor:
-    """Zeroed self-attention KV cache [L, 2, B, cache_len, H, hd]."""
+    """Zeroed self-attention KV cache [L, 2, B, cache_len, H, hd] (H: this
+    rank's heads under tensor parallelism)."""
     if cache_len is None:
         cache_len = cfg.n_text_ctx
     return torch.zeros(
-        (cfg.n_text_layer, 2, batch, cache_len, cfg.n_text_head, cfg.head_dim),
+        (cfg.n_text_layer, 2, batch, cache_len, cfg.text_heads, cfg.head_dim),
         dtype=cfg.dtype, device=device,
     )
 
 
-def _decoder_block_step(x, lp, skv, ckv, slot_start: int, attn_mask, n_head: int,
+def _decoder_block_step(x, lp, skv, ckv, slot_start: int, attn_mask, hd: int, tp: int,
                         cross_len=None, active=None, collect_probs=False):
     """One decoder layer for Tq query tokens (prefill or a verify window).
     Writes the new K/V into the cache slice `skv` [2, B, C, H, hd] IN PLACE
@@ -443,22 +495,22 @@ def _decoder_block_step(x, lp, skv, ckv, slot_start: int, attn_mask, n_head: int
     a copy first, then attends: the same order). collect_probs: return (x,
     cross-attention probabilities [B, H, Tq, Tenc])."""
     h = _layer_norm(x, lp["attn_ln"])
-    q = _split_heads(_linear(h, lp["attn"]["q"]), n_head)
-    k_new = _split_heads(_linear(h, lp["attn"]["k"]), n_head)
-    v_new = _split_heads(_linear(h, lp["attn"]["v"]), n_head)
+    q = _split_head_dim(_linear(h, lp["attn"]["q"]), hd)
+    k_new = _split_head_dim(_linear(h, lp["attn"]["k"]), hd)
+    v_new = _split_head_dim(_linear(h, lp["attn"]["v"]), hd)
     tq = k_new.shape[1]
     skv[0, :, slot_start : slot_start + tq] = k_new
     skv[1, :, slot_start : slot_start + tq] = v_new
     attn_out = _attention(q, skv[0], skv[1], attn_mask)
-    x = x + _linear(_merge_heads(attn_out), lp["attn"]["o"])
+    x = x + _row_linear(_merge_heads(attn_out), lp["attn"]["o"], tp)
 
     h = _layer_norm(x, lp["cross_attn_ln"])
-    qc = _split_heads(_linear(h, lp["cross_attn"]["q"]), n_head)
+    qc = _split_head_dim(_linear(h, lp["cross_attn"]["q"]), hd)
     cross_out = _cross_attend(qc, ckv, x.dtype, cross_len, active, collect_probs)
     if collect_probs:
         cross_out, probs = cross_out
-    x = x + _linear(_merge_heads(cross_out), lp["cross_attn"]["o"])
-    x = x + _mlp(_layer_norm(x, lp["mlp_ln"]), lp["mlp"])
+    x = x + _row_linear(_merge_heads(cross_out), lp["cross_attn"]["o"], tp)
+    x = x + _mlp(_layer_norm(x, lp["mlp_ln"]), lp["mlp"], tp)
     return (x, probs) if collect_probs else x
 
 
@@ -475,7 +527,7 @@ def _decoder_forward(params, cfg, tokens, pos_idx, slot_start, attn_mask, self_k
     for i in range(cfg.n_text_layer):
         x = _decoder_block_step(
             x, layer(p["layers"], i), self_kv[i], layer(cross_kv, i), slot_start,
-            attn_mask, cfg.n_text_head, cross_len, active, collect_cross_attn,
+            attn_mask, cfg.head_dim, cfg.tp, cross_len, active, collect_cross_attn,
         )
         if collect_cross_attn:
             x, probs = x
@@ -587,15 +639,14 @@ def decode_step_masked(params, cfg, token, pos, slot: int, mask, self_kv, cross_
     ]  # [B, 1, d]
     c = self_kv.shape[3]
     mask = mask[:, None, None, :]  # [B, 1, 1, C]
-    n_head = cfg.n_text_head
+    hd, tp = cfg.head_dim, cfg.tp
     for i in range(cfg.n_text_layer):
         lp = layer(p["layers"], i)
         skv = self_kv[i]
         h = _layer_norm(x, lp["attn_ln"])
-        q = _split_heads(_linear(h, lp["attn"]["q"]), n_head)  # [B, 1, H, hd]
-        k_new = _split_heads(_linear(h, lp["attn"]["k"]), n_head)
-        v_new = _split_heads(_linear(h, lp["attn"]["v"]), n_head)
-        hd = q.shape[-1]
+        q = _split_head_dim(_linear(h, lp["attn"]["q"]), hd)  # [B, 1, H, hd]
+        k_new = _split_head_dim(_linear(h, lp["attn"]["k"]), hd)
+        v_new = _split_head_dim(_linear(h, lp["attn"]["v"]), hd)
         qf = q.float()
         sc_cache = torch.einsum("bqhd,bkhd->bhqk", qf, skv[0].float()) * hd**-0.5
         sc_cache = torch.where(mask, sc_cache, NEG_INF)
@@ -604,13 +655,13 @@ def decode_step_masked(params, cfg, token, pos, slot: int, mask, self_kv, cross_
         out = torch.einsum("bhqk,bkhd->bqhd", probs[..., :c], skv[1]) + torch.einsum(
             "bhqk,bkhd->bqhd", probs[..., c:], v_new
         )
-        x = x + _linear(_merge_heads(out), lp["attn"]["o"])
+        x = x + _row_linear(_merge_heads(out), lp["attn"]["o"], tp)
 
         h = _layer_norm(x, lp["cross_attn_ln"])
-        qc = _split_heads(_linear(h, lp["cross_attn"]["q"]), n_head)
+        qc = _split_head_dim(_linear(h, lp["cross_attn"]["q"]), hd)
         cross_out = _cross_attend(qc, layer(cross_kv, i), x.dtype, cross_len, active)
-        x = x + _linear(_merge_heads(cross_out), lp["cross_attn"]["o"])
-        x = x + _mlp(_layer_norm(x, lp["mlp_ln"]), lp["mlp"])
+        x = x + _row_linear(_merge_heads(cross_out), lp["cross_attn"]["o"], tp)
+        x = x + _mlp(_layer_norm(x, lp["mlp_ln"]), lp["mlp"], tp)
 
         skv[0, :, slot] = k_new[:, 0]
         skv[1, :, slot] = v_new[:, 0]

@@ -88,9 +88,18 @@ class TorchBackend:
         spec_scheduler=None,
         beam_size: int = 1,
         beam_mode: str = "full",
+        continuous_only: bool = False,
     ):
         self.scheduler = scheduler
         self.continuous_scheduler = continuous_scheduler
+        # Multi-process serving (parallel/serve_multihost.py): ONLY the
+        # continuous pool's ops are replayed on follower ranks, so every
+        # request must ride the continuous path. Options the window
+        # scheduler would otherwise absorb are coerced to the continuous
+        # step's fixed ones (warned once per uid) and over-cap windows are
+        # clamped.
+        self.continuous_only = continuous_only
+        self._coerce_warned: set[str] = set()
         self.model_name = model_name
         # Beamed requests ride the continuous pool when it was built with
         # matching lanes, else the window scheduler. Hybrid beam serving
@@ -230,6 +239,44 @@ class TorchBackend:
             return True
         return False
 
+    def _coerce_to_continuous(self, topts: TranscribeOptions, chunk: np.ndarray,
+                              uid: str) -> tuple[TranscribeOptions, np.ndarray]:
+        """Force a request onto the continuous path (continuous_only
+        serving: a multi-process server has no replayable window
+        scheduler). Options the continuous step cannot honour are replaced
+        by its fixed values; windows over the content cap are clamped."""
+        cs = self.continuous_scheduler
+        changed = []
+        if topts.no_repeat_ngram_size > 0:
+            topts = dataclasses.replace(topts, no_repeat_ngram_size=0)
+            changed.append("no_repeat_ngram_size")
+        key = getattr(cs, "suppress_key", None)
+        if key is not None and key != (topts.suppress_tokens, topts.suppress_blank):
+            topts = dataclasses.replace(topts, suppress_tokens=key[0], suppress_blank=key[1])
+            changed.append("suppress config")
+        if (
+            topts.max_initial_timestamp is not None
+            and float(topts.max_initial_timestamp) != 1.0
+        ):
+            topts = dataclasses.replace(topts, max_initial_timestamp=1.0)
+            changed.append("max_initial_timestamp")
+        pool_beam = getattr(cs, "beam_width", 1)
+        if max(topts.beam_size, 1) != pool_beam:
+            topts = dataclasses.replace(topts, beam_size=pool_beam)
+            changed.append("beam_size")
+        max_s = getattr(cs, "max_window_s", None)
+        if max_s is not None and len(chunk) / 16000.0 > max_s:
+            chunk = chunk[: int(max_s * 16000)]
+            changed.append("window length (clamped)")
+        if changed and uid not in self._coerce_warned:
+            self._coerce_warned.add(uid)
+            logger.warning(
+                "continuous-only serving coerced %s for uid=%s (multi-host "
+                "mode serves the continuous path only)",
+                ", ".join(changed), uid,
+            )
+        return topts, chunk
+
     def _vad_for(self, uid: str, options: SessionOptions):
         from whisperlive_tpu_torch.audio.vad import VoiceActivityDetector
 
@@ -320,6 +367,8 @@ class TorchBackend:
                 self.spec_route_stats["spec_fulls"] += 1
             else:
                 self.spec_route_stats["plain_fulls"] += 1
+        if self.continuous_only and self.continuous_scheduler is not None:
+            topts, chunk = self._coerce_to_continuous(topts, chunk, uid)
         req = BatchRequest(
             audio=chunk,
             options=topts,

@@ -39,11 +39,13 @@ import os
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint
 
 from whisperlive_tpu_torch.device import resolve_device
 from whisperlive_tpu_torch.models import safetensors_io
 from whisperlive_tpu_torch.models import whisper as wmod
+from whisperlive_tpu_torch.parallel import mesh as pmesh
 
 PARAMS_FILE = "params.safetensors"
 OPT_FILE = "opt_state.safetensors"
@@ -69,8 +71,8 @@ def leaves(tree: wmod.Params) -> list[torch.Tensor]:
 # ---------------------------------------------------------------------------
 
 
-def _encoder_layer(x, layers, i: int, n_head: int):
-    return wmod._encoder_block(x, wmod.layer(layers, i), n_head, wmod._attention)
+def _encoder_layer(x, layers, i: int, hd: int, tp: int):
+    return wmod._encoder_block(x, wmod.layer(layers, i), hd, wmod._attention, tp)
 
 
 def encode_train(params: wmod.Params, cfg: wmod.WhisperConfig, mel: torch.Tensor) -> torch.Tensor:
@@ -79,23 +81,25 @@ def encode_train(params: wmod.Params, cfg: wmod.WhisperConfig, mel: torch.Tensor
     p = params["encoder"]
     x = wmod._encoder_stem(p, cfg, mel)
     for i in range(cfg.n_audio_layer):
-        x = _remat(_encoder_layer, x, p["layers"], i, cfg.n_audio_head)
+        x = _remat(_encoder_layer, x, p["layers"], i, cfg.audio_head_dim, cfg.tp)
     return wmod._layer_norm(x, p["ln_post"])
 
 
-def _decoder_layer(x, layers, i: int, enc, causal, n_head: int):
+def _decoder_layer(x, layers, i: int, enc, causal, hd: int, tp: int):
+    """One decoder layer; under tensor parallelism `enc` already passed f
+    (decoder_forward_train), so its gradient sums every layer's heads."""
     lp = wmod.layer(layers, i)
     attend = functools.partial(wmod._attention, mask=causal)
-    x = x + wmod._self_attention(wmod._layer_norm(x, lp["attn_ln"]), lp["attn"], n_head, attend)
-    h = wmod._layer_norm(x, lp["cross_attn_ln"])
+    x = x + wmod._self_attention(wmod._layer_norm(x, lp["attn_ln"]), lp["attn"], hd, attend, tp)
+    h = wmod._to_model(wmod._layer_norm(x, lp["cross_attn_ln"]), tp)
     ca = lp["cross_attn"]
-    q = wmod._split_heads(wmod._linear(h, ca["q"]), n_head)
+    q = wmod._split_head_dim(wmod._linear(h, ca["q"]), hd)
     # K and V are computed in enc's dtype (the distiller keeps its feature
     # pool in bf16) and promoted to q's, as the JAX einsums promote them
-    k = wmod._split_heads(wmod._linear(enc, ca["k"]), n_head).to(q.dtype)
-    v = wmod._split_heads(wmod._linear(enc, ca["v"]), n_head).to(q.dtype)
-    x = x + wmod._linear(wmod._merge_heads(wmod._attention(q, k, v)), ca["o"])
-    return x + wmod._mlp(wmod._layer_norm(x, lp["mlp_ln"]), lp["mlp"])
+    k = wmod._split_head_dim(wmod._linear(enc, ca["k"]), hd).to(q.dtype)
+    v = wmod._split_head_dim(wmod._linear(enc, ca["v"]), hd).to(q.dtype)
+    x = x + wmod._row_linear(wmod._merge_heads(wmod._attention(q, k, v)), ca["o"], tp)
+    return x + wmod._mlp(wmod._layer_norm(x, lp["mlp_ln"]), lp["mlp"], tp)
 
 
 def decoder_forward_train(params: wmod.Params, cfg: wmod.WhisperConfig, tokens: torch.Tensor,
@@ -108,21 +112,27 @@ def decoder_forward_train(params: wmod.Params, cfg: wmod.WhisperConfig, tokens: 
     t = tokens.shape[1]
     x = p["embed"].to(cfg.dtype)[tokens.long()] + p["pos"].to(cfg.dtype)[:t]
     causal = torch.tril(torch.ones((t, t), dtype=torch.bool, device=tokens.device))[None, None]
+    enc = wmod._to_model(enc, cfg.tp)
     for i in range(cfg.n_text_layer):
-        x = _remat(_decoder_layer, x, p["layers"], i, enc, causal, cfg.n_text_head)
+        x = _remat(_decoder_layer, x, p["layers"], i, enc, causal, cfg.head_dim, cfg.tp)
     return wmod._project_logits(params, wmod._layer_norm(x, p["ln"]))
 
 
 def whisper_loss(params: wmod.Params, cfg: wmod.WhisperConfig, mel: torch.Tensor,
                  tokens_in: torch.Tensor, tokens_out: torch.Tensor,
-                 loss_mask: torch.Tensor) -> torch.Tensor:
+                 loss_mask: torch.Tensor, n_masked: torch.Tensor | None = None
+                 ) -> torch.Tensor:
     """Masked mean next-token cross-entropy: mel [B, T_mel, n_mels],
     tokens_in and tokens_out (the shifted targets) [B, T], loss_mask [B, T]
-    float32 (0 on padding and prompt)."""
+    float32 (0 on padding and prompt). n_masked: the mean's denominator
+    when the batch is one data-parallel shard of a larger one (the global
+    sum of loss_mask); the shards' losses then add up to the global mean."""
     logits = decoder_forward_train(params, cfg, tokens_in, encode_train(params, cfg, mel))
     logprobs = torch.log_softmax(logits, dim=-1)
     nll = -logprobs.gather(-1, tokens_out.long()[..., None])[..., 0]
-    return torch.sum(nll * loss_mask) / torch.clamp(torch.sum(loss_mask), min=1.0)
+    if n_masked is None:
+        n_masked = torch.sum(loss_mask)
+    return torch.sum(nll * loss_mask) / torch.clamp(n_masked, min=1.0)
 
 
 # ---------------------------------------------------------------------------
@@ -163,13 +173,18 @@ class AdamW:
         return AdamWState(zeros(params), zeros(params), 0)
 
     @torch.no_grad()
-    def update(self, grads: list[torch.Tensor], state: AdamWState, params: wmod.Params) -> None:
+    def update(self, grads: list[torch.Tensor], state: AdamWState, params: wmod.Params,
+               shardings=None) -> None:
         """One update of `params` and `state` in place; `grads` in the
-        order of leaves(params)."""
+        order of leaves(params). Under tensor parallelism (`shardings`
+        with tp > 1) params, grads and moments are this rank's slices: the
+        clip's global norm adds the model group's squares of the sliced
+        leaves to those of the whole ones, and the elementwise update then
+        runs on each slice."""
         ps, mus, nus = leaves(params), leaves(state.mu), leaves(state.nu)
         if not len(grads) == len(ps) == len(mus) == len(nus):
             raise ValueError("grads, params and moments must have the same leaves")
-        norm = torch.sqrt(torch.stack([torch.sum(g * g) for g in grads]).sum())
+        norm = torch.sqrt(_global_sq_norm(grads, params, shardings))
         keep = norm < self.max_grad_norm
         lr = self.schedule(state.count)
         state.count += 1
@@ -182,6 +197,21 @@ class AdamW:
             v.mul_(B2).addcmul_(g, g, value=1 - B2)
             step = (m / bc1) / (torch.sqrt(v / bc2) + EPS) + self.weight_decay * p
             p.add_(step, alpha=-lr)
+
+
+def _global_sq_norm(grads: list[torch.Tensor], params: wmod.Params, shardings) -> torch.Tensor:
+    """The squared global norm of the gradient: at tp > 1 the sliced
+    leaves' squares are summed over the model group, the whole leaves'
+    (the same on every rank of the group) counted once."""
+    squares = [torch.sum(g * g) for g in grads]
+    if shardings is None or shardings.tp == 1:
+        return torch.stack(squares).sum()
+    sliced = [a is not None for a in safetensors_io.flatten_tree(
+        shardings.param_specs(params)).values()]
+    part = torch.stack([q for q, s in zip(squares, sliced) if s]).sum()
+    dist.all_reduce(part, group=shardings.model_group)
+    whole = [q for q, s in zip(squares, sliced) if not s]
+    return part + (torch.stack(whole).sum() if whole else 0.0)
 
 
 def make_optimizer(learning_rate: float = 1e-5, weight_decay: float = 0.01,
@@ -219,16 +249,37 @@ def value_and_grad(loss_fn, params: wmod.Params) -> tuple[torch.Tensor, list[tor
     return loss.detach(), list(grads)
 
 
-def make_train_step(cfg: wmod.WhisperConfig, optimizer: AdamW):
+def make_train_step(cfg: wmod.WhisperConfig, optimizer: AdamW, shardings=None):
     """-> train_step(state, batch) -> (state, loss): one AdamW update of
     state in place on whisper_loss over batch {"mel", "tokens_in",
-    "tokens_out", "loss_mask"}."""
+    "tokens_out", "loss_mask"}.
+
+    Under a [dp, tp] grid (`shardings`, parallel/mesh.py) every rank
+    passes its slice of the parameters (shard_params; init_train_state
+    with shardings) and its shard of the global batch
+    (multihost.local_batch_to_global): the model's f and g carry the
+    tensor-parallel collectives, each shard's loss is taken over the
+    global token count and the data group sums the shards' gradients, so
+    the step is the single-device step on the global batch, and every rank
+    returns the same global loss."""
+    if shardings is not None:
+        shardings.validate(cfg)
+        cfg = cfg.replace(tp=shardings.tp)
+    data_parallel = shardings is not None and shardings.dp > 1
 
     def train_step(state: TrainState, batch: dict):
+        n_masked = None
+        if data_parallel:
+            n_masked = torch.sum(batch["loss_mask"]).float()
+            dist.all_reduce(n_masked, group=shardings.data_group)
         loss, grads = value_and_grad(lambda: whisper_loss(
             state.params, cfg, batch["mel"], batch["tokens_in"], batch["tokens_out"],
-            batch["loss_mask"]), state.params)
-        optimizer.update(grads, state.opt_state, state.params)
+            batch["loss_mask"], n_masked), state.params)
+        if data_parallel:
+            for g in grads:
+                dist.all_reduce(g, group=shardings.data_group)
+            dist.all_reduce(loss, group=shardings.data_group)
+        optimizer.update(grads, state.opt_state, state.params, shardings)
         state.step += 1
         return state, loss
 
@@ -237,14 +288,31 @@ def make_train_step(cfg: wmod.WhisperConfig, optimizer: AdamW):
 
 def init_train_state(cfg: wmod.WhisperConfig, optimizer: AdamW,
                      params: wmod.Params | None = None, seed: int = 0,
-                     device: torch.device | str = "cuda") -> TrainState:
+                     device: torch.device | str = "cuda", shardings=None) -> TrainState:
     """A state on `device` over float32 copies of `params` (random from
-    `seed` when None): the caller's tensors are never updated."""
+    `seed` when None): the caller's tensors are never updated. With
+    `shardings`, `params` is the full tree and the state holds this rank's
+    slice of it (every rank draws or loads the whole tree and keeps its
+    slice)."""
     dev = resolve_device(device)
     if params is None:
         params = wmod.init_params(cfg, seed, device=dev)
+    if shardings is not None:
+        params = pmesh.shard_params(params, shardings)
     master = wmod.tree_map(lambda t: t.detach().to(dev, torch.float32, copy=True), params)
     return TrainState(master, optimizer.init(master), 0)
+
+
+def gather_state(state: TrainState, shardings) -> TrainState:
+    """The whole state from the model group's slices (a collective every
+    rank of the group enters): parameters and both moments."""
+    if shardings is None or shardings.tp == 1:
+        return state
+    specs = shardings.param_specs(state.params)
+    whole = functools.partial(pmesh.gather_params, specs=specs, shardings=shardings)
+    opt = AdamWState(whole(state.opt_state.mu), whole(state.opt_state.nu),
+                     state.opt_state.count)
+    return TrainState(whole(state.params), opt, state.step)
 
 
 # ---------------------------------------------------------------------------
@@ -257,7 +325,7 @@ def save_checkpoint(path: str, state: TrainState, cfg: wmod.WhisperConfig) -> No
     safetensors_io.save_tree(state.params, os.path.join(path, PARAMS_FILE))
     safetensors_io.save_tree({"mu": state.opt_state.mu, "nu": state.opt_state.nu},
                              os.path.join(path, OPT_FILE))
-    meta = {k: v for k, v in dataclasses.asdict(cfg).items() if k != "dtype"}
+    meta = {k: v for k, v in dataclasses.asdict(cfg).items() if k not in ("dtype", "tp")}
     meta.update(step=int(state.step), opt_count=int(state.opt_state.count))
     with open(os.path.join(path, META_FILE), "w") as f:
         json.dump(meta, f)
