@@ -1,7 +1,8 @@
 """Drive the PyTorch port's serving paths (the websocket server, REST,
 diarization and translation), its offline file path, its training and
-distillation path and its tensor and data parallelism (two ranks) once on
-one CUDA card.
+distillation path, its tensor and data parallelism (two ranks) and its
+tooling (the profiler, the roofline, the WER harness and the VAD and speaker
+trainers) once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -209,7 +210,8 @@ a result):
    gives them (`sharded_shapes` in their entries). (b) tp = 2 at large-v3,
    32 + 32 layers, 10 heads a rank, int8 decoder and cross-KV, random bf16
    weights from the seed: rank 0 serves phase 5's three sessions through the
-   op log (phase 5's pool, no warmup), rank 1 replays it; each rank's kernel
+   op log (phase 5's pool, no warmup, PAR_MAX_NEW tokens a window), rank 1
+   replays it; each rank's kernel
    launches, row-parallel all-reduces (3 a decoder layer) and host time per
    step and per insert, and a torch.profiler window over two chunks on rank
    0 (device busy share, the device-host copies' share, the host time
@@ -223,9 +225,33 @@ a result):
    PAR_TRAIN_LAYERS + PAR_TRAIN_LAYERS layers, full width: the loss within
    PAR_TRAIN_REL_TOL of tp = 1's, no K1 launch. Printed as {"parallel": ...}.
 
+13. The tooling, on the int8 engine of phases 4-12, with windows of
+   TOOL_MAX_NEW tokens. (a) The server CLI's main (cli.run_server.main)
+   with --profile_dir in a temp dir: its create_backend gives phase 5's pool
+   on this engine and its server one TOOL_SESSION_S session through the
+   connection handler in-process; the trace the shutdown path writes must
+   exist, name K2 and K5 with as many kernel events as launches (K5's
+   instantiation also serves the inserts' K4), K5 32 a step, and carry the
+   scheduler's insert / step / harvest spans.
+   (b) utils.roofline.measure_effective_peaks (budget PEAK_BUDGET_S) at the
+   pool's cross-KV shape [8, 20, 640, 64]: the six envelopes, each bandwidth
+   at most PEAK_SLACK x the nominal 3.35 TB/s and tflops at most PEAK_SLACK
+   x 989; K4 and K2 must have launched. Then phase 5's profiled step
+   (device time from torch.profiler) against step_time_roof of
+   continuous_step_cost (the pool's rows, its self-KV columns, the cross
+   positions K5 reads for its 3 occupied slots) under the nominal and the
+   measured peaks: both shares printed, the nominal one at most 1.
+   (c) cli.eval_wer.run_eval over a WER_CLIP_S speech-like clip through the
+   port's server and client (loopback transport: no websockets here) on
+   phase 5's pool: a WER, no threshold. (d) cli.train_vad (gru, silero) and
+   cli.train_speaker (mlp, resnet), TOOL_TRAIN_STEPS steps each on the card
+   into temp files: finite losses, the saved npz loaded into the port's
+   numpy forward equal to the card's forward on a held-out clip within
+   TOOL_TRAIN_TOL of max|ref|. Printed as {"tooling": ...}.
+
 The line before the last is {"kernels": [...]}, after {"encoder_forward":
 [...]}, {"offline": {...}}, {"training": {...}}, {"rest_of_serving":
-{...}} and {"parallel": {...}}; the last line is {"ok": true, "device": {"platform": "gpu", "kind":
+{...}}, {"parallel": {...}} and {"tooling": {...}}; the last line is {"ok": true, "device": {"platform": "gpu", "kind":
 ..., "count": ...}}.
 """
 
@@ -1466,9 +1492,16 @@ def continuous_phase(engine: WhisperEngine) -> dict:
           steps * engine.cfg.n_text_layer, "K5 must launch once per decoder layer per step")
     check_sockets(sockets)
     check(any("language" in m for m in sockets[1].sent), "detected language never sent")
-    profile_pool("continuous step", cs.cb, 2, "step",
-                 {"K5": cross_kernel("Int8Packed", 1), "K3": re.compile("int8_matmul_t_kernel")})
-    return launches
+    step_ms = profile_pool("continuous step", cs.cb, 2, "step",
+                           {"K5": cross_kernel("Int8Packed", 1),
+                            "K3": re.compile("int8_matmul_t_kernel")})
+    # the profiled step's roofline inputs, as the scheduler's tick_stats count
+    # them: the pool's rows, its self-KV columns, and the cross positions K5
+    # reads for the occupied slots
+    step = {"device_ms": step_ms, "n_rows": cs.cb.n_rows,
+            "cache_len": cs.cb.cache_len,
+            "cross_pos": PROFILE_SLOTS * min(PROFILE_ENC_CTX, cs.cb.cross_ctx)}
+    return launches, step
 
 
 def cuda_profile(fn) -> tuple[list, float, int]:
@@ -1500,7 +1533,11 @@ def device_us(events, pattern: re.Pattern | None = None) -> float:
                if pattern is None or pattern.search(e.key))
 
 
-def profile_pool(label: str, cb, chunks: int, unit: str, named: dict) -> None:
+PROFILE_SLOTS = 3  # slots decoding in a profiled pool window
+PROFILE_ENC_CTX = 512  # their encoder bucket
+
+
+def profile_pool(label: str, cb, chunks: int, unit: str, named: dict) -> float | None:
     """torch.profiler over `chunks` chunks of the pool `cb` with three
     slots decoding 6 s windows: CUDA kernel launches per `unit` (a
     decode step, or a verify round of a speculative pool:
@@ -1514,11 +1551,12 @@ def profile_pool(label: str, cb, chunks: int, unit: str, named: dict) -> None:
     prompt, sot = cb.eng.build_prompt(
         backends_mod.transcribe_options_from_session(SessionOptions(language="en")),
         language="en")
-    windows = np.zeros((3, 480000), np.float32)
-    for i in range(3):
+    k = PROFILE_SLOTS
+    windows = np.zeros((k, 480000), np.float32)
+    for i in range(k):
         windows[i, :96000] = speech_like(6.0, 20 + i)
-    cb.insert(windows, [prompt] * 3, [sot] * 3, [True] * 3, [0, 1, 2], [0.0] * 3, [True] * 3,
-              [1.0] * 3, [cb.ring - 1] * 3, enc_ctx=512)
+    cb.insert(windows, [prompt] * k, [sot] * k, [True] * k, list(range(k)), [0.0] * k,
+              [True] * k, [1.0] * k, [cb.ring - 1] * k, enc_ctx=PROFILE_ENC_CTX)
     cb.step()  # warm
     on_card, wall, n_launch = cuda_profile(lambda: [cb.step() for _ in range(chunks)])
     n = chunks * cb.steps_per_chunk
@@ -3691,6 +3729,7 @@ def rest_of_serving_phase(engine: WhisperEngine, dev: torch.device) -> dict:
 
 PAR_TP = 2
 PAR_STEPS = 8  # teacher-forced decode steps after the prefill, (b)
+PAR_MAX_NEW = 16  # tokens a window in (b)'s sessions: a tp = 2 step takes ~0.3 s over gloo
 # of max|ref|, as every bf16 logits comparison of this script: the tp = 2
 # partial sums meet in another order (rounded to bf16 before the reduce),
 # and on this card two bf16 orders of the tp = 1 engine (kernels against
@@ -3907,13 +3946,15 @@ def parallel_tp_serving(rank: int, dev: torch.device, engine, ops_port: int) -> 
                 dict(uid="tp-late", language="en", audio=speech_like(CONT_SESSION_S - 2.0, 7),
                      delay_s=2.0),
             ]
+            backends_mod.STREAMING_MAX_NEW_TOKENS = PAR_MAX_NEW
             sockets, wall = serve(backend, sessions)
         finally:
+            backends_mod.STREAMING_MAX_NEW_TOKENS = MAX_NEW_TOKENS
             cs.stop()
         launches = dict(_kernels.launches)
-        # a tp = 2 call over gloo on one card decodes a window in 15-22 s,
-        # longer than a 10 s session: the call in flight at its end and
-        # the tail's call make two a session, unless the first commits it all
+        # a tp = 2 call over gloo on one card decodes a 48-token window in
+        # 15-22 s: the call in flight at a session's end and the tail's call
+        # make two a session, unless the first commits it all
         check_calls(backend, [s["uid"] for s in sessions], len(sessions))
         check_sockets(sockets)
         check_path(f"tp={PAR_TP} continuous path (rank 0)", launches, CONTINUOUS_PATH)
@@ -4209,6 +4250,280 @@ def run_parallel_phase(engine: WhisperEngine) -> dict:
     return result
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the tooling (profiler, roofline, WER harness, trainers)
+# ---------------------------------------------------------------------------
+
+TOOL_DEVICE = "cuda"  # "cpu" rehearses the phase without a card
+TOOL_SESSION_S = 3.0  # the profiled session: short, so its trace stays ~100 MB
+TOOL_MAX_NEW = 8  # tokens a window in the phase's sessions: one chunk a call
+K2_KERNEL = re.compile(r"\bint8_matmul_kernel")
+PEAK_BUDGET_S = 30.0
+PEAK_SLACK = 1.05  # a measured envelope may read at most this much above nominal
+WER_CLIP_S = 3.0
+TOOL_TRAIN_STEPS = 20
+TOOL_TRAIN_BATCH = 8
+TOOL_TRAIN_TOL = 1e-4  # numpy forward of the saved npz against the card's, of max|ref|
+ENVELOPES = ("tflops", "int8_gbps", "int8_geps", "bf16_gbps", "bf16_geps", "int8_mm_gbps")
+
+
+def continuous_backend(engine: WhisperEngine):
+    """(CountingBackend, pool) over phase 5's pool configuration, not started."""
+    cs = ContinuousScheduler(engine, n_slots=CONT_SLOTS, steps_per_chunk=8, cross_ctx=640,
+                             enc_buckets=(512, 1500))
+    window = BatchScheduler(engine, max_batch_size=BATCH, batch_window_ms=50)
+    return CountingBackend(window, model_name=MODEL, continuous_scheduler=cs), cs
+
+
+def profiled_session(engine: WhisperEngine, tmp: str) -> dict:
+    """The server CLI's main with --profile_dir: its create_backend serves
+    the int8 engine of phases 4-12 over phase 5's pool, its server one short
+    session in-process (the card's machine has no websockets); the trace
+    main's shutdown path writes must name K2 and K5, with K5's events equal
+    to its launches, 32 a step."""
+    from whisperlive_tpu_torch.cli import run_server
+    from whisperlive_tpu_torch.utils import profiling
+
+    backend, cs = continuous_backend(engine)
+    trace_dir = os.path.join(tmp, "profile")
+    seen = {}
+
+    def create_backend(args):
+        backend.scheduler.start()
+        cs.start()
+        return backend
+
+    def run(server, backend, **kw):
+        server.backend, server.backend_name = backend, kw["backend_name"]
+        server.client_manager = ClientManager(max_clients=4, max_connection_time=600)
+        seen["tracing"] = profiling._active is not None
+        _kernels.reset_launches()
+        seen["gstep"] = cs.cb.gstep
+        seen["ws"] = asyncio.run(run_session(server, backend, uid="profiled", language="en",
+                                             audio=speech_like(TOOL_SESSION_S, 30)))
+
+    saved = (run_server.create_backend, TranscriptionServer.run,
+             os.environ.get("OMP_NUM_THREADS"))
+    run_server.create_backend, TranscriptionServer.run = create_backend, run
+    t0 = time.monotonic()
+    try:
+        run_server.main(["--model", MODEL, "--device", TOOL_DEVICE, "--profile_dir", trace_dir,
+                         "--continuous_slots", str(CONT_SLOTS), "--omp_num_threads",
+                         str(torch.get_num_threads())])
+    finally:
+        run_server.create_backend, TranscriptionServer.run = saved[:2]
+        if saved[2] is None:
+            os.environ.pop("OMP_NUM_THREADS", None)
+        else:
+            os.environ["OMP_NUM_THREADS"] = saved[2]
+    wall = time.monotonic() - t0
+    launches = dict(_kernels.launches)
+    steps = cs.cb.gstep - seen["gstep"]
+    check(seen["tracing"], "--profile_dir did not start the profiler before serving")
+    check_calls(backend, ["profiled"], 1)
+    check_sockets([seen["ws"]])
+    files = [f for f in os.listdir(trace_dir) if f.endswith(".json")]
+    check(len(files) == 1, f"trace files after shutdown: {files}")
+    path = os.path.join(trace_dir, files[0])
+    t1 = time.monotonic()
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    n_k2 = sum(1 for k in kernels if K2_KERNEL.search(k))
+    n_k5 = sum(1 for k in kernels if cross_kernel("Int8Packed", 1).search(k))  # K4 too
+    spans = {e.get("name") for e in events if e.get("cat") == "user_annotation"}
+    out = {"wall_s": wall, "trace_mb": os.path.getsize(path) / 2**20,
+           "trace_parse_s": time.monotonic() - t1, "events": len(events),
+           "kernel_events": len(kernels), "steps": steps, "k2_events": n_k2,
+           "k5_events": n_k5, "launches": launches, "spans": sorted(s for s in spans if s)}
+    log(f"profiled session: {wall:.6g} s wall under the profiler, {steps} steps, trace "
+        f"{out['trace_mb']:.6g} MiB of {len(events)} events ({len(kernels)} kernels; parsed "
+        f"in {out['trace_parse_s']:.6g} s), K2 {n_k2} and K5 {n_k5} kernel events, launch "
+        f"counters {launches}, spans {out['spans']}")
+    check(n_k2 > 0 and n_k5 > 0, "the trace names no K2 or no K5 kernel")
+    check(n_k2 == launches["int8_matmul"], f"K2: {n_k2} trace events, "
+          f"{launches['int8_matmul']} launches")
+    # K4 (the inserts' prefill) and K5 (the steps) are one kernel instantiation
+    n_k4_k5 = launches["cross_attention_int8"] + launches["cross_attention_int8_skip"]
+    check(n_k5 == n_k4_k5, f"K4/K5: {n_k5} trace events, {n_k4_k5} launches")
+    check(steps > 0 and launches["cross_attention_int8_skip"] == steps * engine.cfg.n_text_layer,
+          f"K5 must launch {engine.cfg.n_text_layer} times a step: "
+          f"{launches['cross_attention_int8_skip']} over {steps} steps")
+    check({"continuous.insert", "continuous.step", "continuous.harvest"} <= spans,
+          "the scheduler's spans are missing from the trace")
+    os.remove(path)
+    return out
+
+
+def envelopes_and_roofline(engine: WhisperEngine, step: dict) -> dict:
+    """measure_effective_peaks at the continuous pool's cross-KV shape, each
+    envelope against the nominal peaks, then phase 5's profiled step against
+    its roof under the nominal and the measured peaks."""
+    from whisperlive_tpu_torch.utils import roofline
+
+    nominal_flops, nominal_bw = roofline.nominal_peaks(
+        torch.cuda.get_device_name(0) if TOOL_DEVICE == "cuda" else "")
+    _kernels.reset_launches()
+    t0 = time.monotonic()
+    peaks = roofline.measure_effective_peaks(
+        TOOL_DEVICE, seconds_budget=PEAK_BUDGET_S,
+        kv_shape=(CONT_SLOTS, engine.cfg.n_text_head,
+                  640, engine.cfg.n_text_state // engine.cfg.n_text_head))
+    probe_s = time.monotonic() - t0
+    log(f"measured envelopes ({probe_s:.6g} s; nominal {nominal_flops / 1e12:.6g} TFLOP/s, "
+        f"{nominal_bw / 1e9:.6g} GB/s): " + ", ".join(f"{k} {v:.6g}" for k, v in peaks.items()))
+    check(set(peaks) == set(ENVELOPES), f"envelopes measured: {sorted(peaks)}")
+    check(_kernels.launches["cross_attention_int8"] > 0 and _kernels.launches["int8_matmul"] > 0,
+          "the probes did not launch K4 and K2")
+    check(peaks["tflops"] * 1e12 <= PEAK_SLACK * nominal_flops,
+          f"tflops {peaks['tflops']:.6g} above {PEAK_SLACK} x nominal")
+    for key in ("int8_gbps", "bf16_gbps", "int8_mm_gbps"):
+        check(peaks[key] * 1e9 <= PEAK_SLACK * nominal_bw,
+              f"{key} {peaks[key]:.6g} above {PEAK_SLACK} x nominal")
+
+    cfg = engine.cfg
+    cost = roofline.continuous_step_cost(cfg, step["n_rows"], step["cache_len"],
+                                         step["cross_pos"], cross_kv_bits=engine.cross_kv_bits,
+                                         weight_bits=8)
+    nominal = {"tflops": nominal_flops / 1e12, "int8_gbps": nominal_bw / 1e9,
+               "bf16_gbps": nominal_bw / 1e9}
+    roof_nominal_ms = roofline.step_time_roof(cost, nominal) * 1e3
+    roof_measured_ms = roofline.step_time_roof(cost, peaks) * 1e3
+    out = {"peaks": peaks, "probe_s": probe_s, "nominal_tflops": nominal_flops / 1e12,
+           "nominal_gbps": nominal_bw / 1e9, "step": step, "step_flops": cost.flops,
+           "step_bytes": cost.bytes, "roof_nominal_ms": roof_nominal_ms,
+           "roof_measured_ms": roof_measured_ms}
+    if step["device_ms"] is None:
+        log("roofline of the continuous step: its device time was not measured")
+        check(False, "phase 5's profile measured no device time")
+        return out
+    out["share_nominal"] = roof_nominal_ms / step["device_ms"]
+    out["share_measured"] = roof_measured_ms / step["device_ms"]
+    log(f"continuous step roofline ({step['n_rows']} rows, cache {step['cache_len']}, "
+        f"{step['cross_pos']} cross positions; {cost.flops / 1e9:.6g} GFLOP, "
+        f"{cost.bytes / 1e6:.6g} MB): roof {roof_nominal_ms:.6g} ms nominal, "
+        f"{roof_measured_ms:.6g} ms measured, against {step['device_ms']:.6g} ms of device "
+        f"time: share {out['share_nominal']:.6g} nominal, {out['share_measured']:.6g} measured")
+    check(out["share_nominal"] <= 1.0, "the step beat its nominal roof")
+    return out
+
+
+def wer_harness(engine: WhisperEngine, tmp: str) -> dict:
+    """cli.eval_wer.run_eval on the int8 engine over phase 5's pool: the
+    port's server and client on a speech-like clip, in-process (loopback)."""
+    from whisperlive_tpu_torch.audio.io import write_wav
+    from whisperlive_tpu_torch.cli import eval_wer
+
+    wav = os.path.join(tmp, "wer.wav")
+    write_wav(wav, speech_like(WER_CLIP_S, 31))
+    backend, cs = continuous_backend(engine)
+    backend.scheduler.start()
+    cs.start()
+    t0 = time.monotonic()
+    try:
+        result = eval_wer.run_eval(audio=wav, ref_text=eval_wer.JFK_GROUND_TRUTH, model=MODEL,
+                                   backend=backend, out_srt=os.path.join(tmp, "wer.srt"),
+                                   transport="loopback")
+    finally:
+        cs.stop()
+        backend.scheduler.stop()
+    result["wall_s"] = time.monotonic() - t0
+    log(f"WER harness (random weights, no threshold): {json.dumps(result)}")
+    check_calls(backend, {c["uid"] for c in backend.calls}, 1)
+    check(np.isfinite(result["wer"]) and result["ref_words"] > 0, "the harness gave no WER")
+    return result
+
+
+def trainer_check(arch: str, params: dict) -> float:
+    """The numpy forward of the saved parameters against the card's forward
+    on one held-out clip: max error over max|ref|."""
+    from whisperlive_tpu_torch.audio import silero_vad, speaker_model, vad_model, wespeaker
+    from whisperlive_tpu_torch.cli import train_speaker, train_vad
+
+    rng = np.random.default_rng(SEED + 13)
+    on_card = {k: torch.as_tensor(v, device=TOOL_DEVICE) for k, v in params.items()}
+    if arch in ("gru", "silero"):
+        sig, _ = train_vad.synth_speechlike(rng)
+        if arch == "gru":
+            ref = vad_model.LearnedVAD(params).update(sig)
+            feats = vad_model.extract_features(sig)
+            got, _ = vad_model.gru_forward_torch(
+                on_card, torch.as_tensor(feats, device=TOOL_DEVICE)[None])
+        else:
+            ref = silero_vad.SileroShapedVAD(params).update(sig)
+            feats, _ = silero_vad.features_for_windows(sig, np.zeros(silero_vad.CONTEXT,
+                                                                     np.float32))
+            got, _ = silero_vad.silero_forward_torch(
+                on_card, torch.as_tensor(feats, device=TOOL_DEVICE)[None])
+    else:
+        sig = train_speaker.apply_channel(rng, train_speaker.synth_utterance(
+            rng, train_speaker.make_profile(rng)))
+        if arch == "mlp":
+            ref = speaker_model.LearnedSpeakerEmbedder(params)(sig)
+            feats = torch.as_tensor(speaker_model.extract_features(sig), device=TOOL_DEVICE)[None]
+            got = speaker_model.embed_torch(on_card, feats, std_eps=0.0)
+        else:
+            ref = wespeaker.WeSpeakerEmbedder(params)(sig)
+            feats = torch.as_tensor(wespeaker.fbank(sig), device=TOOL_DEVICE)[None]
+            got, _ = wespeaker.embed_torch(on_card, feats, train=False)
+    got = got[0].detach().float().cpu().numpy()
+    check(got.shape == ref.shape and np.isfinite(got).all(), f"{arch}: card forward {got.shape}")
+    return float(np.abs(got - ref).max() / max(np.abs(ref).max(), 1e-30))
+
+
+def trainers_phase(tmp: str) -> dict:
+    """cli.train_vad (gru, silero) and cli.train_speaker (mlp, resnet), each
+    TOOL_TRAIN_STEPS steps on the card into a temporary npz (never the
+    shipped weights)."""
+    from whisperlive_tpu_torch.cli import train_speaker, train_vad
+
+    out = {}
+    for mod, arch in ((train_vad, "gru"), (train_vad, "silero"), (train_speaker, "mlp"),
+                      (train_speaker, "resnet")):
+        path = os.path.join(tmp, f"{arch}.npz")
+        t0 = time.monotonic()
+        result = mod.run(["--arch", arch, "--steps", str(TOOL_TRAIN_STEPS), "--batch",
+                          str(TOOL_TRAIN_BATCH), "--seed", str(SEED), "--out", path,
+                          "--device", TOOL_DEVICE])
+        wall = time.monotonic() - t0
+        losses = result["losses"]
+        check(len(losses) == TOOL_TRAIN_STEPS and np.isfinite(losses).all(),
+              f"{arch}: losses {losses}")
+        with np.load(path) as data:
+            saved = {k: data[k] for k in data.files}
+        check(sorted(saved) == sorted(result["params"]), f"{arch}: saved keys")
+        err = trainer_check(arch, saved)
+        out[arch] = {"wall_s": wall, "first_loss": losses[0], "last_loss": losses[-1],
+                     "forward_err": err}
+        log(f"trainer {arch}: {TOOL_TRAIN_STEPS} steps of batch {TOOL_TRAIN_BATCH} (with "
+            f"synthesis and held-out eval) {wall:.6g} s, loss {losses[0]:.6g} -> "
+            f"{losses[-1]:.6g}; numpy forward of the saved npz against the card's "
+            f"{err:.6g} of max|ref|")
+        check(err <= TOOL_TRAIN_TOL, f"{arch}: numpy and card forwards part by {err:.6g}")
+    return out
+
+
+def tooling_phase(engine: WhisperEngine, continuous_step: dict) -> dict:
+    import shutil
+    import tempfile
+
+    t_start = time.monotonic()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tooling_")
+    max_new = backends_mod.STREAMING_MAX_NEW_TOKENS
+    backends_mod.STREAMING_MAX_NEW_TOKENS = TOOL_MAX_NEW
+    try:
+        out = {"profiled_session": profiled_session(engine, tmp),
+               "roofline": envelopes_and_roofline(engine, continuous_step),
+               "wer": wer_harness(engine, tmp),
+               "trainers": trainers_phase(tmp)}
+    finally:
+        backends_mod.STREAMING_MAX_NEW_TOKENS = max_new
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["phase_s"] = time.monotonic() - t_start
+    log(f"phase 13: {out['phase_s']:.6g} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this test needs a CUDA card",
@@ -4269,11 +4584,9 @@ def main() -> int:
     draft = build_engine(dev, DRAFT_MODEL, params, (1,))
     draft4 = build_engine(dev, DRAFT_MODEL, params, (1,), cross_kv_bits=4)
     del params
-    paths = {
-        "window": window_phase(engine),
-        "continuous": continuous_phase(engine),
-        "spec_window": spec_window_phase(engine, draft),
-    }
+    paths = {"window": window_phase(engine)}
+    paths["continuous"], continuous_step = continuous_phase(engine)
+    paths["spec_window"] = spec_window_phase(engine, draft)
     spec_random = spec_continuous_phase(engine, draft)
     paths.update({
         "spec_all": spec_random.pop("launches"),
@@ -4298,6 +4611,9 @@ def main() -> int:
     # phase 12: tp = 2, dp = 2 and a tp = 2 fine-tune step over two ranks on
     # this card, held against the int8 engine of phases 4-11
     parallel = run_parallel_phase(engine)
+    # phase 13: the profiler behind --profile_dir, the roofline, the WER
+    # harness and the trainers
+    tooling = tooling_phase(engine, continuous_step)
 
     # phase 10: the distiller on the serving engine's own random teacher, its
     # draft on the `all` pool, then the fine-tune with the engines freed
@@ -4334,6 +4650,7 @@ def main() -> int:
                                    "served_random_draft": spec_random}}))
     print(json.dumps({"rest_of_serving": rest_of_serving}))
     print(json.dumps({"parallel": parallel}))
+    print(json.dumps({"tooling": tooling}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -3,7 +3,9 @@
 `--api_key` (default: the WL_API_KEY environment variable), `--metrics_port`
 and `--raw_pcm_input` are parsed as in whisperlive_tpu/cli/run_server.py and
 reach TranscriptionServer: the key and the metrics port as arguments of
-`run`, the PCM format as the server's `raw_pcm_default`. The backend and the
+`run`, the PCM format as the server's `raw_pcm_default`. `--profile_dir`
+(default: WL_PROFILE_DIR) starts the profiler and the shutdown path stops
+it, and the parser holds every flag of the reference's. The backend and the
 server's loop are replaced, so no model is built and no socket is opened.
 The reference's WhisperLive parity flags are accepted with its defaults,
 `--omp_num_threads` sets OMP_NUM_THREADS and torch's thread count (the
@@ -43,6 +45,10 @@ def served(monkeypatch):
                         lambda args: seen.update(args=args) or "backend")
     monkeypatch.setenv("OMP_NUM_THREADS", "8")
     monkeypatch.setattr(run_server, "stop_backend", lambda backend: seen.update(stopped=backend))
+    monkeypatch.setattr(run_server.profiling, "start_profiler",
+                        lambda log_dir, device=None: seen.update(profile_dir=log_dir) or True)
+    monkeypatch.setattr(run_server.profiling, "stop_profiler",
+                        lambda: seen.update(profile_stopped=True))
     threads = torch.get_num_threads()
     yield seen
     torch.set_num_threads(threads)
@@ -72,7 +78,7 @@ def test_api_key_flag_overrides_env(monkeypatch, served):
 
 PARITY = ["--backend", "faster_whisper", "-fw", "/ckpt", "-trt", "/trt", "--trt_multilingual",
           "--trt_py_session", "--no_single_model", "--batch_inference", "-omp", "3",
-          "--compute_dtype", "float32", "--compilation_cache", "/cache"]
+          "--compute_dtype", "float32", "--compilation_cache", "/cache", "--profile_dir", "/prof"]
 
 
 def test_reference_parity_flags_are_accepted(served):
@@ -85,12 +91,34 @@ def test_reference_parity_flags_are_accepted(served):
     assert args.compute_dtype == "float32" and args.compilation_cache == "/cache"
     assert os.environ["OMP_NUM_THREADS"] == "3"
     assert served["stopped"] == "backend"
+    # --profile_dir starts the profiler, and the shutdown path writes it
+    assert args.profile_dir == "/prof" and served["profile_dir"] == "/prof"
+    assert served["profile_stopped"]
     # the reference's parser takes the same command line to the same values
     ref = jrun_server.build_parser().parse_args(PARITY)
     for name in ("backend", "faster_whisper_custom_model_path", "trt_model_path",
                  "trt_multilingual", "trt_py_session", "omp_num_threads", "no_single_model",
-                 "batch_inference", "compute_dtype", "compilation_cache"):
+                 "batch_inference", "compute_dtype", "compilation_cache", "profile_dir"):
         assert getattr(args, name) == getattr(ref, name), name
+
+
+def test_profile_dir_defaults_to_the_environment_as_the_reference(monkeypatch, served):
+    """F5: the port's parser holds every flag of the reference's, and
+    --profile_dir defaults to WL_PROFILE_DIR (read when the parser is
+    built, as the reference reads it)."""
+    ours = {o for a in run_server.build_parser()._actions for o in a.option_strings}
+    ref = {o for a in jrun_server.build_parser()._actions for o in a.option_strings}
+    assert ref <= ours, sorted(ref - ours)
+    monkeypatch.delenv("WL_PROFILE_DIR", raising=False)
+    assert run_server.build_parser().parse_args([]).profile_dir is None
+    run_server.main([])
+    assert "profile_dir" not in served and served["profile_stopped"]
+    monkeypatch.setenv("WL_PROFILE_DIR", "/from/env")
+    for parser in (run_server.build_parser(), jrun_server.build_parser()):
+        assert parser.parse_args([]).profile_dir == "/from/env"
+        assert parser.parse_args(["--profile_dir", "/tmp/p"]).profile_dir == "/tmp/p"
+    run_server.main([])
+    assert served["profile_dir"] == "/from/env"
 
 
 def test_omp_num_threads_sets_torch_threads(served):

@@ -9,7 +9,9 @@ optimizer and the SMALL100 tokenizer are the port's own, `tokenizers` and
 `transformers` are reached only for a checkpoint that needs them, and the
 servers', the client's and the cluster router's network packages only
 inside the functions that open a connection), then imports every module of
-the port (the parallel package, the router and its CLI among them),
+the port (the parallel package, the router and its CLI, the profiler, the
+roofline model, the WER harness and the VAD and speaker trainers among
+them),
 chip_smoke.py and kernel_variants.py. The host modules the port keeps its own copies of
 (tokenizer, session, VAD, word alignment, SMALL100 tokenizer, diarization
 and its speaker embedders) are also held against the originals on a few
@@ -91,7 +93,8 @@ def test_port_imports_no_jax_and_no_jax_package():
     for name in ("training", "distill", "cli.distill", "serving.rest", "translation",
                  "models.m2m100", "diarization", "client.client", "cli.run_client",
                  "parallel", "parallel.mesh", "parallel.multihost", "parallel.serve_multihost",
-                 "serving.cluster", "cli.run_cluster"):
+                 "serving.cluster", "cli.run_cluster", "utils.profiling", "utils.roofline",
+                 "utils.wer", "cli.eval_wer", "cli.train_vad", "cli.train_speaker"):
         assert f"whisperlive_tpu_torch.{name}" in names
 
 

@@ -24,8 +24,8 @@ tensors onto this module's parameters by shape signature, erroring with a
 full tensor inventory when the graph differs from the expected family.
 
 Inference is pure numpy (the host gate must not touch the device). The
-port's copy of whisperlive_tpu/audio/silero_vad.py keeps inference only:
-training (scripts/train_vad.py) stays with the JAX package.
+port's copy of whisperlive_tpu/audio/silero_vad.py; its training forward,
+`silero_forward_torch`, serves cli/train_vad.py --arch silero.
 """
 
 from __future__ import annotations
@@ -440,3 +440,40 @@ def load_silero_onnx(path: str) -> dict:
     except ValueError:
         params["out_b"] = np.zeros((1,), np.float32)
     return params
+
+
+# ---------------------------------------------------------------------------
+# torch training forward (cli/train_vad.py --arch silero)
+# ---------------------------------------------------------------------------
+
+
+def silero_forward_torch(params: dict, feats):
+    """feats [B, T, N_FRAMES, N_FREQS] -> (probs [B, T], logits [B, T])."""
+    import torch
+    import torch.nn.functional as F
+
+    bsz, t = feats.shape[:2]
+    x = feats.reshape(bsz * t, N_FRAMES, -1)
+    for i in range(len(ENC_CHANNELS)):
+        w, b = params[f"enc{i}_w"], params[f"enc{i}_b"]
+        xp = F.pad(x, (0, 0, 1, 1))  # one zero frame each side: the 3-tap "same" conv
+        x = torch.relu(xp[:, :-2] @ w[0] + xp[:, 1:-1] @ w[1] + xp[:, 2:] @ w[2] + b)
+    x = x.mean(dim=1).reshape(bsz, t, -1)  # [B, T, C]
+
+    # gate order i, f, g, o
+    gx = x @ params["lstm_wx"] + params["lstm_b"]
+    h = x.new_zeros((bsz, HIDDEN))
+    c = x.new_zeros((bsz, HIDDEN))
+    hs = []
+    for step in range(t):
+        gates = gx[:, step] + h @ params["lstm_wh"]
+        i = torch.sigmoid(gates[:, :HIDDEN])
+        f = torch.sigmoid(gates[:, HIDDEN: 2 * HIDDEN])
+        g = torch.tanh(gates[:, 2 * HIDDEN: 3 * HIDDEN])
+        o = torch.sigmoid(gates[:, 3 * HIDDEN:])
+        c = f * c + i * g
+        h = o * torch.tanh(c)
+        hs.append(h)
+    hs = torch.stack(hs, dim=1)  # [B, T, H]
+    logits = (hs @ params["out_w"])[..., 0] + params["out_b"][0]
+    return torch.sigmoid(logits), logits

@@ -9,8 +9,8 @@ as a speaker classifier over many synthetic voice profiles; the classifier
 head is dropped and the projection output is the embedding.
 
 Inference is pure numpy (host-side, called per committed segment). The
-port's copy of whisperlive_tpu/audio/speaker_model.py without its training
-forward (`embed_jax`, used only by scripts/train_speaker.py). Weights ship
+port's copy of whisperlive_tpu/audio/speaker_model.py; its training
+forward, `embed_torch`, serves cli/train_speaker.py. Weights ship
 in-repo (~100 KB). The diarizer's clustering semantics (cosine threshold 0.55, EMA 0.9) are unchanged — this only
 replaces the weight-free spectral stand-in with a representation that
 separates same-gender voices.
@@ -100,6 +100,24 @@ def embed_np(params: dict, feats: np.ndarray) -> np.ndarray:
     emb = pooled @ params["wp"] + params["bp"]
     norm = np.linalg.norm(emb)
     return (emb / norm if norm > 0 else emb).astype(np.float32)
+
+
+def embed_torch(params: dict, feats, std_eps: float = 1e-6):
+    """[B, T, N_BANDS] -> [B, EMB_DIM] (training forward; torch).
+    std_eps=0 pools with the plain std, as embed_np does (inference)."""
+    import torch
+
+    # torch.maximum, not relu: at 0 its gradient splits in halves, as
+    # jnp.maximum's does (a zero-padded frame sits exactly there at init)
+    zero = feats.new_zeros(())
+    h = torch.maximum(feats @ params["w1"] + params["b1"], zero)
+    h = torch.maximum(h @ params["w2"] + params["b2"], zero)
+    # sqrt(var + eps): a plain std has an infinite gradient at zero
+    # variance (padded frames), which NaNs training
+    std = torch.sqrt(h.var(dim=1, unbiased=False) + std_eps)
+    pooled = torch.cat([h.mean(dim=1), std], dim=-1)
+    emb = pooled @ params["wp"] + params["bp"]
+    return emb / (torch.linalg.vector_norm(emb, dim=-1, keepdim=True) + 1e-8)
 
 
 def weights_available() -> bool:

@@ -11,8 +11,8 @@ chirps and clicks (scripts/train_vad.py). Weights ship in-repo (~30 KB
 back to the energy heuristic otherwise.
 
 Inference is pure numpy (the host gate must not touch the device). The
-port's copy of whisperlive_tpu/audio/vad_model.py keeps inference only:
-training stays with the JAX package.
+port's copy of whisperlive_tpu/audio/vad_model.py; its training forward,
+`gru_forward_torch`, serves cli/train_vad.py.
 """
 
 from __future__ import annotations
@@ -127,3 +127,32 @@ class LearnedVAD:
 
 def weights_available() -> bool:
     return os.path.exists(WEIGHTS_PATH)
+
+
+# ---------------------------------------------------------------------------
+# Training-side forward (torch) — used by cli/train_vad.py
+# ---------------------------------------------------------------------------
+
+
+def gru_forward_torch(params: dict, feats):
+    """feats [B, T, F] -> (probs [B, T], logits [B, T]) (torch; training).
+
+    The recurrence is written out, not nn.GRU: nn.GRU adds a hidden-side
+    bias inside r * (...), which this model does not have."""
+    import torch
+
+    wx, wh, b = params["gru_wx"], params["gru_wh"], params["gru_b"]
+    gx = feats @ wx + b  # every step's input gates at once: [B, T, 3H]
+    h = feats.new_zeros((feats.shape[0], HIDDEN))
+    hs = []
+    for t in range(feats.shape[1]):
+        gh = h @ wh
+        g = gx[:, t]
+        r = torch.sigmoid(g[:, :HIDDEN] + gh[:, :HIDDEN])
+        z = torch.sigmoid(g[:, HIDDEN: 2 * HIDDEN] + gh[:, HIDDEN: 2 * HIDDEN])
+        n = torch.tanh(g[:, 2 * HIDDEN:] + r * gh[:, 2 * HIDDEN:])
+        h = (1 - z) * n + z * h
+        hs.append(h)
+    hs = torch.stack(hs, dim=1)  # [B, T, H]
+    logits = (hs @ params["out_w"])[..., 0] + params["out_b"][0]
+    return torch.sigmoid(logits), logits

@@ -25,8 +25,9 @@ ONNX export if one is ever present (own protobuf reader, no onnx
 dependency) and returns `R34`-shaped params for `WeSpeakerEmbedder`.
 
 Inference is pure numpy (host-side, called per committed segment). The
-port's copy of whisperlive_tpu/audio/wespeaker.py without its training
-forward (`embed_jax`, used only by scripts/train_speaker.py).
+port's copy of whisperlive_tpu/audio/wespeaker.py; its training forward,
+`embed_torch` (batch-statistics BN with EMA running stats), serves
+cli/train_speaker.py --arch resnet.
 """
 
 from __future__ import annotations
@@ -225,6 +226,58 @@ def embed_np(params: dict, feats: np.ndarray) -> np.ndarray:
     emb = pooled @ params["emb_w"] + params["emb_b"]
     norm = np.linalg.norm(emb)
     return (emb / norm if norm > 0 else emb).astype(np.float32)
+
+
+# ---------------------------------------------------------------------------
+# torch forward (training: batch-stat BN, returns EMA-updated running stats)
+# ---------------------------------------------------------------------------
+
+
+def embed_torch(params: dict, feats, train: bool = False, ema: float = 0.95):
+    """feats [B, T, 80] -> ([B, emb] normalized, updated-running-stats dict).
+
+    train=True normalizes with batch statistics and returns EMA-updated
+    _m/_v entries (detached) to merge back into params; train=False
+    reproduces embed_np. The statistics are computed here, not by
+    nn.BatchNorm2d, which tracks the unbiased variance under the opposite
+    momentum convention: the batch variance is the biased one."""
+    import torch
+    import torch.nn.functional as F
+
+    cfg = config_of(params)
+    new_stats: dict = {}
+
+    def bn(prefix, x):
+        if train:
+            m = x.mean(dim=(0, 1, 2))
+            v = x.var(dim=(0, 1, 2), unbiased=False)
+            new_stats[f"{prefix}_m"] = (ema * params[f"{prefix}_m"] + (1 - ema) * m).detach()
+            new_stats[f"{prefix}_v"] = (ema * params[f"{prefix}_v"] + (1 - ema) * v).detach()
+        else:
+            m, v = params[f"{prefix}_m"], params[f"{prefix}_v"]
+        g, b = params[f"{prefix}_g"], params[f"{prefix}_b"]
+        return (x - m) * (g / torch.sqrt(v + BN_EPS)) + b
+
+    def conv(x, w, stride):
+        # x NHWC, w HWIO; explicit (1, 1) padding for 3x3 (window centers at
+        # 0, 2, 4, ... under stride 2, as embed_np)
+        pad = 1 if w.shape[0] == 3 else 0
+        y = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), stride=stride, padding=pad)
+        return y.permute(0, 2, 3, 1)
+
+    x = feats[..., None]  # [B, T, F, 1]
+    x = torch.relu(bn("stem_bn", conv(x, params["stem_w"], 1)))
+    for name, _c_in, _c_out, stride, ds in _block_specs(cfg):
+        y = torch.relu(bn(f"{name}_bn1", conv(x, params[f"{name}_c1_w"], stride)))
+        y = bn(f"{name}_bn2", conv(y, params[f"{name}_c2_w"], 1))
+        sc = bn(f"{name}_dsbn", conv(x, params[f"{name}_ds_w"], stride)) if ds else x
+        x = torch.relu(y + sc)
+    flat = x.reshape(x.shape[0], x.shape[1], -1)  # [B, T', F'*C]
+    std = torch.sqrt(flat.var(dim=1, unbiased=False) + 1e-10)  # finite grad at zero variance
+    pooled = torch.cat([flat.mean(dim=1), std], dim=-1)
+    emb = pooled @ params["emb_w"] + params["emb_b"]
+    emb = emb / (torch.linalg.vector_norm(emb, dim=-1, keepdim=True) + 1e-8)
+    return emb, new_stats
 
 
 def weights_available() -> bool:

@@ -14,6 +14,8 @@ Port of whisperlive_tpu/cli/run_server.py; --no_continuous_batching serves
 the window path alone. The reference's WhisperLive parity flags (--backend,
 --trt_multilingual, --trt_py_session, --no_single_model, --batch_inference),
 --cache_path and --compilation_cache are accepted and change nothing here.
+--profile_dir (default: the WL_PROFILE_DIR environment variable) traces the
+session with torch.profiler and writes the trace there at shutdown.
 
 Beam search (the reference transcriber decodes at beam 5):
 
@@ -62,6 +64,7 @@ import os
 import torch
 
 from whisperlive_tpu_torch.models.whisper import WHISPER_CONFIGS
+from whisperlive_tpu_torch.utils import profiling
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -182,6 +185,9 @@ def build_parser() -> argparse.ArgumentParser:
                         help="Per-IP REST rate limit (requests/minute, 0=off).")
     parser.add_argument("--fake_transcriber", action="store_true",
                         help="Serve a deterministic fake model (protocol testing).")
+    parser.add_argument("--profile_dir", type=str, default=os.environ.get("WL_PROFILE_DIR"),
+                        help="Write a torch.profiler trace (Chrome JSON; CPU, and CUDA "
+                             "on a card) of the whole session to this dir at shutdown.")
     parser.add_argument("--no_warmup", action="store_true",
                         help="Skip the warm-up decodes (and kernel build) at startup.")
     parser.add_argument("--tp", type=int, default=1,
@@ -608,15 +614,21 @@ def main(argv=None) -> None:
     # torch read OMP_NUM_THREADS when this module imported it: set its pool
     # here too
     torch.set_num_threads(args.omp_num_threads)
-    if args.tp * resolve_dp(args) > 1 or int(os.environ.get("WL_NUM_PROCS", "1")) > 1:
-        check_multihost_flags(args)
-        launch_ranks(args)
-        return
-    backend = create_backend(args)
+    if args.profile_dir:
+        profiling.start_profiler(args.profile_dir, device=args.device)
     try:
-        run_server(args, backend)
+        if args.tp * resolve_dp(args) > 1 or int(os.environ.get("WL_NUM_PROCS", "1")) > 1:
+            check_multihost_flags(args)
+            launch_ranks(args)
+            return
+        backend = create_backend(args)
+        try:
+            run_server(args, backend)
+        finally:
+            stop_backend(backend)
     finally:
-        stop_backend(backend)
+        # the trace of the served session is written on shutdown
+        profiling.stop_profiler()
 
 
 if __name__ == "__main__":

@@ -83,6 +83,7 @@ from whisperlive_tpu_torch.engine.speculative import check_draft
 from whisperlive_tpu_torch.ops.attention import MAX_WINDOW
 from whisperlive_tpu_torch.ops import mel as mel_ops
 from whisperlive_tpu_torch.utils import metrics as wl_metrics
+from whisperlive_tpu_torch.utils.profiling import annotate
 
 logger = logging.getLogger(__name__)
 
@@ -498,8 +499,10 @@ class ContinuousScheduler:
         self.tick_stats = {
             "ticks": 0, "insert_s": 0.0, "step_s": 0.0, "harvest_s": 0.0,
             "insert_calls": 0, "insert_windows": 0,
-            # occupied lane rows summed over ticks (free slots' rows K5 skips)
-            "step_rows": 0,
+            # roofline inputs (utils/roofline.py continuous_step_cost), summed
+            # over ticks at dispatch: occupied lane rows (free slots' rows K5
+            # skips) and the cross positions K5 reads for them
+            "step_rows": 0, "step_cross_pos": 0,
         }
         # speculative pools: every harvested window's committed tokens and
         # verify rounds (a round commits 1 + accepted, so accepted =
@@ -926,14 +929,24 @@ class ContinuousScheduler:
                 load = (len(self._slots) + len(self._pending)) / max(self.cb.n_slots, 1)
                 self._load_ema += 0.05 * (load - self._load_ema)
                 t0 = time.monotonic()
-                self._do_inserts()
+                with annotate("continuous.insert"):
+                    self._do_inserts()
                 t1 = time.monotonic()
                 if not self._slots:
                     continue
-                occupied = len(self._slots) * self.cb.beam_width
-                status = self.cb.step()
+                lanes = self.cb.beam_width
+                occupied = len(self._slots) * lanes
+                # K5 reads min(len, T) positions of an active row, exactly:
+                # not the JAX count, which charges the whole slab (or whole
+                # 128-position blocks under its WL_BLOCK_DMA kernel)
+                ctx = self.cb.cross_ctx
+                cross_pos = lanes * sum(min(info.cross_len or ctx, ctx)
+                                        for info in self._slots.values())
+                with annotate("continuous.step"):
+                    status = self.cb.step()
                 t2 = time.monotonic()
-                self._harvest(status)
+                with annotate("continuous.harvest"):
+                    self._harvest(status)
                 t3 = time.monotonic()
                 ts = self.tick_stats
                 ts["ticks"] += 1
@@ -941,6 +954,7 @@ class ContinuousScheduler:
                 ts["step_s"] += t2 - t1
                 ts["harvest_s"] += t3 - t2
                 ts["step_rows"] += occupied
+                ts["step_cross_pos"] += cross_pos
             except Exception as e:
                 logger.exception("continuous scheduler iteration failed")
                 wl_metrics.track_error("continuous_scheduler")

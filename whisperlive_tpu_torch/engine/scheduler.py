@@ -29,6 +29,7 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 
 from whisperlive_tpu_torch.utils import metrics as wl_metrics
+from whisperlive_tpu_torch.utils.profiling import annotate
 from whisperlive_tpu_torch.engine.engine import (
     TranscribeOptions,
     WhisperEngine,
@@ -256,7 +257,8 @@ class BatchScheduler:
             if not batch:
                 continue
             try:
-                self._process_batch(batch)
+                with annotate("window.batch"):
+                    self._process_batch(batch)
             except Exception as e:  # the worker must survive
                 logger.exception("batch processing failed")
                 wl_metrics.track_error("batch_processing")
