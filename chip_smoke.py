@@ -110,7 +110,7 @@ a result):
    both dirs through loader.resolve_model: every leaf bit-equal to the
    source (write, convert and load times). Then the offline CLI
    (cli.transcribe, -tpu on the converted dir, --no_gates --language en
-   --max_new_tokens 48 --word_timestamps -f json) on two speech-like WAVs
+   --max_new_tokens OFFLINE_MAX_NEW --word_timestamps -f json) on two speech-like WAVs
    of 70 s and 12 s: exit 0, and its JSON segments (text, start, end) and
    words equal to Transcriber(engine).transcribe of the same audio on the
    in-memory engine; words ordered and in their segments (a segment's
@@ -175,13 +175,15 @@ a result):
    (a) REST through its aiohttp-free core (rest.handle_transcription) on a
    TorchBackend over a continuous pool (phase 5's configuration) and the
    window scheduler: a 35 s speech-like WAV (a 30 s window on the window
-   route, K4; the rest on the pool, K5) as json, verbose_json with word
-   timestamps, srt, vtt, text and stream=true, a 12 s raw f32 upload, and
-   with two known speakers enrolled (alice, bob: source-filter voices that
-   the speaker embedder tells apart), 35 s WAVs of 30 s of one voice then
-   5 s of the other, in both orders. Each request launches K1-K3
-   and K4 or K5 by its route; the SSE events, json, srt, vtt and text
-   equal the verbose_json segments formatted; words are ordered and in
+   route, K4; the rest on the pool, K5) as verbose_json with word
+   timestamps, a 12 s raw f32 upload (one window, on the pool) as
+   verbose_json, json, srt, vtt, text and stream=true (one window a
+   format, for the script's time limit), and with two known
+   speakers enrolled (alice, bob: source-filter voices that the speaker
+   embedder tells apart), 35 s WAVs of 30 s of one voice then 5 s of the
+   other, in both orders. Each request launches K1-K3 and K4 or K5 by its
+   route; the upload's SSE events, json, srt, vtt and text equal its
+   verbose_json segments formatted; the 35 s file's words are ordered and in
    their segments; every segment with MIN_AUDIO_S of the file's audio
    inside one voice's part carries that voice's name, and the first seek
    window has one; a wrong key gives 401 and a 2 rpm limit 429
@@ -207,7 +209,9 @@ a result):
    MultihostContinuousEngine over an HMAC-authenticated OpLeader /
    OpFollower with WL_OPS_SECRET set, run_follower). (a) Phase 3 also holds
    K1, K2, K4 and K5 at the shapes a rank of a tp = 2 and a tp = 4 group
-   gives them (`sharded_shapes` in their entries). (b) tp = 2 at large-v3,
+   gives them, and K6 at [1,10,5,64] x [1,10,1500,128] and K5's window form
+   at [8,10,5,64] x [8,10,640,128] (tp = 2), each with its bound and its
+   cold time beside sdpa_bf16 (`sharded_shapes` in their entries). (b) tp = 2 at large-v3,
    32 + 32 layers, 10 heads a rank, int8 decoder and cross-KV, random bf16
    weights from the seed: rank 0 serves phase 5's three sessions through the
    op log (phase 5's pool, no warmup, PAR_MAX_NEW tokens a window), rank 1
@@ -219,7 +223,25 @@ a result):
    against the tp = 1 engine of phases 4-11 on the same weights: within
    PAR_REL_TOL of max|ref| at every step, and the greedy tokens equal or
    parting only at a tie (the first divergence and the top-2 margins
-   printed). (c) dp = 2 at full depth: two replicas, 2 x 8 slots, one wave
+   printed). (e) The window route on the op log, on (b)'s engines: each rank
+   adds a 2-decoder-layer random draft sliced at tp = 2 (SEED + 1), the
+   MultihostWindowEngine with its SpeculativeDecoder, a plain pool and the
+   mixed mode's speculative pool, as a one-host `--tp 2` server builds
+   them; rank 0 serves, PAR_MAX_NEW tokens a window: (i) two greedy windows
+   as one batch and a no_repeat_ngram request routed to the window
+   scheduler, (ii) a word-timestamps window, (iii) a PAR_REST_S s raw
+   upload through rest.handle_transcription on a window-only backend, (iv)
+   a `--beam_mode refresh` beam-5 full re-decode while a continuous
+   session runs on the pool, (v) a lone greedy request on the window-path
+   SpeculativeDecoder, (vi) a full re-decode on the mixed pool; rank 1
+   replays. Tokens against the tp = 1 engine: equal, or parting only at a
+   tie (tp = 1's logit gap at the first divergence within twice (b)'s
+   largest teacher-forced error; top-2 margins printed). Each rank's
+   launches by part (K1-K4 on the window ops, K6 on the speculative
+   calls, K5 on the plain pool, K5 and its window form on the mixed
+   pool), every window handle freed, the follower's replayed ops equal to
+   the leader's published ones; host time a request and the op log's ops
+   and bytes printed. (c) dp = 2 at full depth: two replicas, 2 x 8 slots, one wave
    of two windows seated one in each replica, tokens equal to the tp = 1
    pool's. (d) One tp = 2 fine-tune step of phase 10's configuration at
    PAR_TRAIN_LAYERS + PAR_TRAIN_LAYERS layers, full width: the loss within
@@ -258,6 +280,7 @@ The line before the last is {"kernels": [...]}, after {"encoder_forward":
 from __future__ import annotations
 
 import asyncio
+import dataclasses
 import gc
 import json
 import os
@@ -280,6 +303,7 @@ from whisperlive_tpu_torch.models import whisper as wmod
 from whisperlive_tpu_torch.ops import _kernels
 from whisperlive_tpu_torch.ops import attention as attn_ops
 from whisperlive_tpu_torch.ops import decoding as dec
+from whisperlive_tpu_torch.ops import mel as mel_ops
 from whisperlive_tpu_torch.ops import quant_matmul as qmm
 from whisperlive_tpu_torch.serving import backends as backends_mod
 from whisperlive_tpu_torch.serving.server import ClientManager, TranscriptionServer
@@ -1043,8 +1067,44 @@ def sharded_kernel_phase(randn, int8, dev, cfg) -> dict:
                 lambda kv, ac=ac: attn_ops.cross_attention_int8_skip(q5, kv, ln, ac), (kv5,),
                 q5, ac, work, int8_kv_bf16)
             out["cross_attention_int8_skip"].append(r)
+        if tp == PAR_TP:
+            out.setdefault("cross_attention_int8_window", []).append(
+                sharded_window_case(randn, int8, dev, 1, hl, hd, t_enc, tp))
+            out.setdefault("cross_attention_int8_skip_window", []).append(
+                sharded_window_case(randn, int8, dev, b5, hl, hd, K5_T, tp))
     torch.cuda.empty_cache()
     return out
+
+
+def sharded_window_case(randn, int8, dev, b: int, hl: int, hd: int, t: int, tp: int) -> dict:
+    """A verify window (SPEC_K + 1 queries) at a rank's heads: K6 (b = 1,
+    the window route's full context) or K5's window form (b rows of the
+    pool, every row active), held and timed as their main entries, with
+    the bound and sdpa_bf16 beside the cold time."""
+    tq = SPEC_K + 1
+    name = "cross_attention_int8_window" if b == 1 else "cross_attention_int8_skip_window"
+    q, kvp = randn(b, hl, tq, hd, scale=0.05), int8(b, hl, t, 2 * hd)
+    ln = torch.full((b,), t, dtype=torch.int32, device=dev)
+    ac = torch.ones((b,), dtype=torch.bool, device=dev)
+    if b == 1:
+        def call(kv):
+            return attn_ops.cross_attention_int8_window(q, kv, None)
+
+        def ref():
+            return attn_ops.cross_attention_int8_window_ref(q, kvp, None)
+    else:
+        def call(kv):
+            return attn_ops.cross_attention_int8_window(q, kv, ln, ac)
+
+        def ref():
+            return attn_ops.cross_attention_int8_skip_window_ref(q, kvp, ln, ac)
+    label = f"q [{b},{hl},{tq},{hd}] kvp [{b},{hl},{t},{2 * hd}] (tp={tp})"
+    r = compare(name, label, lambda: call(kvp), ref, 2.0**-6, per_row=True)
+    # K/V of each row read once, the bf16 queries and f32 outputs
+    work = (b * hl * (t * 2 * hd + tq * hd * (2 + 4)), 4 * b * hl * tq * t * hd)
+    r.update(bound(*work), library_ms=None)
+    r["cold"] = cross_cold(f"{name} {label}", call, (kvp,), q, slice(None), work, int8_kv_bf16)
+    return r
 
 
 def window_kernel_phase(randn, int8, dev, h: int, hd: int, t_enc: int) -> dict:
@@ -1283,7 +1343,7 @@ class CountingBackend(backends_mod.TorchBackend):
             error = None
         except Exception as e:  # recorded, then re-raised to the session
             result, error = None, e
-        self.calls.append(dict(uid=kw.get("uid"), seconds=len(chunk) / 16000.0,
+        self.calls.append(dict(uid=kw.get("uid"), seconds=len(chunk) / 16000.0, audio=chunk,
                                latency_s=time.monotonic() - t0, result=result, error=error))
         if error is not None:
             raise error
@@ -2182,7 +2242,9 @@ def word_ts_phase(engine: WhisperEngine) -> dict:
 # ---------------------------------------------------------------------------
 
 OFFLINE_FILES_S = (70.0, 12.0)  # three seek windows, and one
-OFFLINE_MAX_NEW = 48
+# tokens a seek window, cut for the script's time limit (the seek windows'
+# host time is their decode steps)
+OFFLINE_MAX_NEW = 24
 OFFLINE_SHARDS = 2
 
 
@@ -2311,7 +2373,7 @@ def check_offline_words(label: str, segments: list[dict]) -> int:
 
 def offline_options(**kw) -> TranscribeOptions:
     """The options `cli.transcribe --no_gates --language en --max_new_tokens
-    48` builds."""
+    OFFLINE_MAX_NEW` builds."""
     return TranscribeOptions(language="en", temperatures=(0.0,), log_prob_threshold=None,
                              compression_ratio_threshold=None, no_speech_threshold=None,
                              max_new_tokens=OFFLINE_MAX_NEW, **kw)
@@ -3372,16 +3434,20 @@ def rest_phase(engine: WhisperEngine) -> dict:
     audio = speech_like(REST_FILE_S, 21)
     wav = wav_bytes(audio)
     out: dict = {}
+    upload = speech_like(REST_RAW_S, 22).tobytes()
     try:
-        for fmt in REST_FORMATS:
-            fields = {"response_format": fmt, "language": "en"}
-            if fmt == "verbose_json":
-                fields["timestamp_granularities"] = "word"
-            out[fmt] = rest_request(backend, fields, wav)
-        out["stream"] = rest_request(backend, {"stream": "true", "language": "en"}, wav)
+        out["verbose_json"] = rest_request(backend, {
+            "response_format": "verbose_json", "language": "en",
+            "timestamp_granularities": "word"}, wav)
         out["raw_f32"] = rest_request(backend, {"response_format": "verbose_json",
-                                                "language": "en"},
-                                      speech_like(REST_RAW_S, 22).tobytes(), "upload.bin")
+                                                "language": "en"}, upload, "upload.bin")
+        # the other formats on the upload's one window
+        for fmt in REST_FORMATS:
+            if fmt != "verbose_json":
+                out[fmt] = rest_request(backend, {"response_format": fmt, "language": "en"},
+                                        upload, "upload.bin")
+        out["stream"] = rest_request(backend, {"stream": "true", "language": "en"}, upload,
+                                     "upload.bin")
         # both voices enrolled, alice first; one file opens with alice's voice
         # for the first seek window and ends with bob's, the other the reverse
         known = tuple((f"{name}.wav", wav_bytes(voice(6.0, 23 + i, **VOICES[name])))
@@ -3403,20 +3469,20 @@ def rest_phase(engine: WhisperEngine) -> dict:
     check(segs[-1]["end"] > 30.0, "verbose_json: the second seek window decoded nothing")
     check(all(s["tokens"] for s in segs), "verbose_json: a segment without tokens")
     n_words = check_offline_words("REST verbose_json", segs)
+    raw = json.loads(out["raw_f32"]["body"])
+    check(raw["duration"] == REST_RAW_S and bool(raw["segments"]), "raw f32 upload: no segments")
     events = out["stream"]["sse"].split("\n\n")
     check(events[-2:] == ["data: [DONE]", ""], f"SSE: does not end with [DONE]: {events[-3:]}")
     sse = [json.loads(e[len("data: "):]) for e in events[:-2]]
     check([(e["text"], e["start"], e["end"]) for e in sse]
-          == [(s["text"], s["start"], s["end"]) for s in segs],
+          == [(s["text"], s["start"], s["end"]) for s in raw["segments"]],
           "SSE events differ from the verbose_json segments")
-    check(json.loads(out["json"]["body"]) == {"text": verbose["text"]},
+    check(json.loads(out["json"]["body"]) == {"text": raw["text"]},
           "json differs from the verbose_json text")
     for fmt in ("srt", "vtt", "text"):
         check((out[fmt]["ctype"], out[fmt]["body"]) == rest._format_response(
-            segs, verbose["language"], verbose["duration"], fmt), f"{fmt} differs from the "
-              "verbose_json segments formatted")
-    raw = json.loads(out["raw_f32"]["body"])
-    check(raw["duration"] == REST_RAW_S and bool(raw["segments"]), "raw f32 upload: no segments")
+            raw["segments"], raw["language"], raw["duration"], fmt), f"{fmt} differs from "
+              "the verbose_json segments formatted")
     # a segment that holds MIN_AUDIO_S of the file's audio (random weights also
     # place segments past the file's end) inside one voice's part carries that
     # voice's name; the first seek window lies inside the first part
@@ -3744,7 +3810,8 @@ PAR_TIMEOUT_S = 300.0
 PAR_DEVICE = "cuda"
 # the module settings rank 1 takes from rank 0 (a rehearsal changes them)
 PAR_SETTINGS = ("MODEL", "PAR_DEVICE", "PAR_STEPS", "PAR_TRAIN_LAYERS", "PAR_DP_WINDOWS_S",
-                "CONT_SESSION_S", "MAX_NEW_TOKENS", "TRAIN_TOKENS", "CONT_SLOTS", "BATCH")
+                "CONT_SESSION_S", "MAX_NEW_TOKENS", "TRAIN_TOKENS", "CONT_SLOTS", "BATCH",
+                "PAR_MAX_NEW", "PAR_SPEC_SLOTS", "DRAFT_MODEL")
 
 
 def sync(dev: torch.device) -> None:
@@ -4035,8 +4102,346 @@ def parallel_tp_serving(rank: int, dev: torch.device, engine, ops_port: int) -> 
         out.update(teacher_forced_max_abs_err=errs, tp1_plain_max_abs_err=floor,
                    greedy_first_divergence=first,
                    greedy_gap=gap, top2_margins=margins)
-    del eng2, cross2
+    del cross2
+    return out, eng2
+
+
+# (e): the window route under tp = 2, on the op log
+PAR_WINDOW_S = (8.0, 6.0)  # the greedy window batch (and each alone, (v) and (vi))
+PAR_REST_S = 12.0  # the REST raw upload: one window
+PAR_SPEC_SLOTS = 2  # the mixed mode's speculative pool
+PAR_WINDOW_PARTS = {  # the kernels each part of (e) must launch on every rank
+    "window": ("fused_attention", "int8_matmul", "int8_matmul_t", "cross_attention_int8"),
+    "window.spec": ("cross_attention_int8_window",),
+    "main": ("cross_attention_int8_skip",),
+    "spec": ("cross_attention_int8_skip", "cross_attention_int8_skip_window"),
+}
+
+
+def op_part(target: str, op: str) -> str:
+    """The part of (e) an op belongs to: its target, with the window
+    engine's speculative calls apart."""
+    return f"{target}.spec" if op.startswith("spec.") else target
+
+
+def add_launches(counts: dict, part: str, before: dict) -> None:
+    row = counts.setdefault(part, dict.fromkeys(KERNELS, 0))
+    for k in KERNELS:
+        row[k] += _kernels.launches[k] - before[k]
+
+
+def counting_leader_class():
+    import contextlib
+
+    from whisperlive_tpu_torch.parallel import serve_multihost as smh
+
+    class CountingLeader(smh.OpLeader):
+        """The op log's leader, with each part's kernel launches summed
+        while its ops run (under the dispatch lock, so only they launch)."""
+
+        counts: dict = {}
+
+        @contextlib.contextmanager
+        def dispatch(self, target, op, payload=None):
+            with super().dispatch(target, op, payload):
+                before = dict(_kernels.launches)
+                try:
+                    yield
+                finally:
+                    add_launches(self.counts, op_part(target, op), before)
+
+    return CountingLeader
+
+
+def count_replays(targets: dict, counts: dict) -> None:
+    """The follower's side of CountingLeader: each target's replays."""
+    for name, target in targets.items():
+        plain = target.replay
+
+        def replay(op, payload, name=name, plain=plain):
+            before = dict(_kernels.launches)
+            try:
+                plain(op, payload)
+            finally:
+                add_launches(counts, op_part(name, op), before)
+
+        target.replay = replay
+
+
+def tp1_logits(engine: WhisperEngine, audio: np.ndarray, options: TranscribeOptions,
+               forced: list[int], enc_ctx: int | None = None) -> list[torch.Tensor]:
+    """The tp = 1 engine's logits over the prefill and len(forced) - 1 steps
+    fed `forced`, for a window (enc_ctx None: the window route's whole
+    30 s encode; else the pool's encoder bucket)."""
+    n = mel_ops.N_SAMPLES if enc_ctx is None else enc_ctx * 2 * mel_ops.HOP_LENGTH
+    padded = np.zeros((1, n), np.float32)
+    padded[0, :min(len(audio), n)] = audio[:n]
+    with torch.inference_mode():
+        _, cross = engine._prepare(engine._tensor(padded))
+    prompt, sot = engine.build_prompt(options, language="en")
+    return greedy_logits(engine, cross, prompt, sot, len(forced) - 1, forced=forced)[0]
+
+
+def tie_rule(label: str, got, want, logits_fn, tie: float, eot: int,
+             beam: bool = False) -> dict:
+    """tp = 2's tokens equal tp = 1's, or part only at a tie: at the first
+    divergence tp = 1's logit gap between its token and tp = 2's (teacher
+    forced on tp = 1's tokens) is within `tie` (twice (b)'s largest
+    teacher-forced error); for a beam, whose choice is not the argmax, the
+    gap's size. Prints the tp = 1 top-2 margins along the stream."""
+    got, want = [int(t) for t in got], [int(t) for t in want]
+    check(len(got) > 0, f"{label}: tp=2 decoded no token")
+    first = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b), None)
+    if first is None and len(got) != len(want):
+        first = min(len(got), len(want))
+    forced = want[:first] + [0] if first is not None else want + [0]
+    logits = logits_fn(forced)
+    margins = [(t[0] - t[1]).item() for t in (torch.topk(x, 2).values for x in logits)]
+    gap = None
+    if first is not None:
+        b = logits[first]
+        a_tok = want[first] if first < len(want) else eot
+        g_tok = got[first] if first < len(got) else eot
+        gap = (b[a_tok] - b[g_tok]).item()
+        check((abs(gap) if beam else gap) <= tie, f"{label}: tp=2 tokens part from tp=1's at "
+              f"{first} by a tp=1 logit gap {gap}, more than a tie ({tie})")
+    log(f"{label}: {len(got)} tokens, "
+        + ("equal to tp=1's" if first is None else f"part from tp=1's at {first}, gap {gap:.6g}")
+        + f"; tp=1 top-2 margins {[round(m, 4) for m in margins]}")
+    return {"tokens": len(got), "first_divergence": first, "gap": gap, "margins": margins}
+
+
+def parallel_window_serving(rank: int, dev: torch.device, engine, eng2, ops_port: int,
+                            tie: float) -> dict:
+    """(e) The window route under tp = 2 on the op log, on (b)'s tp = 2
+    engine: each rank also builds a 2-decoder-layer random draft sliced at
+    tp = 2 (seed SEED + 1, as phase 6), the window engine with its
+    SpeculativeDecoder, a plain pool and the mixed mode's speculative pool
+    (the targets a one-host `--tp 2` server builds), in the same order.
+    Rank 0 serves, every window PAR_MAX_NEW tokens: (i) two greedy windows
+    as one batch on the window scheduler and one no_repeat_ngram request,
+    which the backend routes there; (ii) a word-timestamps window; (iii) a
+    REST raw upload through rest.handle_transcription on a window-only
+    backend (`--no_continuous_batching`); (iv) a `--beam_mode refresh`
+    beam-5 full re-decode while a continuous session runs on the pool;
+    (v) a lone greedy request on the window-path SpeculativeDecoder; (vi)
+    a full re-decode on the mixed pool. Rank 1 replays. Tokens against the
+    tp = 1 engine of phases 4-11 by the tie rule; each rank's launches by
+    part; the follower's replayed ops equal to the leader's published."""
+    import functools
+    import threading
+
+    import torch.distributed as dist
+
+    from whisperlive_tpu_torch.parallel import serve_multihost as smh
+
+    t_start = time.monotonic()
+    sh = eng2.shardings
+    dcfg = wmod.WHISPER_CONFIGS[DRAFT_MODEL]
+    dparams = wmod.init_params(dcfg, SEED + 1, torch.bfloat16, dev)
+    draft2 = WhisperEngine(dcfg, dparams, device=dev, batch_buckets=(1,), decoder_int8=True,
+                           cross_kv_bits=8, shardings=sh,
+                           tokenizer=VisibleTokenizer(TokenSpec(dcfg.n_vocab, multilingual=True)))
+    del dparams
+    # the beamed decode's segments are a program of their own: every rank
+    # sets them before the first op (the window engine's signature holds it)
+    eng2.enable_beam_chunk(BEAM_CHUNK)
+    spec_dec = SpeculativeDecoder(eng2, draft2, k=SPEC_K)
+    leader = counting_leader_class()(ops_port, n_followers=1) if rank == 0 else None
+    window = smh.MultihostWindowEngine(eng2, leader=leader, spec_decoder=spec_dec)
+
+    def pool(name, **kw):
+        return ContinuousScheduler(eng2, pool_factory=functools.partial(
+            smh.MultihostContinuousEngine, leader=leader, name=name), **kw)
+
+    main = pool("main", **PAR_POOL)
+    mixed_pool = pool("spec", draft_engine=draft2, spec_k=SPEC_K, n_slots=PAR_SPEC_SLOTS,
+                      steps_per_chunk=4, cross_ctx=640, enc_buckets=(512, 1500),
+                      ring=(SPEC_K + 2) * (PAR_MAX_NEW + 2))
+    targets = {"window": window, "main": main.cb, "spec": mixed_pool.cb}
+    build_s = time.monotonic() - t_start
+    out = {"build_s": build_s}
+    counts: dict = {}
+    if rank != 0:
+        count_replays(targets, counts)
+        chan = smh.OpFollower(("127.0.0.1", ops_port))
+        out["replayed_ops"] = smh.run_follower(targets, chan)
+        chan.close()
+        out["handles"] = window.live_handles
+    else:
+        leader.counts = counts
+        out.update(window_route_leader(engine, window, main, mixed_pool, spec_dec, tie))
+        out["op_log"] = dict(leader.stats)
+        out["handles"] = window.live_handles
+        leader.stop()
+    # every rank's launches by part, and the follower's op count, on both
+    gathered = [None, None]
+    dist.all_gather_object(gathered, {"counts": counts, "replayed_ops": out.get("replayed_ops"),
+                                      "handles": out["handles"]})
+    if rank == 0:
+        for r, g in enumerate(gathered):
+            for part, kernels in PAR_WINDOW_PARTS.items():
+                got = g["counts"].get(part, {})
+                log(f"rank {r} (e) {part} launches: "
+                    f"{ {k: v for k, v in got.items() if v} }")
+                for k in kernels:
+                    check(got.get(k, 0) > 0, f"rank {r}: (e) {part} never launched {k}")
+            check(g["handles"] == 0, f"rank {r}: (e) left {g['handles']} window handles")
+        published = out["op_log"]["ops"] - 1  # less the hello (read before the stop)
+        check(gathered[1]["replayed_ops"] == published,
+              f"(e) the follower replayed {gathered[1]['replayed_ops']} ops, the leader "
+              f"published {published}")
+        out["per_rank_launches"] = [g["counts"] for g in gathered]
+        out["phase_s"] = time.monotonic() - t_start
+        log(f"(e) window route under tp={PAR_TP}: {published} ops replayed, op log "
+            f"{out['op_log']}, {out['phase_s']:.6g} s")
+    del window, main, mixed_pool, spec_dec, draft2
     free_cache(dev)
+    return out
+
+
+def window_route_leader(engine, window, main, mixed_pool, spec_dec, tie) -> dict:
+    """Rank 0's side of (e): the six parts, each timed on the host clock,
+    with its tokens held to tp = 1's."""
+    import threading
+
+    from whisperlive_tpu_torch.engine.scheduler import BatchRequest
+    from whisperlive_tpu_torch.parallel import serve_multihost as smh
+
+    out = {}
+    eot = engine.spec.eot
+    backends_mod.STREAMING_MAX_NEW_TOKENS = PAR_MAX_NEW
+    greedy = TranscribeOptions(language="en", temperatures=(0.0,), log_prob_threshold=None,
+                               no_speech_threshold=None, compression_ratio_threshold=None,
+                               max_new_tokens=PAR_MAX_NEW)
+    session = SessionOptions(language="en", use_vad=False)
+    audios = [speech_like(s, 70 + i) for i, s in enumerate(PAR_WINDOW_S)]
+    win = smh.MultihostBatchScheduler(window, max_batch_size=BATCH, batch_window_ms=200)
+    win_spec = smh.MultihostBatchScheduler(window, max_batch_size=BATCH,
+                                           spec_decoder=window.speculative)
+    ref_win = BatchScheduler(engine, max_batch_size=BATCH, batch_window_ms=200)
+    ref_pool = ContinuousScheduler(engine, **PAR_POOL)
+
+    def batch_of(sched, opts, audios, start=False):
+        futs = [sched.submit(BatchRequest(audio=a, options=opts, uid=f"e{i}"))
+                for i, a in enumerate(audios)]
+        if start:
+            sched.start()
+        return [f.result(timeout=PAR_TIMEOUT_S) for f in futs]
+
+    def timed(name, fn):
+        t0 = time.monotonic()
+        r = fn()
+        out.setdefault("host_s", {})[name] = time.monotonic() - t0
+        return r
+
+    def window_logits(audio, opts):
+        return lambda forced: tp1_logits(engine, audio, opts, forced)
+
+    try:
+        main.start()
+        ref_win.start()
+        ref_pool.start()
+        # (i) a greedy batch of two, and a no_repeat_ngram request
+        got = timed("batch", lambda: batch_of(win, greedy, audios, start=True))
+        want = batch_of(ref_win, greedy, audios)
+        out["batch"] = [tie_rule(f"(e)(i) window batch item {i}", g.raw_tokens, w.raw_tokens,
+                                 window_logits(a, greedy), tie, eot)
+                        for i, (g, w, a) in enumerate(zip(got, want, audios))]
+
+        class Ngram(CountingBackend):
+            def _adjust_options(self, topts, chunk):
+                return dataclasses.replace(topts, no_repeat_ngram_size=3)
+
+        ngram, ref_ngram = Ngram(win, continuous_scheduler=main), Ngram(ref_win)
+        nopts = dataclasses.replace(greedy, no_repeat_ngram_size=3)
+        check(ngram._pick_scheduler(nopts, PAR_WINDOW_S[1]) is win,
+              "(e)(i) no_repeat_ngram must route to the window scheduler")
+        g = timed("ngram", lambda: asyncio.run(ngram.transcribe(
+            audios[1], session, language="en", uid="ngram")))
+        w = asyncio.run(ref_ngram.transcribe(audios[1], session, language="en", uid="ngram"))
+        out["ngram"] = tie_rule("(e)(i) no_repeat_ngram window", g.raw_tokens, w.raw_tokens,
+                                window_logits(audios[1], nopts), tie, eot)
+        # (ii) word timestamps
+        wopts = dataclasses.replace(greedy, word_timestamps=True)
+        (g,) = timed("words", lambda: batch_of(win, wopts, audios[:1]))
+        (w,) = batch_of(ref_win, wopts, audios[:1])
+        words = [wd for s in g.segments for wd in (s.words or [])]
+        check(len(words) > 0, "(e)(ii) the word-timestamps window produced no words")
+        out["words"] = dict(tie_rule("(e)(ii) word-timestamps window", g.raw_tokens,
+                                     w.raw_tokens, window_logits(audios[0], wopts), tie, eot),
+                            n_words=len(words),
+                            n_words_tp1=sum(len(s.words or []) for s in w.segments))
+        # (iii) REST: a raw upload on a window-only backend
+        upload = speech_like(PAR_REST_S, 75)
+        fields = {"response_format": "verbose_json", "language": "en"}
+        rest_backend, ref_rest = CountingBackend(win), CountingBackend(ref_win)
+        r = timed("rest", lambda: rest_request(rest_backend, fields, wav_bytes(upload)))
+        check(r["routes"] == {"window": 1, "continuous": 0}, f"(e)(iii) routes {r['routes']}")
+        rest_request(ref_rest, fields, wav_bytes(upload))
+        ropts = backends_mod.transcribe_options_from_session(session, "en")
+        out["rest"] = dict(tie_rule(
+            "(e)(iii) REST upload", rest_backend.calls[0]["result"].raw_tokens,
+            ref_rest.calls[0]["result"].raw_tokens,
+            window_logits(ref_rest.calls[0]["audio"], ropts), tie, eot), seconds=r["seconds"])
+        # (iv) a hybrid-beam full re-decode beside a live continuous session
+        hybrid = CountingBackend(win, continuous_scheduler=main, beam_size=BEAM,
+                                 beam_mode="refresh")
+        check(hybrid.hybrid_beam, "(e)(iv) the backend is not in hybrid beam mode")
+        live: list = []
+
+        def session_run():
+            for i, a in enumerate(audios):
+                req = BatchRequest(audio=a, options=greedy, uid=f"live{i}")
+                t0 = time.monotonic()
+                live.append((main.submit(req).result(timeout=PAR_TIMEOUT_S),
+                             time.monotonic() - t0))
+
+        th = threading.Thread(target=session_run)
+        th.start()
+        time.sleep(0.5)  # the session's first window is in the pool
+        g = timed("hybrid_beam", lambda: asyncio.run(hybrid.transcribe(
+            audios[0], session, language="en", uid="beam", window_anchor_s=0.0)))
+        th.join(timeout=PAR_TIMEOUT_S)
+        check(not th.is_alive() and len(live) == len(audios),
+              "(e)(iv) the continuous session did not finish beside the beamed decode")
+        check(hybrid.hybrid_stats["beamed_fulls"] == 1, f"(e)(iv) {hybrid.hybrid_stats}")
+        bopts = backends_mod.transcribe_options_from_session(session, "en", beam_size=BEAM)
+        (w,) = batch_of(ref_win, bopts, audios[:1])
+        out["hybrid_beam"] = dict(tie_rule(
+            "(e)(iv) beam-5 full re-decode", g.raw_tokens, w.raw_tokens,
+            window_logits(audios[0], bopts), tie, eot, beam=True),
+            live_windows=[len(r.raw_tokens) for r, _ in live],
+            live_latency_s=[s for _, s in live])
+        for i, (r, _) in enumerate(live):
+            check(len(r.raw_tokens) > 0, f"(e)(iv) live window {i} decoded no token")
+        # (v) a lone greedy request on the window-path SpeculativeDecoder
+        win_spec.start()
+        (g,) = timed("speculative", lambda: batch_of(win_spec, greedy, audios[:1]))
+        check(spec_dec.stats["windows"] == 1, f"(e)(v) speculative stats {spec_dec.stats}")
+        out["speculative"] = dict(tie_rule(
+            "(e)(v) window-path speculation", g.raw_tokens, want[0].raw_tokens,
+            window_logits(audios[0], greedy), tie, eot), stats=dict(spec_dec.stats))
+        # (vi) a full re-decode on the mixed mode's speculative pool
+        mixed = CountingBackend(win, spec_scheduler=mixed_pool)
+        mixed_pool.start()
+        g = timed("mixed", lambda: asyncio.run(mixed.transcribe(
+            audios[1], session, language="en", uid="mixed")))
+        check(mixed.spec_route_stats["spec_fulls"] == 1, f"(e)(vi) {mixed.spec_route_stats}")
+        ref_mixed = CountingBackend(ref_win, continuous_scheduler=ref_pool)
+        w = asyncio.run(ref_mixed.transcribe(audios[1], session, language="en", uid="mixed"))
+        out["mixed"] = dict(tie_rule(
+            "(e)(vi) mixed pool full re-decode", g.raw_tokens, w.raw_tokens,
+            lambda forced: tp1_logits(engine, audios[1], greedy, forced, enc_ctx=512), tie, eot),
+            rounds=dict(mixed_pool.spec_stats))
+    finally:
+        for sched in (win, win_spec, main, mixed_pool, ref_win, ref_pool):
+            sched.stop()
+    ts = main.tick_stats
+    out["pool_step_host_ms"] = ts["step_s"] / max(main.cb.gstep, 1) * 1e3
+    out["windows"] = {"greedy": 2 + 1 + 1 + 1 + 1, "beam": 1, "mixed": 1}
+    log(f"(e) host seconds a request: { {k: round(v, 3) for k, v in out['host_s'].items()} }; "
+        f"the pool's step {out['pool_step_host_ms']:.6g} ms")
     return out
 
 
@@ -4172,7 +4577,7 @@ def parallel_finetune(rank: int, dev: torch.device) -> dict:
     return out
 
 
-def parallel_phase(rank: int, coordinator: str, ops_ports: tuple[int, int],
+def parallel_phase(rank: int, coordinator: str, ops_ports: tuple[int, int, int],
                    engine: WhisperEngine | None = None) -> dict:
     """Phase 12 on one rank of a world of two on this card (rank 0 is this
     script's process with the tp = 1 engine of phases 4-11, rank 1 a
@@ -4198,7 +4603,13 @@ def parallel_phase(rank: int, coordinator: str, ops_ports: tuple[int, int],
     count_reduces()
     out = {"backend": backend, "world": dist.get_world_size()}
     try:
-        out["tp_serving"] = parallel_tp_serving(rank, dev, engine, ops_ports[0])
+        out["tp_serving"], eng2 = parallel_tp_serving(rank, dev, engine, ops_ports[0])
+        tie = [2 * max(out["tp_serving"]["teacher_forced_max_abs_err"]) if rank == 0 else None]
+        dist.broadcast_object_list(tie, src=0)
+        out["window_route"] = parallel_window_serving(rank, dev, engine, eng2, ops_ports[2],
+                                                      tie[0])
+        del eng2
+        free_cache(dev)
         out["dp_serving"] = parallel_dp_serving(rank, dev, engine, ops_ports[1])
         out["finetune"] = parallel_finetune(rank, dev)
         multihost.barrier("phase-12-end")
@@ -4208,7 +4619,7 @@ def parallel_phase(rank: int, coordinator: str, ops_ports: tuple[int, int],
     return out
 
 
-def parallel_rank_main(index: int, coordinator: str, ops_ports: tuple[int, int],
+def parallel_rank_main(index: int, coordinator: str, ops_ports: tuple[int, int, int],
                        settings: dict) -> None:
     """Rank 1 of phase 12, in a process of its own (torch.multiprocessing,
     spawn), with rank 0's PAR_SETTINGS."""
@@ -4227,17 +4638,17 @@ def run_parallel_phase(engine: WhisperEngine) -> dict:
     import torch.multiprocessing as mp
 
     ports = []
-    for _ in range(3):
+    for _ in range(4):
         with socket.socket() as sock:
             sock.bind(("127.0.0.1", 0))
             ports.append(sock.getsockname()[1])
     coordinator = f"127.0.0.1:{ports[0]}"
     settings = {name: globals()[name] for name in PAR_SETTINGS}
     ctx = mp.start_processes(parallel_rank_main,
-                             args=(coordinator, (ports[1], ports[2]), settings),
+                             args=(coordinator, tuple(ports[1:]), settings),
                              nprocs=1, join=False, start_method="spawn")
     try:
-        result = parallel_phase(0, coordinator, (ports[1], ports[2]), engine)
+        result = parallel_phase(0, coordinator, tuple(ports[1:]), engine)
         while not ctx.join(timeout=300):
             pass
     finally:

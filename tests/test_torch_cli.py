@@ -16,10 +16,12 @@ reference does (the last two build a tiny CPU model). `--enable_rest`,
 parse with the reference's defaults and help, and reach the server as
 `rest_port` and `rest_kwargs`, or as FakeBackend named "fake". `--tp`,
 `--dp`, `--multihost_ops_port` and `--multihost_ops_host` parse with the
-reference's defaults and help; a world of more than one rank refuses what
-it cannot replay and starts its ranks, and one such server (tp = 2 on the
-CPU, a tiny random model, the follower a spawned process) decodes a
-request through the op log.
+reference's defaults and help; a world across hosts refuses what the
+reference's multi-host mode refuses, one host's world serves the same flags
+and starts its ranks, and two such servers (tp = 2 on the CPU, a tiny
+random model, the follower a spawned process) decode requests through the
+op log on the continuous pool, the window scheduler and the window-path
+SpeculativeDecoder.
 """
 
 import os
@@ -237,14 +239,27 @@ def test_parallel_flags_parse_as_the_reference(argv):
         assert helps[name] == ref_helps[name], name
 
 
-@pytest.mark.parametrize("argv,refusal", [
+MULTI_HOST_REFUSED = [
     (["--tp", "2", "--fake_transcriber"], "no multi-host mode"),
     (["--tp", "2", "--no_continuous_batching"], "requires continuous batching"),
     (["--dp", "2", "--beam_size", "5", "--beam_mode", "refresh"], "--beam_mode full"),
     (["--tp", "2", "--draft_model", "distil-large-v3", "--continuous_spec",
       "--continuous_spec_mode", "mixed"], "use 'all'"),
-])
+]
+
+
+def across_hosts(monkeypatch):
+    """The environment of a world across two hosts (host 0 of 2)."""
+    monkeypatch.setenv("WL_NUM_PROCS", "2")
+    monkeypatch.setenv("WL_PROC_ID", "0")
+    monkeypatch.setenv("WL_COORDINATOR", "127.0.0.1:29500")
+
+
+@pytest.mark.parametrize("argv,refusal", MULTI_HOST_REFUSED)
 def test_multi_rank_server_refuses_what_it_cannot_replay(monkeypatch, argv, refusal):
+    """Across hosts (WL_NUM_PROCS > 1) the port refuses what the reference's
+    multi-host mode refuses: only the continuous pool rides there."""
+    across_hosts(monkeypatch)
     monkeypatch.setattr(run_server, "launch_ranks", lambda args: pytest.fail("launched"))
     threads = torch.get_num_threads()
     try:
@@ -254,46 +269,66 @@ def test_multi_rank_server_refuses_what_it_cannot_replay(monkeypatch, argv, refu
         torch.set_num_threads(threads)
 
 
-def test_multi_rank_server_launches_its_ranks(monkeypatch):
+@pytest.mark.parametrize("argv", [argv for argv, _ in MULTI_HOST_REFUSED])
+def test_one_host_multi_rank_server_serves_what_the_reference_serves(monkeypatch, argv):
+    """On one host the same flags launch the ranks (the window route rides
+    the op log there), and --fake_transcriber serves FakeBackend in this
+    process, as the reference's one-host create_backend does."""
+    from whisperlive_tpu_torch.serving.backends import FakeBackend
+
+    monkeypatch.delenv("WL_NUM_PROCS", raising=False)
     seen = {}
     monkeypatch.setattr(run_server, "launch_ranks", lambda args: seen.update(args=args))
+    monkeypatch.setattr(TranscriptionServer, "run",
+                        lambda self, backend, **kw: seen.update(kw, backend=backend))
+    threads = torch.get_num_threads()
+    try:
+        run_server.main(argv + ["--device", "cpu"])
+    finally:
+        torch.set_num_threads(threads)
+    if "--fake_transcriber" in argv:
+        assert type(seen["backend"]) is FakeBackend and "args" not in seen
+    else:
+        args = seen["args"]
+        assert args.tp * run_server.resolve_dp(args) == 2
+        assert args.continuous_cross_ctx is None  # the pool's own cap, as on one rank
+
+
+def test_multi_rank_server_launches_its_ranks(monkeypatch):
+    """REST stays on and the content cap is the pool's own on one host;
+    across hosts REST goes off and the cap is the whole context (resolved
+    with the engine)."""
+    seen = {}
+    monkeypatch.setattr(run_server, "launch_ranks", lambda args: seen.update(args=args))
+    monkeypatch.delenv("WL_NUM_PROCS", raising=False)
     threads = torch.get_num_threads()
     try:
         run_server.main(["--tp", "2", "--device", "cpu", "--enable_rest"])
+        one_host = seen.pop("args")
+        across_hosts(monkeypatch)
+        run_server.main(["--tp", "2", "--device", "cpu", "--enable_rest"])
+        across = seen.pop("args")
     finally:
         torch.set_num_threads(threads)
-    args = seen["args"]
-    assert args.tp == 2 and run_server.resolve_dp(args) == 1
-    # REST is off and the content cap is the whole context (resolved later)
-    assert not args.enable_rest and args.continuous_cross_ctx == 0
+    assert one_host.tp == 2 and run_server.resolve_dp(one_host) == 1
+    assert one_host.enable_rest and one_host.continuous_cross_ctx is None
+    assert not across.enable_rest and across.continuous_cross_ctx == 0
+    monkeypatch.delenv("WL_NUM_PROCS")
     assert run_server.resolve_dp(run_server.build_parser().parse_args([])) == 1
 
 
-def test_tp2_server_decodes_through_the_op_log(monkeypatch):
-    """`--tp 2 --device cpu`: the command spawns rank 1 (a follower), serves
-    as rank 0, and a request decodes through the op log; the follower exits
-    when the leader stops it."""
+def _serve_tp2(monkeypatch, argv, serve) -> None:
+    """run_server.main(--tp 2 --device cpu --model tiny ... argv) on one
+    host, with `serve(args, backend)` in place of the server; the process
+    group is torn down after."""
     import socket
 
-    import numpy as np
     import torch.distributed as dist
 
-    from whisperlive_tpu_torch.engine.engine import TranscribeOptions
-    from whisperlive_tpu_torch.engine.scheduler import BatchRequest
     from whisperlive_tpu_torch.parallel import mesh, multihost
 
-    seen = {}
-
-    def serve(args, backend):
-        cs = backend.continuous_scheduler
-        opts = TranscribeOptions(language="en", temperatures=(0.0,), log_prob_threshold=None,
-                                 no_speech_threshold=None, compression_ratio_threshold=None,
-                                 max_new_tokens=8)
-        req = BatchRequest(audio=np.zeros(32000, np.float32), options=opts, uid="u")
-        seen.update(result=cs.submit(req).result(timeout=120), cb=cs.cb,
-                    continuous_only=backend.continuous_only)
-
     monkeypatch.setattr(run_server, "run_server", serve)
+    monkeypatch.delenv("WL_NUM_PROCS", raising=False)
     monkeypatch.setenv("WL_OPS_SECRET", "test-secret")
     monkeypatch.setenv("PYTHONPATH", os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
@@ -303,13 +338,69 @@ def test_tp2_server_decodes_through_the_op_log(monkeypatch):
         port = sock.getsockname()[1]
     try:
         run_server.main(["--tp", "2", "--device", "cpu", "--model", "tiny", "--no_warmup",
-                         "--continuous_slots", "2", "--multihost_ops_port", str(port)])
+                         "--multihost_ops_port", str(port)] + argv)
     finally:
         torch.set_num_threads(threads)
         if dist.is_initialized():
             dist.destroy_process_group()
         mesh._MODEL_GROUP = None
         multihost._LOCAL_RANKS, multihost._BACKEND, multihost._DEVICE = 1, None, None
-    assert seen["continuous_only"] and seen["cb"].multihost
-    assert seen["cb"].shardings.tp == 2 and seen["cb"].cross_ctx == 1500
-    assert seen["result"].raw_tokens
+
+
+def _greedy(**kw):
+    from whisperlive_tpu_torch.engine.engine import TranscribeOptions
+
+    return TranscribeOptions(language="en", temperatures=(0.0,), log_prob_threshold=None,
+                             no_speech_threshold=None, compression_ratio_threshold=None,
+                             max_new_tokens=8, **kw)
+
+
+def test_tp2_server_decodes_through_the_op_log(monkeypatch):
+    """`--tp 2 --device cpu`: the command spawns rank 1 (a follower), serves
+    as rank 0, and a request decodes through the op log on the continuous
+    pool and one (no_repeat_ngram) on the window scheduler; the follower
+    exits when the leader stops it."""
+    import numpy as np
+
+    from whisperlive_tpu_torch.engine.scheduler import BatchRequest
+
+    seen = {}
+
+    def serve(args, backend):
+        cs = backend.continuous_scheduler
+        req = BatchRequest(audio=np.zeros(32000, np.float32), options=_greedy(), uid="u")
+        opts = _greedy(no_repeat_ngram_size=3)
+        window = backend._pick_scheduler(opts, 2.0)
+        wreq = BatchRequest(audio=np.zeros(32000, np.float32), options=opts, uid="w")
+        seen.update(result=cs.submit(req).result(timeout=120), cb=cs.cb,
+                    window_result=window.submit(wreq).result(timeout=120),
+                    window=window is backend.scheduler, engine=backend.scheduler.engine,
+                    continuous_only=backend.continuous_only)
+
+    _serve_tp2(monkeypatch, ["--continuous_slots", "2"], serve)
+    assert not seen["continuous_only"] and seen["cb"].multihost and seen["window"]
+    assert seen["cb"].shardings.tp == 2 and seen["cb"].cross_ctx == 640
+    assert seen["engine"].multihost and seen["engine"].live_handles == 0
+    assert seen["result"].raw_tokens and seen["window_result"].raw_tokens
+
+
+def test_tp2_window_server_speculates_through_the_op_log(monkeypatch):
+    """`--tp 2 --no_continuous_batching --draft_model tiny`: the window
+    scheduler alone, a lone greedy request decoded by the SpeculativeDecoder
+    on both ranks (the draft sliced like the target), every handle freed."""
+    import numpy as np
+
+    from whisperlive_tpu_torch.engine.scheduler import BatchRequest
+
+    seen = {}
+
+    def serve(args, backend):
+        req = BatchRequest(audio=np.zeros(32000, np.float32), options=_greedy(), uid="s")
+        seen.update(result=backend.scheduler.submit(req).result(timeout=120),
+                    continuous=backend.continuous_scheduler, engine=backend.scheduler.engine,
+                    stats=dict(backend.scheduler.spec_decoder.stats))
+
+    _serve_tp2(monkeypatch, ["--no_continuous_batching", "--draft_model", "tiny"], serve)
+    assert seen["continuous"] is None and seen["stats"]["windows"] == 1
+    assert seen["engine"].spec_decoder.draft.shardings.tp == 2
+    assert seen["engine"].live_handles == 0 and seen["result"].raw_tokens

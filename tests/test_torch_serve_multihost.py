@@ -196,3 +196,122 @@ def test_continuous_only_coerces_like_the_reference(kw, caplog):
     assert len(t_chunk) == len(j_chunk) == int(12.8 * 16000)
     tb._coerce_to_continuous(TOptions(**kw), chunk, "u")
     assert sum("coerced" in r.message for r in caplog.records) == 2  # one per backend
+
+
+class _Chan:
+    """A follower channel that hands out recorded frames."""
+
+    def __init__(self, frames):
+        self._frames = iter(frames)
+
+    def next(self):
+        return next(self._frames)
+
+
+class _Target:
+    def __init__(self, sig):
+        self.sig, self.ops = sig, []
+
+    def signature(self):
+        return dict(self.sig)
+
+    def replay(self, op, payload):
+        self.ops.append((op, payload))
+
+
+def _narrow_engine(seed_params):
+    from whisperlive_tpu_torch.engine.engine import WhisperEngine
+    from whisperlive_tpu_torch.models import whisper as tw
+    from whisperlive_tpu_torch.parallel.mesh import EngineShardings
+
+    cfg = tw.WhisperConfig(**DIMS)
+    return WhisperEngine(cfg, seed_params(cfg), batch_buckets=(1, 2), device="cpu",
+                         decoder_int8=False, cross_kv_bits=16,
+                         shardings=EngineShardings(tp=1, dp=1))
+
+
+def test_window_handles_are_named_replayed_and_freed():
+    """A window op's device results stay on both sides under the op's id
+    (the payload names them, the frame carries no tensor), later ops take
+    them back, and free_handles empties the leader's and the follower's
+    tables; the follower replays every op the leader published, and the
+    engine's unpublished device calls are refused on the window engine."""
+    from whisperlive_tpu_torch.models import whisper as tw
+
+    params = tw.init_params(tw.WhisperConfig(**DIMS), 0, device="cpu")
+    leader_eng = _narrow_engine(lambda cfg: params)
+    follower_eng = _narrow_engine(lambda cfg: params)
+    port = _free_port()
+    box = {}
+    t = threading.Thread(target=lambda: box.update(leader=smh.OpLeader(
+        port, n_followers=1, secret=b"k", accept_timeout_s=20.0)))
+    t.start()
+    chan = smh.OpFollower(("127.0.0.1", port), secret=b"k")
+    t.join(timeout=20)
+    leader = box["leader"]
+    follower = smh.MultihostWindowEngine(follower_eng)
+    replay = {}
+    rt = threading.Thread(target=lambda: replay.update(n=smh.run_follower(
+        {"window": follower}, chan)))
+    rt.start()
+    window = smh.MultihostWindowEngine(leader_eng, leader=leader)
+    opts = TOptions(language="en", temperatures=(0.0,), log_prob_threshold=None,
+                    no_speech_threshold=None, compression_ratio_threshold=None,
+                    max_new_tokens=4)
+    audio = np.random.default_rng(3).standard_normal((2, 480000)).astype(np.float32) * 0.1
+    enc, cross = window.prepare(audio)
+    assert isinstance(enc, smh.Handle) and isinstance(cross, smh.Handle)
+    sub = window.gather_cross(cross, [1, 1])
+    p, s = window.build_prompt(opts)
+    (res,) = window.decode_with_fallback(sub, [p], [s], opts)
+    (ref,) = leader_eng.decode_with_fallback(leader_eng.prepare(audio[1:])[1], [p], [s], opts)
+    assert list(res.tokens) == list(ref.tokens)
+    assert window.live_handles == 3
+    with pytest.raises(AttributeError, match="not on the op log"):
+        window.decode_batch  # device work on this rank alone: refused
+    window.free_handles()
+    assert window.live_handles == 0
+    leader.stop()
+    rt.join(timeout=60)
+    chan.close()
+    assert replay["n"] == 4 and leader.stats["ops"] == 6  # and the hello and the stop
+    assert follower.live_handles == 0
+
+
+def test_follower_refuses_an_unknown_target_op_or_handle():
+    """A frame for a target the follower lacks, or naming a handle it never
+    made, is a protocol fault: run_follower raises instead of replaying a
+    desynced stream (an op that fails inside the engine is survived)."""
+    from types import SimpleNamespace
+
+    main = _Target({"n_slots": 4})
+    window = smh.MultihostWindowEngine(SimpleNamespace(
+        shardings=object(), gather_cross=lambda cross, idx: cross,
+        signature=None), name="window")
+    window.signature = lambda: {"tp": 2}
+    hello = ("hello", {"main": {"n_slots": 4}, "window": {"tp": 2}})
+    with pytest.raises(smh.ReplayError, match="unknown target 'spec'"):
+        smh.run_follower({"main": main, "window": window},
+                         _Chan([hello, ("main.step", None), ("spec.step", None)]))
+    assert main.ops == [("step", None)]
+    with pytest.raises(smh.ReplayError, match="unknown handle"):
+        smh.run_follower({"main": main, "window": window}, _Chan(
+            [hello, ("window.gather_cross", (0, (smh.Handle((7, 0)), [0]), {}))]))
+    with pytest.raises(smh.ReplayError, match="unknown window op"):
+        smh.run_follower({"main": main, "window": window},
+                         _Chan([hello, ("window.forward", (1, (), {}))]))
+
+
+def test_hello_reports_a_second_pools_mismatch():
+    """The handshake holds every target's signature: a speculative pool
+    built otherwise than the leader's is named in the error."""
+    targets = {"main": _Target({"n_slots": 4, "ring": 128}),
+               "spec": _Target({"n_slots": 8, "spec_k": 4})}
+    hello = ("hello", {"main": {"n_slots": 4, "ring": 128}, "spec": {"n_slots": 8, "spec_k": 3}})
+    with pytest.raises(RuntimeError, match=r"'spec': \{'spec_k': \(3, 4\)\}"):
+        smh.run_follower(targets, _Chan([hello]))
+    with pytest.raises(RuntimeError, match="'spec': 'missing on the leader'"):
+        smh.run_follower(targets, _Chan([("hello", {"main": {"n_slots": 4, "ring": 128}})]))
+    assert smh.run_follower(targets, _Chan([("hello", {"main": {"n_slots": 4, "ring": 128},
+                                                       "spec": {"n_slots": 8, "spec_k": 4}}),
+                                            ("spec.step", None), ("stop", None)])) == 1

@@ -12,12 +12,18 @@ writes <dir>/out<rank>.npz or .json. Scenarios:
     continuous   a leader's ContinuousScheduler over the op log and its
                  followers (spec: tp, dp, pool, quantization, a draft)
     serve        tp = 2 through the op log with word timestamps
+    window       tp = 2: the window route through the op log beside the
+                 continuous pools (window batches at float and int8, a
+                 fallback retry, no_repeat_ngram routing, word timestamps, a
+                 REST file, hybrid beam beside a live session, window-path
+                 speculation, the mixed pool)
     train        spec's tp x dp: train steps through init_multihost, then
                  the primary's checkpoint
 
 This module imports nothing of the JAX package: it is the port's side.
 """
 
+import dataclasses
 import json
 import os
 import socket
@@ -224,6 +230,156 @@ def continuous(spec, sh, d, rank):
         json.dump(result, f)
 
 
+def window_audio(seconds: float, seed: int) -> np.ndarray:
+    """Deterministic noise 'speech' of the window scenario (the test makes
+    the same with this function)."""
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal(int(16000 * seconds)) * 0.1).astype(np.float32)
+
+
+def window_route(spec, sh, d, rank):
+    """Every rank builds the same targets in the same order (a float and an
+    int8 engine with a sliced draft, their window engines and two pools);
+    rank 0 serves spec["cases"] through them and the others replay."""
+    import asyncio
+    import threading
+
+    import torch
+
+    from whisperlive_tpu_torch.engine.continuous import ContinuousScheduler
+    from whisperlive_tpu_torch.engine.engine import WhisperEngine
+    from whisperlive_tpu_torch.engine.scheduler import BatchRequest
+    from whisperlive_tpu_torch.engine.speculative import SpeculativeDecoder
+    from whisperlive_tpu_torch.parallel import multihost
+    from whisperlive_tpu_torch.parallel import serve_multihost as smh
+    from whisperlive_tpu_torch.serving import backends, rest
+    from whisperlive_tpu_torch.serving.session import SessionOptions
+
+    cfg = make_config(spec["dims"])
+    params = load_params(os.path.join(d, "params.npz"))
+
+    def engine(dims, tree, quant):
+        kw = dict(decoder_int8=True, cross_kv_bits=8) if quant else dict(
+            decoder_int8=False, cross_kv_bits=16)
+        eng = WhisperEngine(make_config(dims), tree, device="cpu", batch_buckets=(1, 2),
+                            shardings=sh, compute_dtype=torch.float32,
+                            tokenizer=visible_tokenizer(cfg.n_vocab), **kw)
+        eng.enable_beam_chunk(spec["beam_chunk"])
+        return eng
+
+    eng, eng8 = engine(spec["dims"], params, False), engine(spec["dims"], params, True)
+    draft8 = engine(spec["draft_dims"], load_params(os.path.join(d, "draft_params.npz")), True)
+    spec_dec = SpeculativeDecoder(eng8, draft8, k=spec["spec_k"])
+    primary = multihost.is_primary()
+    leader = smh.OpLeader(spec["ops_port"], n_followers=sh.tp * sh.dp - 1) if primary else None
+    window = smh.MultihostWindowEngine(eng, leader=leader, name="window")
+    window8 = smh.MultihostWindowEngine(eng8, leader=leader, name="window8",
+                                        spec_decoder=spec_dec)
+
+    def pool(e, name, **kw):
+        import functools
+
+        return ContinuousScheduler(e, pool_factory=functools.partial(
+            smh.MultihostContinuousEngine, leader=leader, name=name), **kw)
+
+    main = pool(eng, "main", **spec["pool"])
+    spec8 = pool(eng8, "spec8", draft_engine=draft8, spec_k=spec["spec_k"],
+                 **spec["spec_pool"])
+    if not primary:
+        chan = smh.OpFollower(("127.0.0.1", spec["ops_port"]))
+        n_ops = smh.run_follower({"window": window, "window8": window8, "main": main.cb,
+                                  "spec8": spec8.cb}, chan)
+        chan.close()
+        with open(os.path.join(d, f"out{rank}.json"), "w") as f:
+            json.dump({"rank": rank, "ops": n_ops, "handles": [window.live_handles,
+                                                               window8.live_handles]}, f)
+        return
+
+    backends._DISABLE_GATES = True
+    backends.STREAMING_MAX_NEW_TOKENS = spec["max_new"]
+    greedy = greedy_options(max_new_tokens=spec["max_new"])
+    session = SessionOptions(language="en", use_vad=False)
+    win = smh.MultihostBatchScheduler(window, max_batch_size=2, batch_window_ms=200)
+    win8 = smh.MultihostBatchScheduler(window8, max_batch_size=2, batch_window_ms=200)
+    win8s = smh.MultihostBatchScheduler(window8, max_batch_size=2,
+                                        spec_decoder=window8.speculative)
+    out = {"rank": rank}
+
+    def record(res):
+        return {"tokens": list(map(int, res.raw_tokens)),
+                "avg_logprob": [s.avg_logprob for s in res.segments],
+                "words": serialize_words(res)}
+
+    def batch_of(sched, opts, audios, start=False):
+        futs = [sched.submit(BatchRequest(audio=a, options=opts, uid=f"b{i}"))
+                for i, a in enumerate(audios)]
+        if start:  # queued before the worker starts, so they batch
+            sched.start()
+        return [record(f.result(timeout=300)) for f in futs]
+
+    audios = [window_audio(s, 10 + i) for i, s in enumerate(spec["batch_s"])]
+    try:
+        # (1)-(3) window batches at float and int8, and a fallback retry
+        out["batch"] = batch_of(win, greedy, audios, start=True)
+        out["batch8"] = batch_of(win8, greedy, audios, start=True)
+        out["fallback"] = batch_of(win, dataclasses.replace(
+            greedy, temperatures=(0.0, 0.0), log_prob_threshold=-1.0), audios)
+        out["words"] = batch_of(win, dataclasses.replace(greedy, word_timestamps=True),
+                                audios[:1])
+        for cs in (main, spec8):
+            cs.start()
+
+        class Ngram(backends.TorchBackend):
+            def _adjust_options(self, topts, chunk):
+                return dataclasses.replace(topts, no_repeat_ngram_size=3)
+
+        # (4) no_repeat_ngram routes to the window scheduler
+        ngram = Ngram(win, continuous_scheduler=main)
+        res = asyncio.run(ngram.transcribe(audios[1], session, language="en", uid="ng"))
+        out["ngram"] = dict(record(res), window=ngram._pick_scheduler(
+            dataclasses.replace(greedy, no_repeat_ngram_size=3), 2.0) is win)
+        # (5) a REST file: its 30 s window over the pool's cap on the window
+        # scheduler, the rest on the pool
+        plain = backends.TorchBackend(win, continuous_scheduler=main)
+        segs, _ = asyncio.run(rest._transcribe_full(
+            plain, window_audio(spec["rest_s"], 30), session, "en"))
+        out["rest"] = [[s["start"], s["end"], s["tokens"]] for s in segs]
+        # (6) a hybrid-beam full re-decode on the window scheduler while a
+        # continuous session runs on the pool
+        hybrid = backends.TorchBackend(win, continuous_scheduler=main,
+                                       beam_size=spec["beam"], beam_mode="refresh")
+        session_out, beam_out = [], []
+
+        def live():
+            for i, a in enumerate(audios):
+                r = main.submit(BatchRequest(audio=a, options=greedy, uid=f"live{i}"))
+                session_out.append(list(map(int, r.result(timeout=300).raw_tokens)))
+
+        t = threading.Thread(target=live)
+        t.start()
+        beam_out.append(asyncio.run(hybrid.transcribe(audios[0], session, language="en",
+                                                      uid="beam", window_anchor_s=0.0)))
+        t.join(timeout=300)
+        out["hybrid"] = dict(record(beam_out[0]), stats=dict(hybrid.hybrid_stats),
+                             session=session_out, finished=not t.is_alive())
+        # (7) a lone greedy request on the window-path SpeculativeDecoder
+        win8s.start()
+        out["spec"] = dict(batch_of(win8s, greedy, audios[:1])[0],
+                           windows=spec_dec.stats["windows"])
+        # (8) a full re-decode on the mixed mode's speculative pool
+        mixed = backends.TorchBackend(win8, spec_scheduler=spec8)
+        res = asyncio.run(mixed.transcribe(audios[1], session, language="en", uid="mx"))
+        out["mixed"] = dict(record(res), routes=dict(mixed.spec_route_stats))
+    finally:
+        for sched in (win, win8, win8s, main, spec8):
+            sched.stop()
+        out["handles"] = [window.live_handles, window8.live_handles]
+        out["op_log"] = dict(leader.stats)
+        leader.stop()
+    with open(os.path.join(d, f"out{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
 def batch(cfg, step_i: int, b: int, seed: int = 1000) -> dict:
     """The global batch of step i (the same numpy draws as the JAX job's)."""
     rng = np.random.default_rng(seed + step_i)
@@ -279,7 +435,7 @@ def main() -> int:
     assert multihost.backend() == "gloo"
     sh = multihost.multihost_shardings(tp=spec["tp"], dp=spec.get("dp"))
     {"tp_model": tp_model, "continuous": continuous, "serve": continuous,
-     "train": train}[scenario](spec, sh, d, rank)
+     "window": window_route, "train": train}[scenario](spec, sh, d, rank)
     multihost.barrier("done")
     return 0
 

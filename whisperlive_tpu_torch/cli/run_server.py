@@ -38,9 +38,14 @@ Speculative decoding, with a draft loaded from --draft_path or random from
 Tensor and data parallelism (one process per rank, parallel/mesh.py): with
 --tp or --dp above 1 the command starts its host's ranks itself
 (torch.multiprocessing, spawn). Rank 0 serves; every other rank replays
-the continuous pool's device ops from rank 0's op log
-(parallel/serve_multihost.py, HMAC-authenticated with WL_OPS_SECRET), so a
-server of more than one rank serves the continuous path only:
+its device ops from rank 0's op log (parallel/serve_multihost.py,
+HMAC-authenticated with WL_OPS_SECRET). On one host that is everything a
+one-rank server runs: the window scheduler and its warm-up, REST, beam and
+hybrid beam, window-path speculation and both speculative pools. A world
+across hosts (WL_NUM_PROCS > 1) serves the continuous path only, as the
+reference's multi-host mode: it refuses --no_continuous_batching,
+--beam_mode refresh, --continuous_spec_mode mixed and --fake_transcriber,
+and turns REST off.
 
     --tp 2                            heads and MLP units over 2 ranks
     --tp 2 --dp 2                     2 replicas, the slot pool dp times
@@ -229,28 +234,6 @@ def resolve_dp(args) -> int:
     return max(1, n_dev * hosts // args.tp)
 
 
-def _build_engine(args, shardings):
-    """The engine (and its compute dtype and checkpoint dir) of a rank from
-    the CLI flags, on the rank's device; shared by the multi-process leader
-    and its followers, whose engines must be built EXACTLY like the
-    leader's (the op log's handshake checks a signature, but the same
-    weights and geometry are on the operator: launch every host with the
-    same flags and checkpoint). Every rank loads or draws the whole tree
-    and keeps its slice."""
-    from whisperlive_tpu_torch.engine.engine import WhisperEngine
-    from whisperlive_tpu_torch.loader import resolve_model
-    from whisperlive_tpu_torch.parallel import multihost
-
-    device = multihost.device()
-    dtype = ({"bfloat16": torch.bfloat16, "float32": torch.float32}[args.compute_dtype]
-             if args.compute_dtype else None)
-    ckpt = args.tpu_model_path or args.faster_whisper_custom_model_path or args.trt_model_path
-    cfg, params, tokenizer = resolve_model(args.model, ckpt, dtype, device, args.seed)
-    engine = WhisperEngine(cfg, params, tokenizer=tokenizer, device=device,
-                           compute_dtype=dtype, shardings=shardings)
-    return engine, dtype, ckpt
-
-
 def _continuous_pool_kwargs(args, shardings) -> dict:
     """Geometry of the continuous slot pool: one definition, so the
     multi-process leader and its followers build identical pools."""
@@ -270,9 +253,29 @@ def continuous_pool_size(args) -> tuple[int, int]:
     return args.continuous_slots, 1
 
 
-def create_backend(args):
+def several_hosts() -> bool:
+    """True when the world spans hosts (WL_NUM_PROCS > 1): the reference's
+    multi-host mode, which serves the continuous path alone."""
+    return int(os.environ.get("WL_NUM_PROCS", "1")) > 1
+
+
+def create_backend(args, shardings=None, leader=None, follower: bool = False):
     """The backend of the CLI flags: FakeBackend with --fake_transcriber,
-    else an engine with its started schedulers behind TorchBackend."""
+    else an engine with its started schedulers behind TorchBackend.
+
+    Every rank of a multi-rank world runs this one function with its
+    shardings, so the leader and its followers build identical engines,
+    pools and decoders in the same order. Rank 0 passes its OpLeader: the
+    window engine (with its SpeculativeDecoder) and every slot pool publish
+    their device ops there. A follower passes follower=True and gets the
+    replay targets ({name: target}, for run_follower) in place of a
+    backend, with nothing started. The window warm-up runs on every rank
+    itself, in the same order, before the first op is published. A world
+    across hosts (several_hosts()) serves the continuous path alone, as
+    the reference's multi-host mode does: no window warm-up, no window
+    target, a continuous-only backend."""
+    import functools
+
     import torch
 
     from whisperlive_tpu_torch.serving.backends import FakeBackend
@@ -281,36 +284,52 @@ def create_backend(args):
         return FakeBackend()
 
     from whisperlive_tpu_torch.device import resolve_device
+    from whisperlive_tpu_torch.engine.continuous import ContinuousScheduler
     from whisperlive_tpu_torch.engine.scheduler import BatchScheduler
     from whisperlive_tpu_torch.loader import load_engine
+    from whisperlive_tpu_torch.parallel import multihost
+    from whisperlive_tpu_torch.parallel import serve_multihost as smh
     from whisperlive_tpu_torch.serving.backends import (
         TorchBackend,
         transcribe_options_from_session,
     )
     from whisperlive_tpu_torch.serving.session import SessionOptions
 
-    device = resolve_device(args.device)
+    multi = shardings is not None
+    window_route = not (multi and several_hosts())
+    device = multihost.device() if multi else resolve_device(args.device)
     dtype = ({"bfloat16": torch.bfloat16, "float32": torch.float32}[args.compute_dtype]
              if args.compute_dtype else None)
     ckpt = args.tpu_model_path or args.faster_whisper_custom_model_path or args.trt_model_path
     has_draft = bool(args.draft_model or args.draft_path)
 
     def build_draft():
+        # under --tp/--dp the draft is sliced over the target's grid
         return load_engine(args.draft_model or "distil-large-v3", args.draft_path, device,
-                           dtype, seed=args.seed + 1)
+                           dtype, seed=args.seed + 1, shardings=shardings)
 
     hybrid_beam = args.beam_size > 1 and args.beam_mode == "refresh"
-    engine = load_engine(args.model, ckpt, device, dtype, seed=args.seed)
-    if not args.no_warmup:
-        if hybrid_beam:
-            # beamed fulls run in preemptible segments; enable them first
-            engine.enable_beam_chunk()
+    engine = load_engine(args.model, ckpt, device, dtype, seed=args.seed, shardings=shardings)
+    if args.continuous_cross_ctx == 0:  # the whole context (a world across hosts)
+        args.continuous_cross_ctx = engine.cfg.n_audio_ctx
+    if hybrid_beam:
+        # beamed fulls run in preemptible segments (a program of its own:
+        # set on every rank before the warm-up)
+        engine.enable_beam_chunk()
+    if not args.no_warmup and window_route:
         engine.warmup(
             batch_sizes={b for b in engine.batch_buckets if b <= args.batch_max_size},
             options=transcribe_options_from_session(SessionOptions(), beam_size=args.beam_size),
         )
     draft = spec_decoder = None
-    if has_draft and args.beam_size > 1 and not hybrid_beam:
+    if has_draft and not window_route:
+        if args.continuous_spec:
+            warn_draft_ctx(args, for_continuous=True)
+            draft = build_draft()
+        else:
+            logging.warning("multi-host serving uses a draft only with --continuous_spec; "
+                            "window-path speculation is disabled")
+    elif has_draft and args.beam_size > 1 and not hybrid_beam:
         # every window request carries the beam, and the speculative route
         # serves greedy requests only
         logging.warning("--draft_model is ignored with --beam_size %d --beam_mode full: the "
@@ -334,31 +353,38 @@ def create_backend(args):
     if args.continuous_spec and draft is None:
         logging.warning("--continuous_spec ignored: no draft (give --draft_model or "
                         "--draft_path with --beam_size 1 or --beam_mode refresh)")
-    scheduler = BatchScheduler(
-        engine, max_batch_size=args.batch_max_size, batch_window_ms=args.batch_window_ms,
-        spec_decoder=spec_decoder,
-    )
-    scheduler.start()
+    window, targets = engine, {}
+    if multi and window_route:
+        window = smh.MultihostWindowEngine(engine, leader=leader, spec_decoder=spec_decoder)
+        spec_decoder, targets["window"] = window.speculative, window
+
+    def pool(name, **kw):
+        """A ContinuousScheduler whose pool, on a multi-rank world, is on
+        the op log under `name`."""
+        if not multi:
+            return ContinuousScheduler(engine, **kw)
+        if not window_route:
+            # the reference's multi-host pool: ContinuousEngine's own
+            # prompt region and ring
+            return ContinuousScheduler(engine, cb=smh.MultihostContinuousEngine(
+                engine, leader=leader, name=name, **kw))
+        return ContinuousScheduler(engine, pool_factory=functools.partial(
+            smh.MultihostContinuousEngine, leader=leader, name=name), **kw)
+
     continuous = spec_pool = None
     if args.continuous_batching:
-        from whisperlive_tpu_torch.engine.continuous import ContinuousScheduler
-
-        n_slots, lanes = continuous_pool_size(args)
+        geometry = _continuous_pool_kwargs(args, shardings)
         if hybrid_beam:
             logging.info("hybrid beam serving: greedy continuous pool (%d slots), beam-%d full "
-                         "re-decodes on the window scheduler", n_slots, args.beam_size)
-        elif lanes > 1:
-            logging.info("continuous beam serving: %d slots x %d lanes", n_slots, lanes)
+                         "re-decodes on the window scheduler", geometry["n_slots"],
+                         args.beam_size)
+        elif geometry["beam_width"] > 1:
+            logging.info("continuous beam serving: %d slots x %d lanes", geometry["n_slots"],
+                         geometry["beam_width"])
         spec_all = draft is not None and args.continuous_spec and (
             args.continuous_spec_mode == "all")
-        continuous = ContinuousScheduler(
-            engine, n_slots=n_slots, steps_per_chunk=args.steps_per_chunk,
-            cross_ctx=args.continuous_cross_ctx, beam_width=lanes,
-            draft_engine=draft if spec_all else None, spec_k=args.spec_k,
-        )
-        if not args.no_warmup:
-            continuous.warmup()
-        continuous.start()
+        continuous = pool("main", draft_engine=draft if spec_all else None, **geometry)
+        targets["main"] = continuous.cb
         if draft is not None and args.continuous_spec and not spec_all:
             # the speculative pool serves full re-decodes only: fewer slots,
             # a larger ring (a round takes spec_k+2 ring columns and a
@@ -366,21 +392,33 @@ def create_backend(args):
             # a chunk
             logging.info("mixed speculative routing: full re-decodes on a %d-slot pool "
                          "(k=%d), incremental tails plain", args.spec_slots, args.spec_k)
-            spec_pool = ContinuousScheduler(
-                engine, draft_engine=draft, n_slots=args.spec_slots,
-                steps_per_chunk=min(args.steps_per_chunk, 4),
-                cross_ctx=args.continuous_cross_ctx, ring=192, spec_k=args.spec_k,
-            )
+            spec_pool = pool("spec", draft_engine=draft, n_slots=args.spec_slots,
+                             steps_per_chunk=min(args.steps_per_chunk, 4),
+                             cross_ctx=args.continuous_cross_ctx, ring=192, spec_k=args.spec_k)
+            targets["spec"] = spec_pool.cb
+    if follower:
+        return targets
+    # every pool is built (and on the op log) before the first op
+    for cs in (continuous, spec_pool):
+        if cs is not None:
             if not args.no_warmup:
-                spec_pool.warmup()
-            spec_pool.start()
+                cs.warmup()
+            cs.start()
+    scheduler = (smh.MultihostBatchScheduler if "window" in targets else BatchScheduler)(
+        window, max_batch_size=args.batch_max_size, batch_window_ms=args.batch_window_ms,
+        spec_decoder=spec_decoder,
+    )
+    if window_route:
+        # across hosts the window scheduler stays built (the backend reads
+        # engine metadata from it) but never starts: its ops are not replayed
+        scheduler.start()
     if args.beam_size > 1 and args.batch_max_size * args.beam_size > 16:
         logging.warning("batch_max_size*beam_size=%d may exceed device memory; consider "
                         "lowering --batch_max_size", args.batch_max_size * args.beam_size)
     return TorchBackend(scheduler, model_name=ckpt or args.model,
                         continuous_scheduler=continuous,
                         spec_scheduler=spec_pool, beam_size=args.beam_size,
-                        beam_mode=args.beam_mode)
+                        beam_mode=args.beam_mode, continuous_only=not window_route)
 
 
 def warn_draft_ctx(args, for_continuous: bool) -> None:
@@ -409,10 +447,12 @@ def warn_draft_ctx(args, for_continuous: bool) -> None:
 
 
 def check_multihost_flags(args) -> None:
-    """Refuse the modes a multi-rank server cannot run: only the continuous
-    pool's ops are replayed on the follower ranks, so nothing may need the
-    window scheduler. The content cap defaults to the whole encoder
-    context, so no window is long enough to need the window path."""
+    """Refuse what a world across hosts does not serve, as the reference's
+    multi-host mode: only the continuous pool's ops are replayed on the
+    other hosts' ranks, so nothing may need the window scheduler (on one
+    host the window route rides the op log too). The content cap defaults
+    to the whole encoder context, so no window is long enough to need the
+    window path."""
     if args.fake_transcriber:
         raise SystemExit("--fake_transcriber has no multi-host mode")
     if not args.continuous_batching:
@@ -425,7 +465,7 @@ def check_multihost_flags(args) -> None:
     if args.continuous_spec and args.continuous_spec_mode == "mixed" and (
             args.draft_model or args.draft_path):
         raise SystemExit("--continuous_spec_mode mixed needs a second continuous pool, "
-                         "whose ops are not replayed on follower ranks; use 'all' with "
+                         "whose ops are not replayed on follower hosts; use 'all' with "
                          "multi-host serving")
     if args.enable_rest:
         # REST files ride the window scheduler's seek loop
@@ -435,76 +475,21 @@ def check_multihost_flags(args) -> None:
         args.continuous_cross_ctx = 0  # the whole context, resolved with the engine
 
 
-def _multihost_pool(args, shardings):
-    """(engine, draft or None, pool kwargs) of a rank of a multi-process
-    server: built the same way on the leader and on every follower."""
-    from whisperlive_tpu_torch.loader import load_engine
-
-    engine, dtype, _ = _build_engine(args, shardings)
-    if args.continuous_cross_ctx == 0:
-        args.continuous_cross_ctx = engine.cfg.n_audio_ctx
-    draft = None
-    if args.draft_model or args.draft_path:
-        if args.continuous_spec:
-            warn_draft_ctx(args, for_continuous=True)
-            draft = load_engine(args.draft_model or "distil-large-v3", args.draft_path,
-                                engine.device, dtype, seed=args.seed + 1, shardings=shardings)
-        else:
-            logging.warning("multi-host serving uses a draft only with --continuous_spec; "
-                            "window-path speculation is disabled")
-    return engine, draft, _continuous_pool_kwargs(args, shardings)
-
-
-def create_multihost_backend(args, shardings, world: int, coordinator: str):
-    """The leader's backend: a continuous pool whose every device op is
-    published to the world's other ranks before it runs, behind a
-    TorchBackend that serves the continuous path only. The window
-    scheduler is built (the backend reads engine metadata from it) but
-    never started: its ops are not replayed. The op log binds on
-    --multihost_ops_host, else on the coordinator's host (the internal
-    interface the followers already reach, never 0.0.0.0: the stream
-    carries every session's audio)."""
-    from whisperlive_tpu_torch.engine.continuous import ContinuousScheduler
-    from whisperlive_tpu_torch.engine.scheduler import BatchScheduler
-    from whisperlive_tpu_torch.parallel import serve_multihost as smh
-    from whisperlive_tpu_torch.serving.backends import TorchBackend
-
-    engine, draft, pool = _multihost_pool(args, shardings)
-    leader = smh.OpLeader(args.multihost_ops_port, n_followers=world - 1,
-                          host=args.multihost_ops_host or coordinator.rsplit(":", 1)[0])
-    cb = smh.MultihostContinuousEngine(engine, leader=leader, draft_engine=draft, **pool)
-    logging.info("multi-host serving: leading %d follower ranks over the op log (port %d); "
-                 "%d slots over dp=%d x tp=%d", world - 1, args.multihost_ops_port,
-                 pool["n_slots"], shardings.dp, shardings.tp)
-    continuous = ContinuousScheduler(engine, cb=cb)
-    if not args.no_warmup:
-        continuous.warmup()
-    continuous.start()
-    scheduler = BatchScheduler(engine, max_batch_size=args.batch_max_size,
-                               batch_window_ms=args.batch_window_ms)
-    ckpt = args.tpu_model_path or args.faster_whisper_custom_model_path or args.trt_model_path
-    return TorchBackend(scheduler, model_name=ckpt or args.model,
-                        continuous_scheduler=continuous, beam_size=args.beam_size,
-                        beam_mode=args.beam_mode, continuous_only=True)
-
-
 def run_multihost_follower(args, shardings, coordinator: str) -> int:
-    """A follower rank: build the engines the leader builds, then replay
-    its op log (on the coordinator's host, rank 0's) until it stops. ->
-    the ops replayed."""
+    """A follower rank: build what the leader builds (create_backend's
+    replay targets), then replay its op log (on the coordinator's host,
+    rank 0's) until it stops. -> the ops replayed."""
     from whisperlive_tpu_torch.parallel import serve_multihost as smh
 
-    engine, draft, pool = _multihost_pool(args, shardings)
-    cb = smh.MultihostContinuousEngine(engine, draft_engine=draft, **pool)
     leader = (coordinator.rsplit(":", 1)[0], args.multihost_ops_port)
-    logging.info("multi-host follower rank %d: replaying ops from %s:%d", shardings.rank,
+    logging.info("multi-rank follower rank %d: replaying ops from %s:%d", shardings.rank,
                  *leader)
     chan = smh.OpFollower(leader)
     try:
-        n = smh.run_follower(cb, chan)
+        n = smh.run_follower(create_backend(args, shardings, follower=True), chan)
     finally:
         chan.close()
-    logging.info("multi-host follower rank %d: leader stopped after %d ops", shardings.rank, n)
+    logging.info("multi-rank follower rank %d: leader stopped after %d ops", shardings.rank, n)
     return n
 
 
@@ -512,8 +497,12 @@ def serve_rank(index: int, args, coordinator: str, host: int, n_hosts: int,
                local_ranks: int) -> None:
     """One rank of a multi-process server: local rank index + 1 of this
     host (the spawned children; the command's own process passes -1 and
-    is local rank 0). Rank 0 serves, the others follow."""
+    is local rank 0). Rank 0 serves the full backend over the op log,
+    which binds on --multihost_ops_host, else on the coordinator's host
+    (the internal interface the followers already reach, never 0.0.0.0:
+    the stream carries every session's audio); the others follow."""
     from whisperlive_tpu_torch.parallel import multihost
+    from whisperlive_tpu_torch.parallel import serve_multihost as smh
 
     if index >= 0:  # a spawned child: its own logging and thread pool
         logging.basicConfig(level=logging.INFO)
@@ -524,11 +513,20 @@ def serve_rank(index: int, args, coordinator: str, host: int, n_hosts: int,
     if not multihost.is_primary():
         run_multihost_follower(args, shardings, coordinator)
         return
-    backend = create_multihost_backend(args, shardings, n_hosts * local_ranks, coordinator)
+    world = n_hosts * local_ranks
+    leader = smh.OpLeader(args.multihost_ops_port, n_followers=world - 1,
+                          host=args.multihost_ops_host or coordinator.rsplit(":", 1)[0])
+    logging.info("multi-rank serving: leading %d follower ranks over the op log (port %d), "
+                 "dp=%d x tp=%d%s", world - 1, args.multihost_ops_port, shardings.dp,
+                 shardings.tp, " (continuous path only: across hosts)" if n_hosts > 1 else "")
     try:
-        run_server(args, backend)
+        backend = create_backend(args, shardings, leader)
+        try:
+            run_server(args, backend)
+        finally:
+            stop_backend(backend)
     finally:
-        stop_backend(backend)
+        leader.stop()
 
 
 def launch_ranks(args) -> None:
@@ -599,9 +597,6 @@ def stop_backend(backend) -> None:
     for pool in (backend.continuous_scheduler, backend.spec_scheduler):
         if pool is not None:
             pool.stop()
-    cb = getattr(backend.continuous_scheduler, "cb", None)
-    if getattr(cb, "multihost", False):
-        cb.stop_followers()
 
 
 def main(argv=None) -> None:
@@ -617,8 +612,12 @@ def main(argv=None) -> None:
     if args.profile_dir:
         profiling.start_profiler(args.profile_dir, device=args.device)
     try:
-        if args.tp * resolve_dp(args) > 1 or int(os.environ.get("WL_NUM_PROCS", "1")) > 1:
+        if several_hosts():
             check_multihost_flags(args)
+            launch_ranks(args)
+            return
+        if not args.fake_transcriber and args.tp * resolve_dp(args) > 1:
+            # one host: the ranks serve all a one-rank server does
             launch_ranks(args)
             return
         backend = create_backend(args)

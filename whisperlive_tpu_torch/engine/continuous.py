@@ -464,11 +464,14 @@ class ContinuousScheduler:
         draft_engine: Optional[WhisperEngine] = None,
         spec_k: int = 4,
         cb: Optional[ContinuousEngine] = None,
+        pool_factory=None,
     ):
-        """cb: a slot pool built by the caller (multi-process serving passes
-        a MultihostContinuousEngine); the pool arguments are then unused."""
+        """cb: a slot pool built by the caller; the pool arguments are then
+        unused. pool_factory: the pool's class, or a callable with its
+        signature, built from the pool arguments (multi-process serving
+        passes MultihostContinuousEngine bound to its op log)."""
         self.engine = engine
-        self.cb = cb if cb is not None else ContinuousEngine(
+        self.cb = cb if cb is not None else (pool_factory or ContinuousEngine)(
             engine, n_slots=n_slots, prompt_pad=prompt_pad, ring=ring,
             steps_per_chunk=steps_per_chunk, options=options, cross_ctx=cross_ctx,
             enc_buckets=enc_buckets, beam_width=beam_width, draft_engine=draft_engine,

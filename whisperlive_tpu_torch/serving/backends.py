@@ -92,12 +92,14 @@ class TorchBackend:
     ):
         self.scheduler = scheduler
         self.continuous_scheduler = continuous_scheduler
-        # Multi-process serving (parallel/serve_multihost.py): ONLY the
-        # continuous pool's ops are replayed on follower ranks, so every
-        # request must ride the continuous path. Options the window
+        # A world across hosts (parallel/serve_multihost.py; the CLI sets
+        # this only then, as the reference's multi-host mode): ONLY the
+        # continuous pool's ops are replayed on the other hosts' ranks, so
+        # every request must ride the continuous path. Options the window
         # scheduler would otherwise absorb are coerced to the continuous
         # step's fixed ones (warned once per uid) and over-cap windows are
-        # clamped.
+        # clamped. On one host the window route rides the op log too and
+        # routing is _pick_scheduler's.
         self.continuous_only = continuous_only
         self._coerce_warned: set[str] = set()
         self.model_name = model_name
@@ -242,9 +244,9 @@ class TorchBackend:
     def _coerce_to_continuous(self, topts: TranscribeOptions, chunk: np.ndarray,
                               uid: str) -> tuple[TranscribeOptions, np.ndarray]:
         """Force a request onto the continuous path (continuous_only
-        serving: a multi-process server has no replayable window
-        scheduler). Options the continuous step cannot honour are replaced
-        by its fixed values; windows over the content cap are clamped."""
+        serving: a world across hosts replays no window scheduler). Options
+        the continuous step cannot honour are replaced by its fixed values;
+        windows over the content cap are clamped."""
         cs = self.continuous_scheduler
         changed = []
         if topts.no_repeat_ngram_size > 0:
