@@ -1,8 +1,8 @@
 """Drive the PyTorch port's serving paths (the websocket server, REST,
 diarization and translation), its offline file path, its training and
-distillation path, its tensor and data parallelism (two ranks) and its
+distillation path, its tensor and data parallelism (two ranks), its
 tooling (the profiler, the roofline, the WER harness and the VAD and speaker
-trainers) once on one CUDA card.
+trainers) and five published model configurations once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -70,7 +70,7 @@ a result):
    (8 slots, 8 steps per chunk, cross cap 640, encoder buckets 512 and
    1500) behind TorchBackend; three ~10 s streaming sessions, the third
    joining 2 s late so that a window joins a running decode, one with the
-   VAD gate off. A torch.profiler window over two step chunks prints the
+   VAD gate off. A torch.profiler window over one step chunk prints the
    launches and device time per step, and the five largest CUDA kernels,
    K5 and K3 by device time per step.
 6. Serve the three speculative routes with a random distil-large-v3 draft
@@ -92,11 +92,13 @@ a result):
    at beam 5, batch bucket 2, 48 new tokens through transcribe_batch: the
    time per window, the K2/K3/K4 launches a beam step (a full decode less
    a one-step one), the device time a beam step and the self-KV parent
-   gather's share (torch.profiler, the same difference); beam K = 1 is
+   gather's share (torch.profiler, a BEAM_PROFILE_TOKENS decode less a
+   one-step one); beam K = 1 is
    token-exact against the greedy decode and the chunked beam (segments of
    8 steps) against the monolithic one. A beam pool (--beam_size 5
    --beam_mode full: 2 slots x 5 lanes) serving one session, which must
-   launch K4 and never K5, with its launches and device time a step; a
+   launch K4 and never K5, with its launches and device time a step (one
+   profiled chunk); a
    refresh-mode backend (greedy partials on an 8-slot pool, beamed full
    re-decodes on the window scheduler in preemptible segments) serving one
    session, which must route both ways. One word-timestamp session on the
@@ -241,9 +243,10 @@ a result):
    calls, K5 on the plain pool, K5 and its window form on the mixed
    pool), every window handle freed, the follower's replayed ops equal to
    the leader's published ones; host time a request and the op log's ops
-   and bytes printed. (c) dp = 2 at full depth: two replicas, 2 x 8 slots, one wave
-   of two windows seated one in each replica, tokens equal to the tp = 1
-   pool's. (d) One tp = 2 fine-tune step of phase 10's configuration at
+   and bytes printed. (c) dp = 2 at large-v3's width, PAR_DP_LAYERS +
+   PAR_DP_LAYERS layers (cut from 32 + 32 for the script's time limit): two
+   replicas, 2 x 8 slots, one wave of two windows seated one in each
+   replica, tokens equal to a tp = 1 pool's of the same depth. (d) One tp = 2 fine-tune step of phase 10's configuration at
    PAR_TRAIN_LAYERS + PAR_TRAIN_LAYERS layers, full width: the loss within
    PAR_TRAIN_REL_TOL of tp = 1's, no K1 launch. Printed as {"parallel": ...}.
 
@@ -271,9 +274,37 @@ a result):
    numpy forward equal to the card's forward on a held-out clip within
    TOOL_TRAIN_TOL of max|ref|. Printed as {"tooling": ...}.
 
-The line before the last is {"kernels": [...]}, after {"encoder_forward":
-[...]}, {"offline": {...}}, {"training": {...}}, {"rest_of_serving":
-{...}}, {"parallel": {...}} and {"tooling": {...}}; the last line is {"ok": true, "device": {"platform": "gpu", "kind":
+14. The published configurations (CONFIGS: small, both server CLIs'
+   default; tiny.en, the narrowest and English-only; base; medium;
+   large-v3-turbo, 128 mels and a 4-layer decoder), each at full width and
+   depth on random bf16 weights from SEED, one int8 engine at a time after
+   phase 10 freed the others. For each: K1-K5 at its shapes against their
+   plain versions with phase 3's tolerances, timed warm and cold with phase
+   3's helpers beside phase 3's library calls (K1 q/k/v [1|4,1500,H,64]; K2
+   the d x d, d x 4d and 4d x d linears at M = 1, 4, 8; K3 x [1|8, d]
+   against its vocabulary; K4 [4,H,64] x [4,H,1500,128] unmasked and with
+   lengths [1500,700,1,0]; K5 [8,H,64] x [8,H,640,128], mixed lengths, half
+   active), in each entry's `other_shapes` with the configuration's name.
+   Then its engine serves: small's through the server CLI's default start
+   (cli.run_server.main with no --model flag, its server driven in-process
+   as phase 13 drives it) one DEFAULT_SESSION_S English session, every
+   other one CONFIG_SESSION_S on phase 5's pool; each must reach the pool
+   (n_text_layer K5 a step) and send segments. The window route's
+   transcribe_batch of two speech-like clips, MAX_NEW_TOKENS tokens less
+   one: a decode step launches 8 x n_text_layer K2, one K3, n_text_layer
+   K4 and nothing else, and an English-only model never runs language
+   detection; an encode at mel [4,3000,n_mels] launches n_audio_layer K1
+   (host time, median of 5); a continuous step launches n_text_layer K5, 8
+   x n_text_layer K2, one K3 and nothing else (host time over two chunks,
+   device time from torch.profiler). window_reference and
+   continuous_reference hold the engine against the plain path. Printed as
+   {"configurations": {name: ...}}; the seconds of every phase as
+   {"phase_s": ...}.
+
+The line before the last is {"kernels": [...]}, after {"phase_s": {...}},
+{"encoder_forward": [...]}, {"offline": {...}}, {"training": {...}},
+{"rest_of_serving": {...}}, {"parallel": {...}}, {"tooling": {...}} and
+{"configurations": {...}}; the last line is {"ok": true, "device": {"platform": "gpu", "kind":
 ..., "count": ...}}.
 """
 
@@ -312,7 +343,8 @@ from whisperlive_tpu_torch.serving.session import SessionOptions
 MODEL = "large-v3"
 SEED = 0
 BATCH = 4
-MAX_NEW_TOKENS = 48
+# new tokens a window (48 until the script's time limit cut it)
+MAX_NEW_TOKENS = 24
 # A session streams in real time and closes once a call finishes after its
 # end, so the window path's check of two calls per session needs the first
 # call (up to ~5 s on a busy host: one 48-token window) done before the
@@ -384,6 +416,20 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+def phase_clock():
+    """lap(label) logs and keeps the seconds since the previous lap (the
+    first: since phase_clock was called); returns every lap so far."""
+    laps, last = {}, [time.monotonic()]
+
+    def lap(label: str) -> dict:
+        now = time.monotonic()
+        laps[label] = now - last[0]
+        last[0] = now
+        log(f"{label}: {laps[label]:.6g} s")
+        return laps
+    return lap
+
+
 def speech_like(seconds: float, seed: int = 0) -> np.ndarray:
     """Harmonics with syllabic amplitude modulation (passes the VAD gate)."""
     t = np.arange(int(16000 * seconds)) / 16000.0
@@ -435,6 +481,12 @@ class VisibleTokenizer(WhisperTokenizer):
 # ---------------------------------------------------------------------------
 # Phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
+
+
+def visible_tokenizer(cfg: wmod.WhisperConfig) -> VisibleTokenizer:
+    """VisibleTokenizer of cfg's vocabulary, English-only below 51865 ids
+    (the engine's own rule)."""
+    return VisibleTokenizer(TokenSpec(cfg.n_vocab, multilingual=cfg.n_vocab >= 51865))
 
 
 def median_ms(fn, warmup: int = 3, iters: int = 20, reps: int = 10,
@@ -520,11 +572,12 @@ def library_time(name: str, fn, **timing) -> float | None:
     return median_ms(fn, **timing)
 
 
-def compare(name, shape, kernel_fn, ref_fn, rel_tol, rows=None, per_row=False):
+def compare(name, shape, kernel_fn, ref_fn, rel_tol, rows=None, per_row=False, timing=None):
     """Kernel vs plain version (on `rows` of the output only, when given).
     The tolerance is rel_tol of max|ref|; with per_row, of each batch row's
     own max|ref| (rows of one call differ in scale: a length-1 row copies
-    one V row, a long row averages many)."""
+    one V row, a long row averages many). Both are timed by median_ms
+    (with `timing`'s arguments when given)."""
     out = kernel_fn()
     torch.cuda.synchronize()
     ref = ref_fn()
@@ -548,7 +601,7 @@ def compare(name, shape, kernel_fn, ref_fn, rel_tol, rows=None, per_row=False):
         scale = ref.float().abs().max().item()
         tol, ok = rel_tol * scale, err <= rel_tol * scale
         how = f"{rel_tol:g} x max|ref|={scale:.6g}"
-    ms, plain_ms = median_ms(kernel_fn), median_ms(ref_fn)
+    ms, plain_ms = median_ms(kernel_fn, **(timing or {})), median_ms(ref_fn, **(timing or {}))
     log(f"{name} {shape}: max_abs_err={err:.6g} tol={tol:.6g} ({how}) kernel_ms={ms:.6g} "
         f"plain_ms={plain_ms:.6g}")
     check(ok, f"{name} {shape}: max_abs_err {err} over the tolerance ({how})")
@@ -793,10 +846,11 @@ def int4_kv_bf16(k4, v4):
             attn_ops.unpack_int4(v4).to(torch.bfloat16))
 
 
-def cold_ms(call, sets: list[tuple]) -> float:
+def cold_ms(call, sets: list[tuple], spin_cycles: int = 20_000_000) -> float:
     """Device time of `call(*s)` over the K/V sets `sets` in turn (median_ms
     of 10 runs, each one call on every set)."""
-    return median_ms(rotating([lambda s=s: call(*s) for s in sets]), iters=10, reps=len(sets))
+    return median_ms(rotating([lambda s=s: call(*s) for s in sets]), iters=10, reps=len(sets),
+                     spin_cycles=spin_cycles)
 
 
 def int8_beside(label: str, call, shape: tuple, n_bytes: int, int8) -> float:
@@ -811,7 +865,8 @@ def int8_beside(label: str, call, shape: tuple, n_bytes: int, int8) -> float:
     return ms
 
 
-def cross_cold(label: str, call, kv: tuple, q, rows, work: tuple, to_bf16) -> dict:
+def cross_cold(label: str, call, kv: tuple, q, rows, work: tuple, to_bf16,
+               spin_cycles: int = 20_000_000) -> dict:
     """`call(*kv)` with cold K/V: a run calls it once on each of
     ceil(COLD_BYTES / n_bytes) distinct copies of the K/V tensors `kv`
     (n_bytes: what one call reads), as a decode step or a verify round
@@ -823,13 +878,13 @@ def cross_cold(label: str, call, kv: tuple, q, rows, work: tuple, to_bf16) -> di
     bytes and not the function; the port never calls it)."""
     copies = -(-COLD_BYTES // work[0])
     sets = [kv] + [tuple(t.clone() for t in kv) for _ in range(copies - 1)]
-    ms = cold_ms(call, sets)
+    ms = cold_ms(call, sets, spin_cycles)
     qs = q[rows] if q.dim() == 4 else q[rows].unsqueeze(2)
     kv_bf16 = [to_bf16(*(t[rows] for t in s)) for s in sets]
     del sets
     sdpa = torch.nn.functional.scaled_dot_product_attention
     sdpa_ms = median_ms(rotating([lambda k=k, v=v: sdpa(qs, k, v) for k, v in kv_bf16]),
-                        iters=10, reps=copies)
+                        iters=10, reps=copies, spin_cycles=spin_cycles)
     del kv_bf16
     torch.cuda.empty_cache()
     r = {"shape": label, "copies": copies, "ms": ms, "sdpa_bf16_ms": sdpa_ms, **bound(*work)}
@@ -990,6 +1045,106 @@ def kernel_phase(dev: torch.device) -> dict:
 SHARDED_TPS = (2, 4)
 
 
+# median_ms's arguments for the warm timings of the case helpers below
+# (phase 3's defaults: 20 runs, each behind a ~10 ms spin; the cold ones run
+# 10 behind the same spin)
+PHASE3_TIMING = {"iters": 20, "spin_cycles": 20_000_000}
+# spin cycles a queued launch of a rotating run needs (~75 us at 1.98 GHz;
+# the host queues one such call in ~10-40 us)
+SPIN_PER_LAUNCH = 150_000
+
+
+def k1_case(randn, b: int, t: int, h: int, hd: int, tag: str, timing=PHASE3_TIMING) -> dict:
+    """K1 at q/k/v [b, t, h, hd] against its plain version (2^-6 of max|ref|),
+    timed warm beside sdpa, with its bound; `tag` ends the shape's label."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    q, k, v = (randn(b, t, h, hd) for _ in range(3))
+    r = compare("fused_attention", f"q/k/v [{b},{t},{h},{hd}]{tag}",
+                lambda: attn_ops.fused_attention(q, k, v),
+                lambda: attn_ops.fused_attention_ref(q, k, v), 2.0**-6, timing=timing)
+    qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    r["library_ms"] = library_time("sdpa", lambda: sdpa(qh, kh, vh), **timing)
+    r.update(bound(4 * b * t * h * hd * 2, 4 * b * h * t * t * hd))
+    return r
+
+
+def k2_case(randn, int8, m: int, kk: int, n: int, tag: str, timing=PHASE3_TIMING) -> dict:
+    """K2 at x [m, kk] w8 [kk, n] against its plain version (2^-7 of
+    max|ref|), timed warm beside _weight_int8pack_mm and cold (`cold_ms`:
+    ceil(64 MiB / weight bytes) weight copies in turn), with its bound."""
+    x, w8, sc = randn(m, kk), int8(kk, n), randn(n, scale=0.01).abs()
+    r = compare("int8_matmul", f"x [{m},{kk}] w8 [{kk},{n}]{tag}",
+                lambda: qmm.int8_matmul(x, w8, sc), lambda: qmm.int8_matmul_ref(x, w8, sc),
+                2.0**-7, timing=timing)
+    w8_nk = w8.t().contiguous()
+    r["library_ms"] = library_time("_weight_int8pack_mm",
+                                   lambda: torch._weight_int8pack_mm(x, w8_nk, sc), **timing)
+    r.update(k2_bound(m, kk, n))
+    copies = -(-COLD_BYTES // (kk * n))
+    w8s = [w8] + [int8(kk, n) for _ in range(copies - 1)]
+    # a narrow width's weights take hundreds of copies: the spin must outlast
+    # queueing them all, or the run times the host's launches
+    r["cold_ms"] = median_ms(rotating([lambda w=w: qmm.int8_matmul(x, w, sc) for w in w8s]),
+                             iters=10, reps=copies,
+                             spin_cycles=max(timing["spin_cycles"], copies * SPIN_PER_LAUNCH))
+    del w8s
+    log(f"int8_matmul{tag} [{m},{kk}]x[{kk},{n}]: cold {r['cold_ms']:.6g} ms ({copies} copies), "
+        f"bound {r['bound_ms']:.6g} ms ({r['bound_by']}), _weight_int8pack_mm "
+        f"{r['library_ms']} ms")
+    return r
+
+
+def k4_case(randn, int8, dev, b: int, h: int, hd: int, t: int, lens, tag: str,
+            timing=PHASE3_TIMING) -> dict:
+    """K4 at q [b, h, hd] x kvp [b, h, t, 2 hd] (with `lens` when given)
+    against its plain version (1e-3 of each row's max|ref|), timed warm and
+    cold (cross_cold, beside sdpa_bf16), with its bound."""
+    q, kvp = randn(b, h, hd, scale=0.05), int8(b, h, t, 2 * hd)
+    ln = None if lens is None else torch.tensor(lens, dtype=torch.int32, device=dev)
+    label = (f"q [{b},{h},{hd}] kvp [{b},{h},{t},{2 * hd}]"
+             + ("" if lens is None else f" lengths {lens}") + tag)
+    r = compare("cross_attention_int8", label,
+                lambda: attn_ops.cross_attention_int8(q, kvp, ln),
+                lambda: attn_ops.cross_attention_int8_ref(q, kvp, ln), 1e-3, per_row=True,
+                timing=timing)
+    used = [t] * b if lens is None else [min(n, t) or t for n in lens]
+    work = cross_int8_work(h, hd, used, b, lens is not None)
+    r.update(bound(*work), library_ms=None)
+    r["cold"] = cross_cold("cross_attention_int8 " + label,
+                           lambda kv: attn_ops.cross_attention_int8(q, kv, ln), (kvp,), q,
+                           slice(None), work, int8_kv_bf16, timing["spin_cycles"])
+    return r
+
+
+def k5_case(randn, int8, dev, h: int, hd: int, lens, act, tag: str,
+            timing=PHASE3_TIMING) -> dict:
+    """K5 at the pool's q [8, h, hd] x kvp [8, h, K5_T, 2 hd] with `lens` and
+    the `act` rows active, against its plain version on the active rows
+    (2^-6 of each row's max|ref|; the inactive rows must be zero), timed warm
+    and cold (cross_cold, beside sdpa_bf16), with its bound."""
+    b5 = len(lens)
+    q, kvp = randn(b5, h, hd, scale=0.05), int8(b5, h, K5_T, 2 * hd)
+    ln = torch.tensor(lens, dtype=torch.int32, device=dev)
+    ac = torch.tensor(act, device=dev)
+    n_act = sum(act)
+    label = (f"q [{b5},{h},{hd}] kvp [{b5},{h},{K5_T},{2 * hd}] "
+             + (f"{n_act}/{b5} active" if len(set(lens)) == 1 else
+                f"lengths mixed, {n_act}/{b5} active") + tag)
+    r = compare("cross_attention_int8_skip", label,
+                lambda: attn_ops.cross_attention_int8_skip(q, kvp, ln, ac),
+                lambda: attn_ops.cross_attention_int8_skip_ref(q, kvp, ln, ac), 2.0**-6,
+                rows=ac, per_row=True, timing=timing)
+    check(not attn_ops.cross_attention_int8_skip(q, kvp, ln, ac)[~ac].any(),
+          f"cross_attention_int8_skip {label}: inactive rows must be zero")
+    work = cross_int8_work(h, hd, [min(n, K5_T) or K5_T for n, a in zip(lens, act) if a], b5,
+                           True)
+    r.update(bound(*work), library_ms=None)
+    r["cold"] = cross_cold("cross_attention_int8_skip " + label,
+                           lambda kv: attn_ops.cross_attention_int8_skip(q, kv, ln, ac), (kvp,),
+                           q, ac, work, int8_kv_bf16, timing["spin_cycles"])
+    return r
+
+
 def sharded_kernel_phase(randn, int8, dev, cfg) -> dict:
     """K1, K2, K4 and K5 at the shapes one rank of a tp = 2 and a tp = 4
     group gives them at large-v3 (phase 12 runs tp = 2): K1 at q/k/v
@@ -1001,72 +1156,22 @@ def sharded_kernel_phase(randn, int8, dev, cfg) -> dict:
     tolerances, bounds and library calls as their main entries; K3 is
     unchanged (the logits are whole on every rank)."""
     h, hd, t_enc, d = cfg.n_audio_head, cfg.head_dim, cfg.n_audio_ctx, cfg.n_text_state
-    sdpa = torch.nn.functional.scaled_dot_product_attention
     out = {"fused_attention": [], "int8_matmul": [], "cross_attention_int8": [],
            "cross_attention_int8_skip": []}
     k2_done = set()
     for tp in SHARDED_TPS:
-        hl = h // tp
-        q, k, v = (randn(BATCH, t_enc, hl, hd) for _ in range(3))
-        shape = f"q/k/v [{BATCH},{t_enc},{hl},{hd}] (tp={tp})"
-        r = compare("fused_attention", shape, lambda: attn_ops.fused_attention(q, k, v),
-                    lambda: attn_ops.fused_attention_ref(q, k, v), 2.0**-6)
-        qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-        r["library_ms"] = library_time("sdpa", lambda: sdpa(qh, kh, vh))
-        r.update(bound(4 * BATCH * t_enc * hl * hd * 2, 4 * BATCH * hl * t_enc * t_enc * hd))
-        out["fused_attention"].append(r)
+        hl, tag = h // tp, f" (tp={tp})"
+        out["fused_attention"].append(k1_case(randn, BATCH, t_enc, hl, hd, tag))
         for kk, n in ((d, d // tp), (d // tp, d), (d, 4 * d // tp), (4 * d // tp, d)):
-            if (kk, n) in k2_done:
-                continue
-            k2_done.add((kk, n))
-            m = CONT_SLOTS
-            x, w8, sc = randn(m, kk), int8(kk, n), randn(n, scale=0.01).abs()
-            r = compare("int8_matmul", f"x [{m},{kk}] w8 [{kk},{n}] (tp={tp})",
-                        lambda x=x, w8=w8, sc=sc: qmm.int8_matmul(x, w8, sc),
-                        lambda x=x, w8=w8, sc=sc: qmm.int8_matmul_ref(x, w8, sc), 2.0**-7)
-            w8_nk = w8.t().contiguous()
-            r["library_ms"] = library_time(
-                "_weight_int8pack_mm",
-                lambda x=x, w=w8_nk, sc=sc: torch._weight_int8pack_mm(x, w, sc))
-            r.update(k2_bound(m, kk, n))
-            copies = -(-COLD_BYTES // (kk * n))
-            w8s = [w8] + [int8(kk, n) for _ in range(copies - 1)]
-            r["cold_ms"] = median_ms(rotating(
-                [lambda w=w, x=x, sc=sc: qmm.int8_matmul(x, w, sc) for w in w8s]),
-                iters=10, reps=copies)
-            del w8s
-            log(f"int8_matmul (tp={tp}) [{m},{kk}]x[{kk},{n}]: cold {r['cold_ms']:.6g} ms "
-                f"({copies} copies), bound {r['bound_ms']:.6g} ms ({r['bound_by']})")
-            out["int8_matmul"].append(r)
-        qd, kvp = randn(BATCH, hl, hd, scale=0.05), int8(BATCH, hl, t_enc, 2 * hd)
-        label = f"q [{BATCH},{hl},{hd}] kvp [{BATCH},{hl},{t_enc},{2 * hd}] (tp={tp})"
-        r = compare("cross_attention_int8", label,
-                    lambda: attn_ops.cross_attention_int8(qd, kvp, None),
-                    lambda: attn_ops.cross_attention_int8_ref(qd, kvp, None), 1e-3, per_row=True)
-        work = cross_int8_work(hl, hd, [t_enc] * BATCH, BATCH, False)
-        r.update(bound(*work), library_ms=None)
-        r["cold"] = cross_cold("cross_attention_int8 " + label,
-                               lambda kv: attn_ops.cross_attention_int8(qd, kv, None), (kvp,),
-                               qd, slice(None), work, int8_kv_bf16)
-        out["cross_attention_int8"].append(r)
+            if (kk, n) not in k2_done:
+                k2_done.add((kk, n))
+                out["int8_matmul"].append(k2_case(randn, int8, CONT_SLOTS, kk, n, tag))
+        out["cross_attention_int8"].append(
+            k4_case(randn, int8, dev, BATCH, hl, hd, t_enc, None, tag))
         b5 = CONT_SLOTS
-        q5, kv5 = randn(b5, hl, hd, scale=0.05), int8(b5, hl, K5_T, 2 * hd)
-        ln = torch.full((b5,), K5_T, dtype=torch.int32, device=dev)
         for n_act in (b5, b5 // 2):
-            ac = torch.tensor([i < n_act for i in range(b5)], device=dev)
-            label = (f"q [{b5},{hl},{hd}] kvp [{b5},{hl},{K5_T},{2 * hd}] {n_act}/{b5} active "
-                     f"(tp={tp})")
-            r = compare("cross_attention_int8_skip", label,
-                        lambda ac=ac: attn_ops.cross_attention_int8_skip(q5, kv5, ln, ac),
-                        lambda ac=ac: attn_ops.cross_attention_int8_skip_ref(q5, kv5, ln, ac),
-                        2.0**-6, rows=ac, per_row=True)
-            work = cross_int8_work(hl, hd, [K5_T] * n_act, b5, True)
-            r.update(bound(*work), library_ms=None)
-            r["cold"] = cross_cold(
-                "cross_attention_int8_skip " + label,
-                lambda kv, ac=ac: attn_ops.cross_attention_int8_skip(q5, kv, ln, ac), (kv5,),
-                q5, ac, work, int8_kv_bf16)
-            out["cross_attention_int8_skip"].append(r)
+            out["cross_attention_int8_skip"].append(k5_case(
+                randn, int8, dev, hl, hd, [K5_T] * b5, [i < n_act for i in range(b5)], tag))
         if tp == PAR_TP:
             out.setdefault("cross_attention_int8_window", []).append(
                 sharded_window_case(randn, int8, dev, 1, hl, hd, t_enc, tp))
@@ -1440,8 +1545,7 @@ def build_engine(dev: torch.device, name: str, params, batch_buckets,
     t0 = time.monotonic()
     cfg = wmod.WHISPER_CONFIGS[name]
     engine = WhisperEngine(cfg, params, device=dev, batch_buckets=batch_buckets,
-                           cross_kv_bits=cross_kv_bits,
-                           tokenizer=VisibleTokenizer(TokenSpec(cfg.n_vocab, multilingual=True)))
+                           cross_kv_bits=cross_kv_bits, tokenizer=visible_tokenizer(cfg))
     torch.cuda.synchronize(dev)
     log(f"engine: {name} random bf16 weights, decoder int8, cross-KV "
         f"{engine.cross_kv_bits}-bit, built in {time.monotonic() - t0:.6g} s")
@@ -1552,7 +1656,7 @@ def continuous_phase(engine: WhisperEngine) -> dict:
           steps * engine.cfg.n_text_layer, "K5 must launch once per decoder layer per step")
     check_sockets(sockets)
     check(any("language" in m for m in sockets[1].sent), "detected language never sent")
-    step_ms = profile_pool("continuous step", cs.cb, 2, "step",
+    step_ms = profile_pool("continuous step", cs.cb, 1, "step",
                            {"K5": cross_kernel("Int8Packed", 1),
                             "K3": re.compile("int8_matmul_t_kernel")})
     # the profiled step's roofline inputs, as the scheduler's tick_stats count
@@ -1597,16 +1701,9 @@ PROFILE_SLOTS = 3  # slots decoding in a profiled pool window
 PROFILE_ENC_CTX = 512  # their encoder bucket
 
 
-def profile_pool(label: str, cb, chunks: int, unit: str, named: dict) -> float | None:
-    """torch.profiler over `chunks` chunks of the pool `cb` with three
-    slots decoding 6 s windows: CUDA kernel launches per `unit` (a
-    decode step, or a verify round of a speculative pool:
-    cb.steps_per_chunk a chunk), the device's busy share of the wall time,
-    and the device time per unit of the five largest CUDA kernels by name
-    and of the kernels `named` ({label: name pattern}), each beside its
-    share of the device time. A profiler that records no CUDA event is
-    reported as not measured. Returns the device ms per unit, or None when
-    not measured."""
+def seat_profile_slots(cb) -> None:
+    """The pool `cb` anew with PROFILE_SLOTS slots decoding 6 s windows at
+    the PROFILE_ENC_CTX bucket, one chunk stepped (warm)."""
     cb.init_state()
     prompt, sot = cb.eng.build_prompt(
         backends_mod.transcribe_options_from_session(SessionOptions(language="en")),
@@ -1618,6 +1715,19 @@ def profile_pool(label: str, cb, chunks: int, unit: str, named: dict) -> float |
     cb.insert(windows, [prompt] * k, [sot] * k, [True] * k, list(range(k)), [0.0] * k,
               [True] * k, [1.0] * k, [cb.ring - 1] * k, enc_ctx=PROFILE_ENC_CTX)
     cb.step()  # warm
+
+
+def profile_pool(label: str, cb, chunks: int, unit: str, named: dict) -> float | None:
+    """torch.profiler over `chunks` chunks of the pool `cb` with three
+    slots decoding 6 s windows: CUDA kernel launches per `unit` (a
+    decode step, or a verify round of a speculative pool:
+    cb.steps_per_chunk a chunk), the device's busy share of the wall time,
+    and the device time per unit of the five largest CUDA kernels by name
+    and of the kernels `named` ({label: name pattern}), each beside its
+    share of the device time. A profiler that records no CUDA event is
+    reported as not measured. Returns the device ms per unit, or None when
+    not measured."""
+    seat_profile_slots(cb)
     on_card, wall, n_launch = cuda_profile(lambda: [cb.step() for _ in range(chunks)])
     n = chunks * cb.steps_per_chunk
     total = device_us(on_card)
@@ -1878,6 +1988,9 @@ def mixed_phase(engine4: WhisperEngine, draft4: WhisperEngine) -> dict:
 BEAM = 5
 BEAM_BATCH = 2
 BEAM_CHUNK = 8
+# new tokens of the profiled beam decodes (a torch.profiler window's cost
+# grows with its events: ~2,500 kernels a beam step)
+BEAM_PROFILE_TOKENS = 12
 # the self-KV parent gather is the beam step's one index_select
 GATHER = re.compile(r"index_?[sS]elect")
 BEAM_PATH = ("fused_attention", "int8_matmul", "int8_matmul_t", "cross_attention_int8")
@@ -1993,10 +2106,15 @@ def beam_window_phase(engine: WhisperEngine) -> dict:
                        "cross_attention_int8": n_layer},
           f"beam step launches {per_step}: K2 8 a layer, K3 once, K4 once a layer")
     cache_len = engine._cache_len(engine._pad_prompts(prompts)[0].shape[1], MAX_NEW_TOKENS)
-    log_step_profile("beam window route profile", engine,
-                     cuda_profile(lambda: decode(beam_options())),
-                     cuda_profile(lambda: decode(beam_options(max_new=1))),
-                     n_full - n_short, BEAM_BATCH * BEAM, cache_len)
+    # device time per step: a BEAM_PROFILE_TOKENS decode less a one-step one,
+    # each under torch.profiler
+    (prof_full, n_prof), (prof_short, n_prof_short) = (
+        beam_steps(engine, lambda n=n: cuda_profile(lambda: decode(beam_options(max_new=n))))
+        for n in (BEAM_PROFILE_TOKENS, 1))
+    log_step_profile("beam window route profile", engine, prof_full, prof_short,
+                     n_prof - n_prof_short, BEAM_BATCH * BEAM,
+                     engine._cache_len(engine._pad_prompts(prompts)[0].shape[1],
+                                       BEAM_PROFILE_TOKENS))
 
     # beam K = 1 is the greedy decode
     greedy = decode(beam_options(beam_size=1))
@@ -2050,8 +2168,8 @@ def pool_beam_profile(engine: WhisperEngine) -> None:
               [1.0] * 2, [cb.ring - 1] * 2, enc_ctx=512)
     cb.step()
     before = dict(_kernels.launches)
-    long = cuda_profile(lambda: [cb.step() for _ in range(2)])
-    per_step = {k: (_kernels.launches[k] - before[k]) / (2 * cb.steps_per_chunk)
+    long = cuda_profile(cb.step)  # one chunk
+    per_step = {k: (_kernels.launches[k] - before[k]) / cb.steps_per_chunk
                 for k in BEAM_PATH[1:] + ("cross_attention_int8_skip",)}
     log(f"beam pool launches per step (2 slots x {BEAM} lanes): K2 {per_step['int8_matmul']:.6g}, "
         f"K3 {per_step['int8_matmul_t']:.6g}, K4 {per_step['cross_attention_int8']:.6g}, "
@@ -2060,7 +2178,7 @@ def pool_beam_profile(engine: WhisperEngine) -> None:
     check(per_step == {"int8_matmul": 8 * n_layer, "int8_matmul_t": 1,
                        "cross_attention_int8": n_layer, "cross_attention_int8_skip": 0},
           f"beam pool step launches {per_step}")
-    log_step_profile("beam pool profile", engine, long, ([], 0.0, 0), 2 * cb.steps_per_chunk,
+    log_step_profile("beam pool profile", engine, long, ([], 0.0, 0), cb.steps_per_chunk,
                      cb.n_rows, cb.cache_len)
 
 
@@ -2668,11 +2786,12 @@ def plain_run(fn):
             setattr(wmod, name, kernel)
 
 
-def compare_logits(label, a, b, rel_tol, shape):
+def compare_logits(label, a, b, rel_tol, shape, errs=None):
     """Max error within rel_tol of max|b|. Returns whether the argmax agrees
     on every row up to ties: a row whose two argmaxes differ must have them
     within 2 x max_abs_err of each other in b (random weights give flat
-    logits, and bf16 rounding then decides such a near-tie either way)."""
+    logits, and bf16 rounding then decides such a near-tie either way).
+    Appends the error over max|b| to `errs` when given."""
     check(a.shape == shape and a.dtype == torch.float32, f"{label}: logits {a.shape}")
     err = (a - b).abs().max().item()
     scale = b.abs().max().item()
@@ -2684,12 +2803,15 @@ def compare_logits(label, a, b, rel_tol, shape):
         + (f"; rows {rows.tolist()} differ by plain-logit gaps {gaps} "
            f"(ties: <= {2 * err:.6g})" if gaps else ""))
     check(bool(torch.isfinite(a).all()) and err <= rel_tol * scale, f"{label} disagrees")
+    if errs is not None:
+        errs.append(err / scale)
     return all(g <= 2 * err for g in gaps)
 
 
-def window_reference(engine: WhisperEngine, steps: int = 4, rel_tol: float = 5e-2) -> None:
+def window_reference(engine: WhisperEngine, steps: int = 4, rel_tol: float = 5e-2) -> float:
     """Encoder states and teacher-forced logits of the kernel path against
-    the plain path."""
+    the plain path. Returns the largest error over max|ref| of the states
+    and of each step's logits."""
     cfg, dev = engine.cfg, engine.device
     audio = np.zeros((2, 480000), np.float32)
     audio[0, :128000] = speech_like(8.0, 3)
@@ -2721,8 +2843,10 @@ def window_reference(engine: WhisperEngine, steps: int = 4, rel_tol: float = 5e-
     log(f"reference: encoder states max_abs_err={err:.6g} tol={rel_tol * scale:.6g}")
     check(bool(torch.isfinite(enc_k.float()).all()) and err <= rel_tol * scale,
           "encoder states disagree with the plain path")
+    errs = [err / scale]
     for i, (a, b) in enumerate(zip(logits_k, logits_r)):
-        compare_logits(f"window logits step {i}", a, b, rel_tol, (2, cfg.n_vocab))
+        compare_logits(f"window logits step {i}", a, b, rel_tol, (2, cfg.n_vocab), errs)
+    return max(errs)
 
 
 def distill_reference(engine: WhisperEngine, steps: int = 4, rel_tol: float = 5e-2) -> None:
@@ -2931,12 +3055,13 @@ def beam_pool_reference(engine: WhisperEngine, steps: int = 4, rel_tol: float = 
         check(same, f"beam pool step {i}: argmax differs from the plain path by more than a tie")
 
 
-def continuous_reference(engine: WhisperEngine, steps: int = 4, rel_tol: float = 5e-2) -> None:
+def continuous_reference(engine: WhisperEngine, steps: int = 4, rel_tol: float = 5e-2) -> float:
     """The continuous step (decode_step_masked with per-slot cross_len and
     active rows; K5 on the kernel path at int8, K7 with lengths at int4)
     teacher forced from one inserted slot state of the serving pool's
     size, against the plain path. Active and free (inactive) rows lie in
-    both 4-row M tiles of K2 and K3."""
+    both 4-row M tiles of K2 and K3. Returns the largest error over
+    max|ref| of the steps' logits."""
     cfg, dev = engine.cfg, engine.device
     bits = engine.cross_kv_bits
     cross_kernel = "cross_attention_int8_skip" if bits == 8 else "cross_attention_int4"
@@ -2987,11 +3112,13 @@ def continuous_reference(engine: WhisperEngine, steps: int = 4, rel_tol: float =
     check(_kernels.launches[cross_kernel] == n_cross + steps * cfg.n_text_layer,
           f"the continuous step did not go through {cross_kernel}")
     logits_r, _ = plain_run(lambda: run(tokens))
+    errs = []
     for i, (a, b) in enumerate(zip(logits_k[1:], logits_r[1:])):
         same = compare_logits(f"int{bits} continuous logits step {i} (active rows)", a[active],
-                              b[active], rel_tol, (len(seats), cfg.n_vocab))
+                              b[active], rel_tol, (len(seats), cfg.n_vocab), errs)
         check(same, f"int{bits} continuous step {i}: argmax differs from the plain path on an "
               "active row by more than a tie")
+    return max(errs)
 
 
 def verify_reference(engine: WhisperEngine, rel_tol: float = 5e-2) -> float:
@@ -3795,23 +3922,36 @@ def rest_of_serving_phase(engine: WhisperEngine, dev: torch.device) -> dict:
 
 PAR_TP = 2
 PAR_STEPS = 8  # teacher-forced decode steps after the prefill, (b)
-PAR_MAX_NEW = 16  # tokens a window in (b)'s sessions: a tp = 2 step takes ~0.3 s over gloo
+# tokens a window in (b) and (e): a tp = 2 step takes ~0.3 s over gloo (16
+# until the script's time limit cut it)
+PAR_MAX_NEW = 8
 # of max|ref|, as every bf16 logits comparison of this script: the tp = 2
 # partial sums meet in another order (rounded to bf16 before the reduce),
 # and on this card two bf16 orders of the tp = 1 engine (kernels against
 # their plain versions) already part by ~1.6% of max|ref|
 PAR_REL_TOL = 5e-2
 PAR_DP_WINDOWS_S = (7.0, 9.0)  # (c): one window per data replica
-PAR_TRAIN_LAYERS = 4  # (d): the fine-tune's depth, cut from 32 + 32
+PAR_TRAIN_LAYERS = 2  # (d): the fine-tune's depth, cut from 32 + 32 for the time limit
+# (c): the data replicas' depth (encoder and decoder layers), cut from
+# 32 + 32 to hold the script's time limit; widths stay MODEL's
+PAR_DP_LAYERS = 8
 PAR_TRAIN_REL_TOL = 1e-3
 # a collective waits this long for the other rank before failing the phase
 PAR_TIMEOUT_S = 300.0
 # the ranks' device type ("cpu" only to rehearse the phase without a card)
 PAR_DEVICE = "cuda"
 # the module settings rank 1 takes from rank 0 (a rehearsal changes them)
-PAR_SETTINGS = ("MODEL", "PAR_DEVICE", "PAR_STEPS", "PAR_TRAIN_LAYERS", "PAR_DP_WINDOWS_S",
+PAR_SETTINGS = ("MODEL", "PAR_DEVICE", "PAR_STEPS", "PAR_TRAIN_LAYERS", "PAR_DP_LAYERS",
+                "PAR_DP_WINDOWS_S",
                 "CONT_SESSION_S", "MAX_NEW_TOKENS", "TRAIN_TOKENS", "CONT_SLOTS", "BATCH",
                 "PAR_MAX_NEW", "PAR_SPEC_SLOTS", "DRAFT_MODEL")
+
+
+def dp_config() -> wmod.WhisperConfig:
+    """(c)'s configuration: MODEL at full width, PAR_DP_LAYERS encoder and
+    PAR_DP_LAYERS decoder layers."""
+    return wmod.WHISPER_CONFIGS[MODEL].replace(n_audio_layer=PAR_DP_LAYERS,
+                                               n_text_layer=PAR_DP_LAYERS)
 
 
 def sync(dev: torch.device) -> None:
@@ -4445,25 +4585,24 @@ def window_route_leader(engine, window, main, mixed_pool, spec_dec, tie) -> dict
     return out
 
 
-def parallel_dp_serving(rank: int, dev: torch.device, engine, ops_port: int) -> dict:
-    """(c) dp = 2: two replicas of the whole large-v3 engine (one a rank)
-    and 2 x 8 slots; one wave of two windows lands one in each replica
+def parallel_dp_serving(rank: int, dev: torch.device, ops_port: int) -> dict:
+    """(c) dp = 2: two replicas of the whole engine of dp_config (one a
+    rank) and 2 x 8 slots; one wave of two windows lands one in each replica
     (the scheduler spreads a wave over the replicas). The tokens must be
-    exactly the tp = 1 pool's, each window inserted alone there (an insert
-    of one window, as each replica sees it: the rows are independent)."""
+    exactly those of a tp = 1 pool on rank 0 on the same weights, each
+    window inserted alone there (an insert of one window, as each replica
+    sees it: the rows are independent)."""
     from whisperlive_tpu_torch.engine.scheduler import BatchRequest
     from whisperlive_tpu_torch.parallel import multihost
     from whisperlive_tpu_torch.parallel import serve_multihost as smh
 
-    cfg = wmod.WHISPER_CONFIGS[MODEL]
+    cfg = dp_config()
     sh = multihost.multihost_shardings(tp=1, dp=2)
     check(sh.dp == 2 and sh.tp == 1, "dp grid")
     params = wmod.init_params(cfg, SEED, torch.bfloat16, dev)
-    eng = WhisperEngine(cfg, params, device=dev, batch_buckets=(1, 2, BATCH), decoder_int8=True,
-                        cross_kv_bits=8,
-                        tokenizer=VisibleTokenizer(TokenSpec(cfg.n_vocab, multilingual=True)),
-                        shardings=sh)
-    del params
+    engine_kw = dict(device=dev, batch_buckets=(1, 2, BATCH), decoder_int8=True,
+                     cross_kv_bits=8, tokenizer=visible_tokenizer(cfg))
+    eng = WhisperEngine(cfg, params, shardings=sh, **engine_kw)
     pool = dict(PAR_POOL, n_slots=2 * CONT_SLOTS)
     opts = TranscribeOptions(language="en", temperatures=(0.0,), log_prob_threshold=None,
                              no_speech_threshold=None, compression_ratio_threshold=None,
@@ -4495,7 +4634,7 @@ def parallel_dp_serving(rank: int, dev: torch.device, engine, ops_port: int) -> 
         wall = time.monotonic() - t0
         replicas = sorted({cb.owner(s) for s in seated})
         check(replicas == [0, 1], f"the windows landed in replicas {replicas}, not both")
-        ref_cs = ContinuousScheduler(engine, **PAR_POOL)
+        ref_cs = ContinuousScheduler(WhisperEngine(cfg, params, **engine_kw), **PAR_POOL)
         ref_cs.start()
         try:
             want = [tuple(ref_cs.submit(BatchRequest(audio=a, options=opts, uid=f"ref{i}"))
@@ -4504,7 +4643,8 @@ def parallel_dp_serving(rank: int, dev: torch.device, engine, ops_port: int) -> 
             ref_cs.stop()
         check(all(len(t) > 0 for t in got), "a dp window decoded no token")
         check(got == want, f"dp=2 tokens differ from tp=1's: {got} vs {want}")
-        log(f"dp=2 (full depth, 2 x {CONT_SLOTS} slots): windows seated in slots {seated} "
+        log(f"dp=2 ({PAR_DP_LAYERS} + {PAR_DP_LAYERS} layers, 2 x {CONT_SLOTS} slots): windows "
+            f"seated in slots {seated} "
             f"(replicas {replicas}), {sum(map(len, got))} tokens equal to the tp=1 pool's, "
             f"{wall:.6g} s wall, op log {leader.stats}")
         out.update(slots=seated, replicas=replicas, tokens=[len(t) for t in got], wall_s=wall,
@@ -4514,7 +4654,7 @@ def parallel_dp_serving(rank: int, dev: torch.device, engine, ops_port: int) -> 
         chan = smh.OpFollower(("127.0.0.1", ops_port))
         out["replayed_ops"] = smh.run_follower(cb, chan)
         chan.close()
-    del eng, cb
+    del eng, cb, params
     free_cache(dev)
     return out
 
@@ -4610,7 +4750,7 @@ def parallel_phase(rank: int, coordinator: str, ops_ports: tuple[int, int, int],
                                                       tie[0])
         del eng2
         free_cache(dev)
-        out["dp_serving"] = parallel_dp_serving(rank, dev, engine, ops_ports[1])
+        out["dp_serving"] = parallel_dp_serving(rank, dev, ops_ports[1])
         out["finetune"] = parallel_finetune(rank, dev)
         multihost.barrier("phase-12-end")
     finally:
@@ -4935,12 +5075,344 @@ def tooling_phase(engine: WhisperEngine, continuous_step: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the published configurations
+# ---------------------------------------------------------------------------
+
+# small: both server CLIs' default model; tiny.en: the narrowest width and
+# English-only; base: K2's 8-chunk split; medium: the widest width below
+# large; large-v3-turbo: 128 mels and a 4-layer decoder
+CONFIGS = ("small", "tiny.en", "base", "medium", "large-v3-turbo")
+DEFAULT_MODEL = "small"  # run_server's --model default
+DEFAULT_SESSION_S = 8.0  # small's session through the server CLI's default start
+CONFIG_SESSION_S = 3.0  # each other configuration's continuous session
+# phase 14 times its kernel cases with 10 runs a figure, each behind a ~5 ms
+# spin: enough for the host to queue a run of the widths' small kernels
+CONFIG_TIMING = {"iters": 10, "spin_cycles": 10_000_000}
+# steps of phase 14's profiled continuous chunk (a torch.profiler window's
+# cost grows with its events)
+PROFILE_STEPS = 2
+
+
+def config_kernels(randn, int8, dev, name: str, cfg) -> dict:
+    """K1-K5 at one configuration's shapes, each against its plain version
+    with phase 3's tolerance, timed warm and (K2-K5) cold with phase 3's
+    helpers, beside the library call phase 3 times: K1 at q/k/v
+    [1,1500,H,64] and [4,1500,H,64]; K2 at the three decoder linears (d x d,
+    d x 4d, 4d x d) at M = 1, 4 and 8; K3 at x [M, d] against the
+    configuration's vocabulary at M = 1 and 8; K4 at [4,H,64] x
+    [4,H,1500,128], unmasked and with lengths [1500,700,1,0]; K5 at
+    [8,H,64] x [8,H,640,128] with mixed lengths and half the rows active.
+    Returns {kernel: [case, ...]}, each case tagged with `name`."""
+    h, hd, t_enc, d, v = (cfg.n_audio_head, cfg.head_dim, cfg.n_audio_ctx, cfg.n_text_state,
+                          cfg.n_vocab)
+    tag, timing = f" ({name})", CONFIG_TIMING
+    out = {"fused_attention": [k1_case(randn, b, t_enc, h, hd, tag, timing) for b in (1, BATCH)],
+           "int8_matmul": [k2_case(randn, int8, m, kk, n, tag, timing)
+                           for kk, n in ((d, d), (d, 4 * d), (4 * d, d)) for m in (1, BATCH, 8)],
+           "int8_matmul_t": []}
+    copies = -(-COLD_BYTES // (v * d))
+    w8s, s = [int8(v, d) for _ in range(copies)], randn(v, scale=0.01).abs()
+    for m in (1, CONT_SLOTS):
+        x = randn(m, d)
+        r = compare("int8_matmul_t", f"x [{m},{d}] w8 [{v},{d}]{tag}",
+                    lambda: qmm.int8_matmul_t(x, w8s[0], s),
+                    lambda: qmm.int8_matmul_t_ref(x, w8s[0], s), 1e-5, timing=timing)
+        r["library_ms"] = library_time("_weight_int8pack_mm",
+                                       lambda: torch._weight_int8pack_mm(x, w8s[0], s), **timing)
+        r.update(k3_bound(m, d, v))
+        r["cold_ms"] = median_ms(rotating([lambda w=w: qmm.int8_matmul_t(x, w, s) for w in w8s]),
+                                 iters=10, reps=10 * copies, spin_cycles=timing["spin_cycles"])
+        log(f"int8_matmul_t{tag} x [{m},{d}]: cold {r['cold_ms'] * 1e3:.6g} us ({copies} "
+            f"copies), bound {r['bound_ms'] * 1e3:.6g} us")
+        out["int8_matmul_t"].append(r)
+    del w8s
+    out["cross_attention_int8"] = [k4_case(randn, int8, dev, BATCH, h, hd, t_enc, lens, tag,
+                                           timing) for lens in (None, [t_enc, 700, 1, 0])]
+    mixed = [640, 300, 1, 640, 512, 17, 640, 100]
+    out["cross_attention_int8_skip"] = [k5_case(randn, int8, dev, h, hd, mixed,
+                                                [i % 2 == 0 for i in range(CONT_SLOTS)], tag,
+                                                timing)]
+    for cases in out.values():
+        for case in cases:
+            case["config"] = name
+    torch.cuda.empty_cache()
+    return out
+
+
+def launch_delta(before: dict) -> dict:
+    return {k: n - before.get(k, 0) for k, n in _kernels.launches.items()}
+
+
+def check_launches(label: str, got: dict, want: dict) -> None:
+    """`got` must launch exactly `want` ({kernel: count}) and nothing else."""
+    log(f"{label} launches: {got}")
+    wrong = {k: (n, want.get(k, 0)) for k, n in got.items() if n != want.get(k, 0)}
+    check(not wrong, f"{label}: launches (got, want) {wrong}")
+
+
+def encode_phase(engine: WhisperEngine) -> float:
+    """Host time of one encode call at mel [BATCH, 3000, n_mels] (median of
+    5 after a warm-up call); one call launches n_audio_layer K1 and no other
+    kernel."""
+    cfg, dev = engine.cfg, engine.device
+    mel = torch.randn((BATCH, 2 * cfg.n_audio_ctx, cfg.n_mels),
+                      generator=torch.Generator(device=dev).manual_seed(SEED + 2), device=dev)
+    times = []
+    with torch.inference_mode():
+        for i in range(6):
+            before = dict(_kernels.launches)
+            t0 = time.perf_counter()
+            enc = wmod.encode(engine.params, cfg, mel)
+            torch.cuda.synchronize(dev)
+            times.append((time.perf_counter() - t0) * 1e3)
+            if i == 0:
+                check_launches("encode", launch_delta(before),
+                               {"fused_attention": cfg.n_audio_layer})
+    check(enc.shape == (BATCH, cfg.n_audio_ctx, cfg.n_audio_state)
+          and bool(torch.isfinite(enc).all()), f"encode: {tuple(enc.shape)}")
+    return statistics.median(times[1:])
+
+
+def window_batch_phase(engine: WhisperEngine) -> dict:
+    """The window route's transcribe_batch of two speech-like clips (8 and
+    5 s; the first's language given, the second's detected where the model
+    is multilingual), decoding MAX_NEW_TOKENS tokens and then one: the full
+    decode less the one-step one launches, a decode step, 8 x n_text_layer
+    K2 (q, k, v, o, the cross q and o, fc1, fc2), one K3 and n_text_layer
+    K4, and no other kernel. An English-only model never runs language
+    detection."""
+    cfg = engine.cfg
+    audio = np.zeros((2, 480000), np.float32)
+    for i, seconds in enumerate((8.0, 5.0)):
+        audio[i, : int(16000 * seconds)] = speech_like(seconds, 70 + i)
+    prompt, sot = engine.build_prompt(TranscribeOptions(language="en"), language="en")
+    steps, detects = [], []
+    step_fn, detect = wmod.decode_step, engine._detect
+
+    def counted_step(*a, **kw):
+        steps.append(1)
+        return step_fn(*a, **kw)
+
+    def run(max_new):
+        opts = TranscribeOptions(language=None, temperatures=(0.0,), log_prob_threshold=None,
+                                 no_speech_threshold=None, compression_ratio_threshold=None,
+                                 max_new_tokens=max_new)
+        steps.clear()
+        before = dict(_kernels.launches)
+        t0 = time.monotonic()
+        results, langs, cross = engine.transcribe_batch(audio, [prompt, prompt], [sot, sot],
+                                                        [True, False], opts)
+        torch.cuda.synchronize()
+        return results, langs, launch_delta(before), len(steps), time.monotonic() - t0
+
+    wmod.decode_step = counted_step
+    engine._detect = lambda cross: detects.append(1) or detect(cross)
+    try:
+        results, langs, full, n_full, seconds = run(MAX_NEW_TOKENS)
+        _, _, one, n_one, _ = run(1)
+    finally:
+        wmod.decode_step = step_fn
+        del engine._detect
+    n = n_full - n_one
+    check(n > 0 and n_one == 0, f"window decode steps: {n_full} and {n_one}")
+    per_step = {k: full[k] - one[k] for k in full}
+    L = cfg.n_text_layer
+    check_launches(f"window route ({n} decode steps)", per_step,
+                   {"int8_matmul": 8 * L * n, "int8_matmul_t": n, "cross_attention_int8": L * n})
+    check(all(len(r.tokens) > 0 for r in results), "a window decoded no token")
+    multilingual = engine.tokenizer.spec.multilingual
+    check(bool(detects) == multilingual,
+          f"language detection ran {len(detects)} times (multilingual: {multilingual})")
+    check(multilingual or [lang for lang, _ in langs] == ["en", "en"], f"languages {langs}")
+    log(f"window route: {seconds:.6g} s for {[len(r.tokens) for r in results]} tokens, "
+        f"languages {langs}")
+    return {"seconds": seconds, "tokens": [len(r.tokens) for r in results], "decode_steps": n,
+            "launches_per_step": {k: c / n for k, c in per_step.items() if c}}
+
+
+def continuous_step_phase(engine: WhisperEngine, cs: ContinuousScheduler, label: str) -> dict:
+    """One continuous step: its device time (profile_pool, torch.profiler as
+    phase 5 reads it, over one chunk of PROFILE_STEPS steps of a pool of the
+    stopped pool `cs`'s geometry), then two chunks of `cs`'s pool on the
+    host clock, each step launching n_text_layer K5, 8 x n_text_layer K2,
+    one K3 and no other kernel."""
+    cb, L = cs.cb, engine.cfg.n_text_layer
+    profiled = ContinuousEngine(engine, n_slots=cb.n_slots, prompt_pad=cb.prompt_pad, ring=cb.ring,
+                                steps_per_chunk=PROFILE_STEPS, cross_ctx=cb.cross_ctx,
+                                enc_buckets=cb.enc_buckets)
+    device_ms = profile_pool(f"{label} continuous step", profiled, 1, "step",
+                             {"K5": cross_kernel("Int8Packed", 1)})
+    del profiled
+    seat_profile_slots(cb)
+    chunks = 2
+    before = dict(_kernels.launches)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    for _ in range(chunks):
+        cb.step()
+    torch.cuda.synchronize()
+    n = chunks * cb.steps_per_chunk
+    host_ms = (time.monotonic() - t0) / n * 1e3
+    check_launches(f"{label} continuous step ({n} steps)", launch_delta(before),
+                   {"cross_attention_int8_skip": L * n, "int8_matmul": 8 * L * n,
+                    "int8_matmul_t": n})
+    log(f"{label} continuous step: {host_ms:.6g} ms host, {device_ms} ms device")
+    return {"host_ms": host_ms, "device_ms": device_ms}
+
+
+def config_session(engine: WhisperEngine, name: str) -> tuple[dict, ContinuousScheduler]:
+    """One CONFIG_SESSION_S streaming session (English) on phase 5's pool
+    on `engine` (no warm-up: PyTorch compiles nothing): it reaches the pool
+    and its segments the client, and each step launches n_text_layer K5.
+    Returns (launches, the stopped pool)."""
+    cs = ContinuousScheduler(engine, n_slots=CONT_SLOTS, steps_per_chunk=8, cross_ctx=640,
+                             enc_buckets=(512, 1500))
+    window = BatchScheduler(engine, max_batch_size=BATCH, batch_window_ms=50)
+    window.start()
+    cs.start()
+    gstep = cs.cb.gstep
+    try:
+        backend = CountingBackend(window, model_name=name, continuous_scheduler=cs)
+        sockets, wall = serve(backend, [dict(uid=f"{name}-en", language="en",
+                                             audio=speech_like(CONFIG_SESSION_S, 80),
+                                             extra={"model": name})])
+    finally:
+        cs.stop()
+        window.stop()
+    launches = dict(_kernels.launches)
+    check_session(engine, backend, sockets, launches, cs.cb.gstep - gstep, f"{name}-en")
+    return launches, cs
+
+
+def check_session(engine, backend, sockets, launches, steps, uid) -> None:
+    """A session `uid` that reached the backend and its pool: its segments
+    reached the client, and each pool step launched n_text_layer K5."""
+    label = f"session {uid}"
+    check_calls(backend, [uid], 1)
+    check_sockets(sockets)
+    log(f"{label}: {len(backend.calls)} backend calls, {steps} steps, launches {launches}")
+    check(steps > 0 and launches["cross_attention_int8_skip"] == steps * engine.cfg.n_text_layer,
+          f"{label}: K5 must launch {engine.cfg.n_text_layer} times a step")
+
+
+def default_server_session(dev: torch.device) -> tuple[WhisperEngine, dict, ContinuousScheduler]:
+    """The user's default start: cli.run_server.main with no --model flag
+    builds its engine (random weights from --seed 0, as init_params(cfg,
+    SEED) draws them) and its schedulers; its server serves one
+    DEFAULT_SESSION_S English session in-process (as phase 13 drives it: the
+    card's machine has no websockets). The engine must be small's, the
+    session must reach the continuous pool and its segments the client.
+    Returns (the engine, the session's launches, its stopped pool)."""
+    from whisperlive_tpu_torch import loader
+    from whisperlive_tpu_torch.cli import run_server
+
+    seen = {}
+    resolve = loader.resolve_model
+
+    def visible_resolve(*a, **kw):  # random weights: a tokenizer with visible words
+        cfg, params, tok = resolve(*a, **kw)
+        return cfg, params, tok or visible_tokenizer(cfg)
+
+    def run(server, backend, **kw):
+        seen["engine"], seen["pool"] = backend.scheduler.engine, backend.continuous_scheduler
+        server.backend, server.backend_name = backend, kw["backend_name"]
+        server.client_manager = ClientManager(max_clients=4, max_connection_time=600)
+        _kernels.reset_launches()
+        seen["gstep"] = seen["pool"].cb.gstep
+        seen["ws"] = asyncio.run(run_session(
+            server, backend, uid="default-en", language="en",
+            audio=speech_like(DEFAULT_SESSION_S, 81), extra={"model": DEFAULT_MODEL}))
+        seen["backend"] = backend
+
+    saved = (loader.resolve_model, backends_mod.TorchBackend, TranscriptionServer.run,
+             os.environ.get("OMP_NUM_THREADS"))
+    loader.resolve_model, backends_mod.TorchBackend = visible_resolve, CountingBackend
+    TranscriptionServer.run = run
+    try:
+        run_server.main(["--device", dev.type, "--continuous_slots", str(CONT_SLOTS),
+                         "--batch_max_size", str(BATCH), "--omp_num_threads",
+                         str(torch.get_num_threads())])
+    finally:
+        loader.resolve_model, backends_mod.TorchBackend, TranscriptionServer.run = saved[:3]
+        if saved[3] is None:
+            os.environ.pop("OMP_NUM_THREADS", None)
+        else:
+            os.environ["OMP_NUM_THREADS"] = saved[3]
+    engine, pool = seen["engine"], seen["pool"]
+    launches = dict(_kernels.launches)
+    check(engine.cfg.replace(dtype=torch.float32) == wmod.WHISPER_CONFIGS[DEFAULT_MODEL],
+          f"the default start built {engine.cfg}, not {DEFAULT_MODEL}")
+    check(engine.decoder_int8 and engine.cross_kv_bits == 8, "the default engine is not int8")
+    check(pool is not None, "the default start built no continuous pool")
+    check_session(engine, seen["backend"], [seen["ws"]], launches, pool.cb.gstep - seen["gstep"],
+                  "default-en")
+    return engine, launches, pool
+
+
+def configuration_phase(dev: torch.device, name: str) -> tuple[dict, dict]:
+    """One published configuration at full width and depth on random bf16
+    weights from SEED: its kernels at its shapes (config_kernels), then its
+    int8 engine (small's from the server CLI's default start) serving a
+    continuous session, the window route's batch, an encode and continuous
+    steps with their launches, and window_reference and
+    continuous_reference against the plain path. Returns (the figures, the
+    kernel cases)."""
+    cfg = wmod.WHISPER_CONFIGS[name]
+    lap = phase_clock()
+    randn, int8 = random_makers(dev, SEED + 14)
+    cases = config_kernels(randn, int8, dev, name, cfg)
+    lap(f"{name}: kernels")
+    if name == DEFAULT_MODEL:
+        engine, session, pool = default_server_session(dev)
+    else:
+        engine = build_engine(dev, name, wmod.init_params(cfg, SEED, torch.bfloat16, dev),
+                              (1, 2, BATCH))
+        session, pool = config_session(engine, name)
+    lap(f"{name}: engine and session")
+    out = {"d_model": cfg.n_text_state, "heads": cfg.n_text_head,
+           "layers": [cfg.n_audio_layer, cfg.n_text_layer], "n_mels": cfg.n_mels,
+           "n_vocab": cfg.n_vocab, "multilingual": engine.tokenizer.spec.multilingual,
+           "session_launches": session}
+    out["window_route"] = window_batch_phase(engine)
+    out["encode_ms"] = encode_phase(engine)
+    lap(f"{name}: window route, encode")
+    out["continuous_step"] = continuous_step_phase(engine, pool, name)
+    lap(f"{name}: continuous step")
+    out["max_err"] = {
+        "window_reference": window_reference(engine),
+        "continuous_reference": continuous_reference(engine),
+        "kernels": {k: max(c["max_abs_err"] for c in v) for k, v in cases.items()}}
+    del engine, pool
+    free_cache(dev)
+    out["seconds"] = lap(f"{name}: references")
+    out["phase_s"] = sum(out["seconds"].values())
+    log(f"configuration {name}: encode {out['encode_ms']:.6g} ms at mel "
+        f"[{BATCH},{2 * cfg.n_audio_ctx},{cfg.n_mels}], continuous step "
+        f"{out['continuous_step']}, errors {out['max_err']}, {out['phase_s']:.6g} s")
+    return out, cases
+
+
+def configurations_phase(dev: torch.device, measured: dict) -> dict:
+    """Phase 14: every configuration of CONFIGS, one engine at a time; the
+    kernel cases join their entries' other_shapes."""
+    backends_mod._DISABLE_GATES = True  # random weights: first attempt passes
+    backends_mod.STREAMING_MAX_NEW_TOKENS = MAX_NEW_TOKENS
+    out = {}
+    for name in CONFIGS:
+        out[name], cases = configuration_phase(dev, name)
+        for kernel, rows in cases.items():
+            measured[kernel].setdefault("other_shapes", []).extend(rows)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this test needs a CUDA card",
               file=sys.stderr)
         return 1
     t_start = time.monotonic()
+    lap = phase_clock()
     dev = torch.device("cuda", 0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True, check=True)
@@ -4967,6 +5439,7 @@ def main() -> int:
     check(not spills, f"cross_attention.cu spills registers at {spills}")
     k3_ptxas = ptxas_usage("int8_matmul_t")
     log(f"int8_matmul_t.cu, nvcc -Xptxas -v: {k3_ptxas}")
+    lap("phases 1-2 (build, ptxas)")
 
     from whisperlive_tpu_torch.device import resolve_device
 
@@ -4995,19 +5468,27 @@ def main() -> int:
     draft = build_engine(dev, DRAFT_MODEL, params, (1,))
     draft4 = build_engine(dev, DRAFT_MODEL, params, (1,), cross_kv_bits=4)
     del params
+    lap("phase 3 (kernels, encoder forward)")
     paths = {"window": window_phase(engine)}
+    lap("phase 4 (window path)")
     paths["continuous"], continuous_step = continuous_phase(engine)
+    lap("phase 5 (continuous path)")
     paths["spec_window"] = spec_window_phase(engine, draft)
     spec_random = spec_continuous_phase(engine, draft)
     paths.update({
         "spec_all": spec_random.pop("launches"),
         "mixed_int4": mixed_phase(engine4, draft4),
+    })
+    lap("phase 6 (speculative routes)")
+    paths.update({
         "beam_window": beam_window_phase(engine),
         "beam_pool": beam_pool_phase(engine),
         "hybrid_beam": hybrid_phase(engine),
         "word_timestamps": word_ts_phase(engine),
     })
+    lap("phase 7 (beam, word timestamps)")
     offline = offline_phase(engine)
+    lap("phase 8 (offline path)")
     window_reference(engine)
     distill_reference(engine)
     offline_reference(engine)
@@ -5018,13 +5499,17 @@ def main() -> int:
     err8 = verify_reference(engine)
     verify_reference(engine4)
     spec_reference(engine, draft, err8)
+    lap("phase 9 (references)")
     rest_of_serving = rest_of_serving_phase(engine, dev)
+    lap("phase 11 (rest of serving)")
     # phase 12: tp = 2, dp = 2 and a tp = 2 fine-tune step over two ranks on
     # this card, held against the int8 engine of phases 4-11
     parallel = run_parallel_phase(engine)
+    lap("phase 12 (parallelism)")
     # phase 13: the profiler behind --profile_dir, the roofline, the WER
     # harness and the trainers
     tooling = tooling_phase(engine, continuous_step)
+    lap("phase 13 (tooling)")
 
     # phase 10: the distiller on the serving engine's own random teacher, its
     # draft on the `all` pool, then the fine-tune with the engines freed
@@ -5038,10 +5523,15 @@ def main() -> int:
         f"random draft of phase 6: {spec_random['acceptance']:.6g}, "
         f"{spec_random['committed_per_window_round']:.6g}, "
         f"{spec_random['device_ms_per_round']} ms")
+    lap("phase 10 (b, c) (distiller, distilled draft served)")
     del engine, engine4, draft, draft4, trained_draft
     gc.collect()
     torch.cuda.empty_cache()
     finetune = finetune_phase(dev)
+    lap("phase 10 (a) (fine-tune)")
+    # phase 14: the published configurations, one engine at a time
+    configurations = configurations_phase(dev, measured)
+    phase_s = lap("phase 14 (configurations)")
 
     # each kernel's launches on the path it serves: the continuous path
     # (the server's default) for K1-K3 and K5, the window path for K4, and
@@ -5053,7 +5543,9 @@ def main() -> int:
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": replaces,
                 "launches": paths[served_by[name]][name], **measured[name]}
                for name, (src, replaces) in KERNELS.items()]
-    log(f"chip_smoke total: {time.monotonic() - t_start:.6g} s")
+    phase_s["total"] = time.monotonic() - t_start
+    log(f"chip_smoke total: {phase_s['total']:.6g} s")
+    print(json.dumps({"phase_s": phase_s}))
     print(json.dumps({"encoder_forward": encoder}))
     print(json.dumps({"offline": offline}))
     print(json.dumps({"training": {"finetune": finetune, "distill": distilled,
@@ -5062,6 +5554,7 @@ def main() -> int:
     print(json.dumps({"rest_of_serving": rest_of_serving}))
     print(json.dumps({"parallel": parallel}))
     print(json.dumps({"tooling": tooling}))
+    print(json.dumps({"configurations": configurations}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

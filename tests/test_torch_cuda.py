@@ -59,20 +59,25 @@ def _rows_close(out, ref, rel_tol):
 # key tile (64 keys a tile: 28, 63, 65, 127, 129, 1500 = 23*64 + 28) and the
 # ragged query tile (128 queries a CTA: 127, 129, 512 full, 1500); q drawn
 # 4x larger peaks the softmax, so a wrong rescale of the running max shows;
-# strided q/k/v are the head slices of one [B, T, 3H, 64] tensor.
+# strided q/k/v are the head slices of one [B, T, 3H, 64] tensor. Heads:
+# large-v3's 20, and the other published widths' 6, 8, 12 and 16 (tiny,
+# base, small, medium; every width has 64-channel heads) at T = 1500 and
+# the ragged 129.
 K1_CASES = [
     *[(2, t, 1.0, False) for t in (1, 28, 63, 64, 65, 127, 128, 129, 512, 1500)],
     (1, 1500, 1.0, False), (8, 512, 1.0, False), (8, 129, 1.0, False),
     (4, 1500, 4.0, False), (1, 65, 4.0, False),
     (2, 129, 1.0, True), (8, 512, 1.0, True), (2, 1500, 4.0, True),
 ]
+WIDTH_HEADS = (6, 8, 12, 16)
+K1_CASES = [(*case, 20) for case in K1_CASES] + [
+    (b, t, 1.0, False, h) for h in WIDTH_HEADS for b, t in ((4, 1500), (2, 129))]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b, t, q_scale, strided", K1_CASES)
-def test_fused_attention_kernel_on_card(cuda_device, b, t, q_scale, strided):
-    rng = np.random.default_rng(t * 16 + b)
-    h = 20
+@pytest.mark.parametrize("b, t, q_scale, strided, h", K1_CASES)
+def test_fused_attention_kernel_on_card(cuda_device, b, t, q_scale, strided, h):
+    rng = np.random.default_rng(t * 16 + b + h)
     if strided:
         qkv = _gpu(rng, (b, t, 3 * h, 64))
         qkv[:, :, :h] *= q_scale
@@ -112,14 +117,19 @@ def _k2_inputs(m, k, n):
 # K2 at large-v3's three decode shapes (the d x d linears, fc1 d x 4d, fc2
 # 4d x d) and M over the decode batches (1, 4, 8, 16), the verify window
 # (40), prefill (64, 300, 512) and the ragged n8 and 64-row tiles (7, 9,
-# 17, 65). Below 264 CTAs K is split across the CTAs of a cluster.
+# 17, 65). Below 264 CTAs K is split across the CTAs of a cluster. Then
+# the other published widths' decode shapes (d = 384, 512, 768, 1024: 6,
+# 8, 12 and 16 chunks of 64 split over a cluster) at the decode batches 1
+# and 8 and the verify window's 40.
 K2_SHAPES = [(1280, 1280), (1280, 5120), (5120, 1280)]
 K2_ROWS = [1, 4, 7, 8, 9, 16, 17, 40, 64, 65, 300, 512]
+WIDTHS = (384, 512, 768, 1024)
+K2_CASES = [(m, k, n) for m in K2_ROWS for k, n in K2_SHAPES] + [
+    (m, k, n) for d in WIDTHS for k, n in ((d, d), (d, 4 * d), (4 * d, d)) for m in (1, 8, 40)]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("k, n", K2_SHAPES)
-@pytest.mark.parametrize("m", K2_ROWS)
+@pytest.mark.parametrize("m, k, n", K2_CASES)
 def test_int8_matmul_kernel_on_card(cuda_device, m, k, n):
     x, w8, s = _k2_inputs(m, k, n)
     launched = _kernels.launches["int8_matmul"]
@@ -158,17 +168,20 @@ def _k3_inputs(m, n, k=1280):
 # 8-slot pool, one full 40-row launch), the ragged n8 tiles (7, 9, 17) and
 # two launches (64 = 40 + 24, 65 = 40 + 25), at each vocab: 51866 (large-v3; even rows of out
 # 16-byte aligned, odd rows 8-byte), 51865 (odd rows only 4-byte aligned)
-# and 51864 (every row 16-byte aligned). 1e-5 of max|ref|: f32 output over
-# exact products.
+# and 51864 (every row 16-byte aligned), at K = 1280; then K = 384, 512,
+# 768 and 1024 (the other published widths: 12-32 k16 pairs over the 8
+# summing warps) at their vocabularies (tiny.en's 51864 at 384). 1e-5 of
+# max|ref|: f32 output over exact products.
 K3_ROWS = [1, 4, 7, 8, 9, 16, 17, 40, 64, 65]
 K3_VOCABS = [51866, 51865, 51864]
+K3_CASES = [(m, n, 1280) for m in K3_ROWS for n in K3_VOCABS] + [
+    (m, 51864 if d == 384 else 51865, d) for d in WIDTHS for m in (1, 8, 40)]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", K3_VOCABS)
-@pytest.mark.parametrize("m", K3_ROWS)
-def test_int8_matmul_t_kernel_on_card(cuda_device, m, n):
-    x, w8, s = _k3_inputs(m, n)
+@pytest.mark.parametrize("m, n, k", K3_CASES)
+def test_int8_matmul_t_kernel_on_card(cuda_device, m, n, k):
+    x, w8, s = _k3_inputs(m, n, k)
     launched = _kernels.launches["int8_matmul_t"]
     err, scale = _err(tqmm.int8_matmul_t(x, w8, s), tqmm.int8_matmul_t_ref(x, w8, s))
     assert _kernels.launches["int8_matmul_t"] == launched + 1
@@ -196,40 +209,46 @@ def test_int8_matmul_t_kernel_refuses_untiled_shapes(cuda_device):
 # reduced 512-position one (a split over T of 8, 8, 4 CTAs at T = 1500; 8,
 # 8, 4 at T = 512), unmasked and with lengths [T, 700, 1, 0] repeated and
 # cut to B; and at B = 16, whose 320 (b, h) rows take no split (one CTA a
-# row holding all 1500 positions, ~200 KB of shared memory).
+# row holding all 1500 positions, ~200 KB of shared memory). At 20 heads
+# (large-v3), then at tiny's 6 and small's 12 (fewer (b, h) rows: wider
+# splits over T) at the window batches 1 and 4 over 1500 positions.
 K4_CASES = [(b, t, masked) for b in (1, 2, 4) for t in (1500, 512) for masked in (False, True)]
 K4_CASES += [(16, 1500, False), (16, 1500, True)]
+K4_CASES = [(*case, 20) for case in K4_CASES] + [
+    (b, 1500, masked, h) for h in (6, 12) for b in (1, 4) for masked in (False, True)]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b, t, masked", K4_CASES)
-def test_cross_attention_int8_kernel_on_card(cuda_device, b, t, masked):
+@pytest.mark.parametrize("b, t, masked, h", K4_CASES)
+def test_cross_attention_int8_kernel_on_card(cuda_device, b, t, masked, h):
     rng = np.random.default_rng(1)
-    q = _gpu(rng, (b, 20, 64), Q_SCALE_INT8)
-    kvp = torch.from_numpy(rng.integers(-127, 128, (b, 20, t, 128)).astype(np.int8)).cuda()
+    q = _gpu(rng, (b, h, 64), Q_SCALE_INT8)
+    kvp = torch.from_numpy(rng.integers(-127, 128, (b, h, t, 128)).astype(np.int8)).cuda()
     ln = (torch.tensor(([t, 700, 1, 0] * 4)[:b], dtype=torch.int32, device="cuda") if masked
           else None)
     assert _rows_close(tattn.cross_attention_int8(q, kvp, ln),
                        tattn.cross_attention_int8_ref(q, kvp, ln), 1e-3)
 
 
-def _k5_inputs(rng, b=8, t=640):
-    q = _gpu(rng, (b, 20, 64), Q_SCALE_INT8)
-    kvp = torch.from_numpy(rng.integers(-127, 128, (b, 20, t, 128)).astype(np.int8)).cuda()
+def _k5_inputs(rng, b=8, t=640, h=20):
+    q = _gpu(rng, (b, h, 64), Q_SCALE_INT8)
+    kvp = torch.from_numpy(rng.integers(-127, 128, (b, h, t, 128)).astype(np.int8)).cuda()
     return q, kvp
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("h", [20, 6, 12])
 @pytest.mark.parametrize("case", ["mixed_lengths", "half_active", "len0_active",
                                   "chunk_boundaries", "chunk_boundaries_len0"])
-def test_cross_attention_int8_skip_kernel_on_card(cuda_device, case):
+def test_cross_attention_int8_skip_kernel_on_card(cuda_device, case, h):
     """K5 on the active rows. At 8 slots of 20 heads over 640 positions the
     split over T is 2 CTAs a row, each chunk ceil(n / 2) rows of n =
     min(len, T): the boundary cases take lengths that split evenly, one
     past (a short last chunk), n < 2 (an empty rank) and 0 (a uniform
-    softmax over all T) next to each other."""
+    softmax over all T) next to each other. At 6 and 12 heads (tiny's and
+    small's pools) the rows are fewer and the split wider."""
     rng = np.random.default_rng(3)
-    q, kvp = _k5_inputs(rng)
+    q, kvp = _k5_inputs(rng, h=h)
     lengths = [640, 300, 1, 640, 512, 17, 640, 100]
     active = [True] * 8
     if case == "half_active":

@@ -236,6 +236,7 @@ class WhisperEngine:
         params: wmod.Params,
         tokenizer: WhisperTokenizer | None = None,
         batch_buckets: Sequence[int] = DEFAULT_BATCH_BUCKETS,
+        prompt_buckets: Sequence[int] = DEFAULT_PROMPT_BUCKETS,
         shardings: Any = None,
         decoder_int8: bool | None = None,
         cross_kv_bits: int | None = None,
@@ -269,7 +270,7 @@ class WhisperEngine:
             max_length=cfg.n_text_ctx,
         )
         self.batch_buckets = tuple(batch_buckets)
-        self.prompt_buckets = tuple(p for p in DEFAULT_PROMPT_BUCKETS if p <= cfg.n_text_ctx)
+        self.prompt_buckets = tuple(p for p in prompt_buckets if p <= cfg.n_text_ctx)
         self.gen_buckets = (128, 256, cfg.n_text_ctx)
         # WL_CROSS_BITS is read once, here; int8 by default on CUDA
         if cross_kv_bits is None:
