@@ -20,6 +20,8 @@ scale 0.05 against random int8 codes and 16x larger against int4 nibbles
 (whose std is 1/16 of theirs), so the scores spread alike.
 """
 
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -488,3 +490,86 @@ def test_cuda_tensors_never_reach_the_plain_versions(cuda_device, monkeypatch):
     for name in ("cross_attention_int8_window", "cross_attention_int8_skip_window",
                  "cross_attention_int4", "cross_attention_int4_window"):
         assert _kernels.launches[name] == before[name] + 1, name
+
+
+@pytest.mark.cuda
+def test_device_timer_times_device_bound_work_as_synchronize_brackets(cuda_device):
+    """The device timer's event pair around work the card paces (bf16 GEMMs
+    of 8192^3, some 15 ms in all against a dispatch of microseconds) agrees
+    within 15% with the same work timed between two synchronize calls."""
+    from whisperlive_tpu_torch.utils import profiling
+
+    a = torch.randn(8192, 8192, device="cuda", dtype=torch.bfloat16)
+
+    def work():
+        for _ in range(10):
+            a @ a
+
+    timer = profiling.DeviceTimer("cuda")
+    timed, bracketed = [], []
+    for _ in range(7):
+        with profiling.span("probe", device_s=None) as s, timer.time(s):
+            work()
+        torch.cuda.synchronize()
+        timer.settle()
+        timed.append(s.attrs["device_s"])
+        t0 = time.perf_counter()
+        work()
+        torch.cuda.synchronize()
+        bracketed.append(time.perf_counter() - t0)
+    assert np.median(timed[1:]) == pytest.approx(np.median(bracketed[1:]), rel=0.15)
+
+
+def _kernel_seconds(call) -> float:
+    """Seconds of the kernels, copies and sets torch.profiler records on the
+    card for one call (the program's spans, drawn on the card's timeline
+    too, left out)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+
+    def annotation(e):
+        kind = getattr(e, "activity_type", None)
+        return (e.is_user_annotation() or e.name().startswith("engine.")
+                or (kind is not None and "annotation" in str(kind())))
+
+    return sum(e.duration_ns() if hasattr(e, "duration_ns") else 1e3 * e.duration_us()
+               for e in prof.profiler.kineto_results.events()
+               if e.device_type() == cuda and not annotation(e)) / 1e9
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [4, 16])
+def test_a_timed_prepare_agrees_with_the_profiler(cuda_device, rows):
+    """large-v3 at full width and depth on random bf16 weights (int8 cross-KV,
+    as the benchmark serves it): the event pair of a prepare of 4 and of 16
+    windows (engine.prepare's device_s; the encoder and cross-KV, which the
+    card paces) within 15% of the kernel and copy seconds torch.profiler
+    records on the card for the same call (the log-mel before the pair
+    included), from both sides."""
+    from whisperlive_tpu_torch.engine.engine import WhisperEngine
+    from whisperlive_tpu_torch.models import whisper as tw
+    from whisperlive_tpu_torch.ops import mel as mel_ops
+    from whisperlive_tpu_torch.utils import profiling
+
+    cfg = tw.WHISPER_CONFIGS["large-v3"]
+    eng = WhisperEngine(cfg, tw.init_params(cfg, 0, torch.bfloat16, "cuda"), device="cuda",
+                        batch_buckets=(rows,), decoder_int8=True, cross_kv_bits=8)
+    audio = (np.random.default_rng(0).standard_normal((rows, mel_ops.N_SAMPLES))
+             * 0.1).astype(np.float32)
+    eng.prepare(audio)  # warm
+    paired = []
+    for _ in range(5):
+        eng.prepare(audio)
+        torch.cuda.synchronize()
+        eng.device_timer.settle()
+        (s,) = profiling.LOG.spans("engine.prepare")[-1:]
+        paired.append(s.attrs["device_s"])
+    kernels = [_kernel_seconds(lambda: eng.prepare(audio)) for _ in range(3)]
+    got = (float(np.median(paired)), float(np.median(kernels)))
+    print(f"prepare of {rows} rows, event pair against the profiler's kernels (s):", got)
+    assert got[0] == pytest.approx(got[1], rel=0.15), got

@@ -1,9 +1,9 @@
 """The port's profiler (utils/profiling.py) and the server's --profile_dir.
 
 start_profiler / stop_profiler write a Chrome trace JSON under the
-directory, naming the record_function spans of `annotate`; trace_scope and
-maybe_start_from_env (WL_PROFILE_DIR) do the same; the stop is registered
-with atexit while a trace runs. A served CPU session (the server CLI's
+directory, naming the spans of the span log (a span opens a record_function
+while the profiler records); trace_scope does the same; the stop is
+registered with atexit while a trace runs. A served CPU session (the server CLI's
 main with WL_PROFILE_DIR set, a tiny random model, one streaming session
 through the connection handler in-process) leaves a trace file naming the
 continuous scheduler's spans once the server has shut down.
@@ -44,7 +44,7 @@ def test_start_stop_writes_a_chrome_trace_naming_the_spans(tmp_path, monkeypatch
     assert profiling.start_profiler(str(tmp_path / "p"), device="cpu")
     assert registered == [profiling.stop_profiler]
     assert not profiling.start_profiler(str(tmp_path / "q"), device="cpu")  # one at a time
-    with profiling.annotate("wl.test_span"):
+    with profiling.span("wl.test_span"):
         torch.ones(8, 8) @ torch.ones(8, 8)
     path = profiling.stop_profiler()
     assert registered == []
@@ -55,19 +55,15 @@ def test_start_stop_writes_a_chrome_trace_naming_the_spans(tmp_path, monkeypatch
     assert not os.path.exists(tmp_path / "q")
 
 
-def test_trace_scope_and_env(tmp_path, monkeypatch):
+def test_trace_scope_and_env(tmp_path):
+    """trace_scope writes one trace naming its spans (the server's
+    WL_PROFILE_DIR default: test_served_session_with_wl_profile_dir_leaves_a_trace)."""
     with profiling.trace_scope(str(tmp_path / "scoped"), device="cpu"):
-        with profiling.annotate("wl.scoped"):
+        with profiling.span("wl.scoped"):
             torch.zeros(4).sum()
     (path,) = glob.glob(str(tmp_path / "scoped" / "trace_*.json"))
     assert "wl.scoped" in _names(path)
-
-    monkeypatch.delenv("WL_PROFILE_DIR", raising=False)
-    profiling.maybe_start_from_env("cpu")
     assert profiling.stop_profiler() is None
-    monkeypatch.setenv("WL_PROFILE_DIR", str(tmp_path / "env"))
-    profiling.maybe_start_from_env("cpu")
-    assert profiling.stop_profiler().startswith(str(tmp_path / "env"))
 
 
 class _Socket:

@@ -83,7 +83,7 @@ from whisperlive_tpu_torch.engine.speculative import check_draft
 from whisperlive_tpu_torch.ops.attention import MAX_WINDOW
 from whisperlive_tpu_torch.ops import mel as mel_ops
 from whisperlive_tpu_torch.utils import metrics as wl_metrics
-from whisperlive_tpu_torch.utils.profiling import annotate
+from whisperlive_tpu_torch.utils import profiling
 
 logger = logging.getLogger(__name__)
 
@@ -110,6 +110,9 @@ class _SlotInfo:
     # valid encoder positions of the slot's cross-KV (the alignment at
     # harvest masks the same tail)
     cross_len: int = 0
+    # the slot's harvest (time.monotonic_ns): the end of the request's
+    # request.resident span and the start of its request.resolve
+    harvested_ns: int = 0
 
 
 class ContinuousEngine:
@@ -497,8 +500,9 @@ class ContinuousScheduler:
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
         self.max_batch_size = self.cb.n_slots
-        # host time of each worker-loop phase (insert dispatch, step chunk
-        # including its status copy, harvest), summed over ticks
+        # host time of each worker-loop phase (insert: its dispatch, not its
+        # device time, which a traced run reads; step chunk including its
+        # status copy; harvest), summed over ticks
         self.tick_stats = {
             "ticks": 0, "insert_s": 0.0, "step_s": 0.0, "harvest_s": 0.0,
             "insert_calls": 0, "insert_windows": 0,
@@ -575,6 +579,7 @@ class ContinuousScheduler:
             self._assemble_pool = None
 
     def submit(self, request: BatchRequest):
+        request.queued_ns = time.monotonic_ns()
         self._queue.put(request)
         return request.future
 
@@ -657,7 +662,11 @@ class ContinuousScheduler:
         for req, _ in take:
             self._uid_seq[req.uid] = self._insert_seq
         self._insert_seq += 1
-        self._rebind_audio(take)
+        granted = time.monotonic_ns()
+        self._rebind_audio(take, granted)
+        for req, _ in take:
+            profiling.record_span("request.queued", req.queued_ns, granted, rid=req.rid)
+            req.granted_ns = granted
         if len(self._uid_seq) > 4096:  # bound stale-uid growth
             cut = sorted(self._uid_seq.values())[len(self._uid_seq) // 2]
             self._uid_seq = {u: s for u, s in self._uid_seq.items() if s >= cut}
@@ -680,10 +689,11 @@ class ContinuousScheduler:
                     if not req.future.done():
                         req.future.set_exception(e)
 
-    def _rebind_audio(self, take) -> None:
+    def _rebind_audio(self, take, granted_ns: int) -> None:
         """Late-bind first attempts to their stream's current tail at slot
-        grant (same anchor, more audio), clamped to the content cap. Retries
-        keep the audio their earlier attempts decoded."""
+        grant (at granted_ns, time.monotonic_ns(); same anchor, more audio),
+        clamped to the content cap. Retries keep the audio their earlier
+        attempts decoded."""
         cap = int(self.max_window_s * mel_ops.SAMPLE_RATE)
         for req, temp_idx in take:
             if req.refresh_audio is None or temp_idx > 0 or req.audio_rebound:
@@ -697,7 +707,7 @@ class ContinuousScheduler:
             if fresh is None or len(fresh) < len(req.audio):
                 continue
             req.audio = np.asarray(fresh, np.float32)[:cap]
-            req.audio_bound_at = time.monotonic()
+            req.audio_bound_at = granted_ns / 1e9
 
     def _enc_bucket_for(self, req: BatchRequest) -> int:
         """Smallest encoder-context bucket holding the request's window."""
@@ -824,8 +834,12 @@ class ContinuousScheduler:
         ]
         if not done_slots:
             return
+        harvested = time.monotonic_ns()
         for b in done_slots:
             info = self._slots.pop(b)
+            info.harvested_ns = harvested
+            profiling.record_span("request.resident", info.req.granted_ns, harvested,
+                                  rid=info.req.rid)
             gen_len = int(status[b * k, 2])
             sum_lp = float(status[b * k, 3])
             ns_prob = float(status[b * k, 4])
@@ -860,9 +874,11 @@ class ContinuousScheduler:
                     # the carried hypothesis may be what failed: retry from
                     # scratch at the same temperature first
                     info.req.prefix_tokens = ()
+                    info.req.queued_ns = harvested
                     self._pending.append((info.req, info.temp_index))
                     continue
                 if info.temp_index + 1 < len(opt.temperatures):
+                    info.req.queued_ns = harvested
                     self._pending.append((info.req, info.temp_index + 1))
                     continue
             if opt.word_timestamps:
@@ -910,6 +926,9 @@ class ContinuousScheduler:
                 language=info.language or "en", language_prob=info.language_prob,
                 prefix_ok=not final_failed, timings=timings,
             )
+            result.resolved_ns = time.monotonic_ns()
+            profiling.record_span("request.resolve", info.harvested_ns, result.resolved_ns,
+                                  rid=info.req.rid)
             if not info.req.future.done():
                 info.req.future.set_result(result)
             service_s = time.monotonic() - info.submitted_at
@@ -926,13 +945,14 @@ class ContinuousScheduler:
         while not self._stop.is_set():
             try:
                 idle = not self._slots and not self._pending
-                self._drain_queue(block=idle)
+                with profiling.span("continuous.drain"):
+                    self._drain_queue(block=idle)
                 if self._stop.is_set():
                     break
                 load = (len(self._slots) + len(self._pending)) / max(self.cb.n_slots, 1)
                 self._load_ema += 0.05 * (load - self._load_ema)
                 t0 = time.monotonic()
-                with annotate("continuous.insert"):
+                with profiling.span("continuous.insert"):
                     self._do_inserts()
                 t1 = time.monotonic()
                 if not self._slots:
@@ -945,10 +965,10 @@ class ContinuousScheduler:
                 ctx = self.cb.cross_ctx
                 cross_pos = lanes * sum(min(info.cross_len or ctx, ctx)
                                         for info in self._slots.values())
-                with annotate("continuous.step"):
+                with profiling.span("continuous.step"):
                     status = self.cb.step()
                 t2 = time.monotonic()
-                with annotate("continuous.harvest"):
+                with profiling.span("continuous.harvest"):
                     self._harvest(status)
                 t3 = time.monotonic()
                 ts = self.tick_stats

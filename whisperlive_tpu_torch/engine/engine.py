@@ -55,6 +55,7 @@ from whisperlive_tpu_torch.models import whisper as wmod
 from whisperlive_tpu_torch.ops import decoding as dec
 from whisperlive_tpu_torch.ops import mel as mel_ops
 from whisperlive_tpu_torch.parallel import mesh as pmesh
+from whisperlive_tpu_torch.utils import profiling
 
 logger = logging.getLogger(__name__)
 
@@ -296,6 +297,8 @@ class WhisperEngine:
             # ones (its int8 runs on the global arrays)
             self.params = pmesh.shard_params(self.params, shardings)
         self._lock = threading.Lock()
+        # device seconds of prepares (utils/profiling.py)
+        self.device_timer = profiling.DeviceTimer(self.device)
         self._suppress_cache: dict[tuple, torch.Tensor] = {}
         self._lang_ids = torch.tensor(
             self.tokenizer.spec.all_language_tokens, dtype=torch.long, device=self.device
@@ -314,13 +317,24 @@ class WhisperEngine:
     # ------------------------------------------------------------------
 
     def _prepare(self, audio: torch.Tensor):
-        if audio.dtype == torch.int16:
-            audio = audio.float() * (1.0 / 32767.0)
-        return self._prepare_mel(mel_ops.log_mel_spectrogram(audio, n_mels=self.cfg.n_mels))
+        with profiling.span("engine.prepare", device_s=None) as s:
+            if audio.dtype == torch.int16:
+                audio = audio.float() * (1.0 / 32767.0)
+            return self._encode(mel_ops.log_mel_spectrogram(audio, n_mels=self.cfg.n_mels), s)
 
     def _prepare_mel(self, melspec: torch.Tensor):
-        enc = wmod.encode(self.params, self.cfg, melspec)
-        return enc, self.quantize_cross(wmod.compute_cross_kv(self.params, self.cfg, enc))
+        with profiling.span("engine.prepare", device_s=None) as s:
+            return self._encode(melspec, s)
+
+    def _encode(self, melspec: torch.Tensor, s: profiling.Span):
+        """Encoder and cross-KV of the prepare span `s`, which the card
+        paces: one event pair gives the span its device_s, read after a
+        later sync (the log-mel before them copies its bases to the card,
+        each copy a sync)."""
+        with self.device_timer.time(s):
+            enc = wmod.encode(self.params, self.cfg, melspec)
+            cross = self.quantize_cross(wmod.compute_cross_kv(self.params, self.cfg, enc))
+        return enc, cross
 
     def quantize_cross(self, cross: dict) -> dict:
         """Float cross-KV -> the engine's cross-KV width (int8, int4 or as is)."""
@@ -359,9 +373,11 @@ class WhisperEngine:
         no_repeat_ngram: int,
         suppress_blank: bool,
         max_init_idx: int,
+        span: profiling.Span,
     ):
         """Prefill, then the sampling loop. Returns (sampled [B, G], gen_len,
-        sum_logprob, no_speech_prob)."""
+        sum_logprob, no_speech_prob). span: the engine.decode span, given
+        its steps."""
         cfg, spec, dev = self.cfg, self.spec, self.device
         b, prompt_pad = prompts.shape
         sb_vec = None if suppress_blank else torch.zeros((1,), dtype=torch.bool, device=dev)
@@ -396,6 +412,7 @@ class WhisperEngine:
             slot = prompt_pad + state.step  # batch-uniform cache slot
             pos = state.prompt_len + state.step  # per-item logical position
             state = dec.advance_state(spec, state, next_tok, lp)
+            span.attrs["steps"] = state.step
             if state.step >= max_steps:
                 state = state._replace(finished=torch.ones_like(state.finished))
                 break
@@ -496,17 +513,21 @@ class WhisperEngine:
         c.state = dec.advance_state(spec, st, next_tok, tok_lp)
         return next_tok
 
-    def _beam_run(self, inp: _BeamInputs, c: _BeamCarry, n_steps: int, sync_each: bool) -> bool:
+    def _beam_run(self, inp: _BeamInputs, c: _BeamCarry, n_steps: int, sync_each: bool,
+                  span: profiling.Span | None = None) -> bool:
         """Up to n_steps beam steps on the carry; True once the decode is
         done. sync_each: stop on the first step after which every lane has
         finished (one host sync a step, as the greedy loop); otherwise the
         caller syncs once after the segment, and steps after the last lane
-        finished are gated into no-ops."""
+        finished are gated into no-ops. span: the engine.decode span, given
+        the steps."""
+        attrs = span.attrs if span is not None else {}
         for i in range(n_steps):
             gate = None if sync_each or i == 0 else ~c.state.finished.all()
             slot = inp.prompt_pad + c.state.step  # batch-uniform cache slot
             pos = c.state.prompt_len + c.state.step
             next_tok = self._beam_step(inp, c, gate)
+            attrs["steps"] = c.state.step
             if c.state.step >= inp.max_steps:
                 c.state = c.state._replace(finished=torch.ones_like(c.state.finished))
                 return True
@@ -529,7 +550,8 @@ class WhisperEngine:
         best = torch.argmax(score.reshape(b, k), dim=1) + torch.arange(b, device=score.device) * k
         return st.sampled[best], st.gen_len[best], st.sum_logprob[best]
 
-    def _decode_beam(self, beam_args: tuple, beam_size: int, length_penalty: float):
+    def _decode_beam(self, beam_args: tuple, beam_size: int, length_penalty: float,
+                     span: profiling.Span | None = None):
         """Batched beam search at T = 0 (the reference transcriber decodes
         at beam 5, transcriber_faster_whisper.py:1394-1407) in one
         monolithic loop under the lock, or, with beam_chunk > 0, in
@@ -538,16 +560,17 @@ class WhisperEngine:
         released, and that gap is where other threads' work runs. The two
         are token-exact by construction (the same step; the steps a segment
         runs after its last lane finished change nothing). Returns (sampled,
-        gen_len, sum_logprob, no_speech_prob)."""
+        gen_len, sum_logprob, no_speech_prob). span: the engine.decode
+        span (_beam_run)."""
         chunk = int(self.beam_chunk)
         with self._lock:
             inp, carry, ns_prob = self._beam_start(*beam_args, beam_size=beam_size)
             if chunk <= 0:
-                self._beam_run(inp, carry, inp.max_steps, sync_each=True)
+                self._beam_run(inp, carry, inp.max_steps, sync_each=True, span=span)
                 return (*self._beam_best(carry, beam_size, length_penalty), ns_prob)
         while True:
             with self._lock:
-                done = self._beam_run(inp, carry, chunk, sync_each=False)
+                done = self._beam_run(inp, carry, chunk, sync_each=False, span=span)
                 done = done or bool(carry.state.finished.all())  # the segment's one sync
             if done:
                 break
@@ -729,8 +752,10 @@ class WhisperEngine:
     @torch.inference_mode()
     def detect_language_probs_from_cross(self, cross_kv: dict) -> np.ndarray:
         """Per-language probability rows aligned with language_codes."""
-        with self._lock:
-            return self._detect(cross_kv).cpu().numpy()
+        with profiling.span("engine.detect"), self._lock:
+            probs = self._detect(cross_kv).cpu().numpy()
+        self.device_timer.settle()  # the copy has synced: the prepare's pair is done
+        return probs
 
     @torch.inference_mode()
     def decode_batch(
@@ -807,39 +832,45 @@ class WhisperEngine:
                 self._tensor(~np.full((b,), options.without_timestamps)))
         rules = (options.no_repeat_ngram_size, *_rule_statics(options))
         cache_len = self._cache_len(prompt_pad, requested)
-        if options.beam_size > 1 and not temps.any():
-            return self._decode_beam(
-                (*head, options.repetition_penalty, int(requested), cache_len, *rules),
-                beam_lanes(options), options.length_penalty,
-            )
-        with self._lock:
-            return self._decode(*head, self._tensor(temps), options.repetition_penalty,
-                                int(requested), seed, cache_len, *rules)
+        # the decode's host time and its steps
+        with profiling.span("engine.decode", steps=0) as s:
+            if options.beam_size > 1 and not temps.any():
+                out = self._decode_beam(
+                    (*head, options.repetition_penalty, int(requested), cache_len, *rules),
+                    beam_lanes(options), options.length_penalty, span=s,
+                )
+            else:
+                with self._lock:
+                    out = self._decode(*head, self._tensor(temps), options.repetition_penalty,
+                                       int(requested), seed, cache_len, *rules, span=s)
+        return out
 
     def _extract_results(
         self, tokens, gen_len, sum_lp, ns_prob, temps, n_real
     ) -> list[DecodeResult]:
-        tokens = tokens.cpu().numpy()
-        gen_len = gen_len.cpu().numpy()
-        sum_lp = sum_lp.cpu().numpy()
-        ns_prob = ns_prob.float().cpu().numpy()
-        results = []
-        for i in range(n_real):
-            sampled = tokens[i, : gen_len[i]]
-            ended_with_eot = len(sampled) > 0 and sampled[-1] == self.spec.eot
-            text_tokens = sampled[:-1] if ended_with_eot else sampled
-            denom = len(text_tokens) + 1  # whisper convention: +1 for EOT
-            text = self.tokenizer.decode([int(t) for t in text_tokens])
-            results.append(
-                DecodeResult(
-                    tokens=text_tokens.astype(np.int32),
-                    avg_logprob=float(sum_lp[i]) / max(denom, 1),
-                    no_speech_prob=float(ns_prob[i]),
-                    compression_ratio=compression_ratio(text),
-                    temperature=float(temps[i]),
+        with profiling.span("engine.results"):
+            tokens = tokens.cpu().numpy()
+            self.device_timer.settle()  # the copy has synced: the prepare's pair is done
+            gen_len = gen_len.cpu().numpy()
+            sum_lp = sum_lp.cpu().numpy()
+            ns_prob = ns_prob.float().cpu().numpy()
+            results = []
+            for i in range(n_real):
+                sampled = tokens[i, : gen_len[i]]
+                ended_with_eot = len(sampled) > 0 and sampled[-1] == self.spec.eot
+                text_tokens = sampled[:-1] if ended_with_eot else sampled
+                denom = len(text_tokens) + 1  # whisper convention: +1 for EOT
+                text = self.tokenizer.decode([int(t) for t in text_tokens])
+                results.append(
+                    DecodeResult(
+                        tokens=text_tokens.astype(np.int32),
+                        avg_logprob=float(sum_lp[i]) / max(denom, 1),
+                        no_speech_prob=float(ns_prob[i]),
+                        compression_ratio=compression_ratio(text),
+                        temperature=float(temps[i]),
+                    )
                 )
-            )
-        return results
+            return results
 
     @torch.inference_mode()
     def transcribe_batch_async(

@@ -29,7 +29,7 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 
 from whisperlive_tpu_torch.utils import metrics as wl_metrics
-from whisperlive_tpu_torch.utils.profiling import annotate
+from whisperlive_tpu_torch.utils import profiling
 from whisperlive_tpu_torch.engine.engine import (
     TranscribeOptions,
     WhisperEngine,
@@ -67,6 +67,13 @@ class BatchRequest:
     audio_bound_at: float = dataclasses.field(default_factory=time.monotonic)
     future: Future = dataclasses.field(default_factory=Future)
     submitted_at: float = dataclasses.field(default_factory=time.monotonic)
+    # the id every span of this request carries (utils/profiling.py)
+    rid: int = dataclasses.field(default_factory=profiling.new_rid)
+    # time.monotonic_ns() when it last entered a scheduler's queue (its
+    # submit, or a retry's re-queue) and when the continuous scheduler last
+    # granted it a slot
+    queued_ns: int = dataclasses.field(default_factory=time.monotonic_ns)
+    granted_ns: int = 0
 
     def group_key(self):
         # word_timestamps picks the split path and beam_size/patience the
@@ -95,6 +102,9 @@ class BatchResult:
     advance_s: float = 0.0  # seconds consumed (seek feedback)
     raw_tokens: tuple = ()  # full decoded stream, timestamps included
     audio_bound_at: float = 0.0  # when the decoded audio was captured
+    rid: int = 0  # the request's id (BatchRequest.rid)
+    # time.monotonic_ns() when the scheduler resolved the request's future
+    resolved_ns: int = 0
 
 
 def assemble_result(
@@ -179,6 +189,7 @@ def assemble_result(
         # a no-speech skip is hallucination over silence: no token stream
         raw_tokens=() if (skip or not prefix_ok) else tuple(int(t) for t in res.tokens),
         audio_bound_at=req.audio_bound_at,
+        rid=req.rid,
     )
 
 
@@ -219,6 +230,7 @@ class BatchScheduler:
             self._thread = None
 
     def submit(self, request: BatchRequest) -> Future:
+        request.queued_ns = time.monotonic_ns()
         self._queue.put(request)
         return request.future
 
@@ -256,8 +268,11 @@ class BatchScheduler:
             batch = self._collect_batch()
             if not batch:
                 continue
+            taken = time.monotonic_ns()
+            for req in batch:
+                profiling.record_span("request.queued", req.queued_ns, taken, rid=req.rid)
             try:
-                with annotate("window.batch"):
+                with profiling.span("window.batch"):
                     self._process_batch(batch)
             except Exception as e:  # the worker must survive
                 logger.exception("batch processing failed")
@@ -372,15 +387,15 @@ class BatchScheduler:
 
         for i, (req, res) in enumerate(zip(batch, results)):
             try:
-                req.future.set_result(
-                    assemble_result(
-                        eng, req, res, durations[i],
-                        language=languages[i] or "en",
-                        language_prob=language_probs[i],
-                        cross_kv=cross_kv,
-                        item_index=i,
-                    )
+                result = assemble_result(
+                    eng, req, res, durations[i],
+                    language=languages[i] or "en",
+                    language_prob=language_probs[i],
+                    cross_kv=cross_kv,
+                    item_index=i,
                 )
+                result.resolved_ns = time.monotonic_ns()
+                req.future.set_result(result)
             except Exception as e:
                 if not req.future.done():
                     req.future.set_exception(e)

@@ -25,6 +25,7 @@ from whisperlive_tpu_torch.engine.engine import (
     _bucket,
 )
 from whisperlive_tpu_torch.ops import mel as mel_ops
+from whisperlive_tpu_torch.utils import profiling
 
 logger = logging.getLogger(__name__)
 
@@ -920,128 +921,134 @@ class BatchedTranscriber:
             active = active_items()
             if not active:
                 break
-            windows = []
-            for i in active:
-                windows.append(
-                    mel_ops.pad_or_trim(
-                        audios[i][seeks[i] * mel_ops.HOP_LENGTH :][:window_samples]
-                    )
-                )
-            bucket = _bucket(len(active), eng.batch_buckets)
-            batch = np.zeros((bucket, mel_ops.N_SAMPLES), np.float32)
-            for j, w in enumerate(windows):
-                batch[j] = w
-            _, cross = eng.prepare(batch)
+            # one window batch: rows of real windows in a bucket of the
+            # engine's, from the windows' audio to their segments
+            with profiling.span("transcribe.batch", rows=len(active),
+                                bucket=_bucket(len(active), eng.batch_buckets)):
+                with profiling.span("transcribe.windows"):
+                    windows = []
+                    for i in active:
+                        windows.append(
+                            mel_ops.pad_or_trim(
+                                audios[i][seeks[i] * mel_ops.HOP_LENGTH :][:window_samples]
+                            )
+                        )
+                    bucket = _bucket(len(active), eng.batch_buckets)
+                    batch = np.zeros((bucket, mel_ops.N_SAMPLES), np.float32)
+                    for j, w in enumerate(windows):
+                        batch[j] = w
+                _, cross = eng.prepare(batch)
 
-            window_langs = {}
-            detect_all = options.multilingual and eng.tokenizer.spec.multilingual
-            if detect_all or any(languages[i] is None for i in active):
-                detected = eng.detect_language_from_cross(cross)
-                for j, i in enumerate(active):
-                    if detect_all:
-                        # per-window re-detection (faster-whisper
-                        # `multilingual`): splice the detected token into
-                        # THIS window's prompt; info.language keeps the
-                        # first detection.
-                        window_langs[i] = detected[j][0]
-                    if languages[i] is None:
-                        languages[i], language_probs[i] = detected[j]
+                window_langs = {}
+                detect_all = options.multilingual and eng.tokenizer.spec.multilingual
+                if detect_all or any(languages[i] is None for i in active):
+                    detected = eng.detect_language_from_cross(cross)
+                    for j, i in enumerate(active):
+                        if detect_all:
+                            # per-window re-detection (faster-whisper
+                            # `multilingual`): splice the detected token into
+                            # THIS window's prompt; info.language keeps the
+                            # first detection.
+                            window_langs[i] = detected[j][0]
+                        if languages[i] is None:
+                            languages[i], language_probs[i] = detected[j]
 
-            prompts, sots = [], []
-            for i in active:
-                p, s = eng.build_prompt(
-                    options, previous_tokens=all_tokens[i][-224:],
-                    language=window_langs.get(i, languages[i]),
-                    context_preseeded=True,
-                )
-                prompts.append(p)
-                sots.append(s)
-            results = eng.decode_with_fallback(
-                cross, prompts, sots, options, seed=seed
-            )
-
-            for j, i in enumerate(active):
-                res = results[j]
-                content_frames = int(len(audios[i]) / mel_ops.HOP_LENGTH)
-                segment_size = min(window_frames, content_frames - seeks[i])
-                time_offset = seeks[i] * mel_ops.HOP_LENGTH / mel_ops.SAMPLE_RATE
-                window_duration = segment_size * mel_ops.HOP_LENGTH / mel_ops.SAMPLE_RATE
-                skip = (
-                    options.no_speech_threshold is not None
-                    and res.no_speech_prob > options.no_speech_threshold
-                    and (
-                        options.log_prob_threshold is None
-                        or res.avg_logprob < options.log_prob_threshold
-                    )
-                )
-                if skip:
-                    seeks[i] += segment_size
-                    continue
-                raw_pieces, advance, single_ts_ending = (
-                    split_segments_by_timestamps(
-                        eng.spec, res.tokens, time_offset, window_duration,
-                        segment_size,
-                    )
-                )
-                # the window's own cursor, stamped on its segments (the
-                # sequential path and the reference record the pre-advance
-                # seek)
-                window_seek = seeks[i]
-                seeks[i] += advance
-                pieces = [
-                    {"start": st, "end": en, "tokens": tk, "words": None}
-                    for st, en, tk in raw_pieces
-                ]
-                if options.word_timestamps:
-                    add_word_timestamps(
-                        eng, cross, j, pieces, segment_size, time_offset,
-                        last_speech_ts[i],
-                        options.prepend_punctuations,
-                        options.append_punctuations,
+                prompts, sots = [], []
+                for i in active:
+                    p, s = eng.build_prompt(
+                        options, previous_tokens=all_tokens[i][-224:],
                         language=window_langs.get(i, languages[i]),
-                        task=options.task,
+                        context_preseeded=True,
                     )
-                    if not single_ts_ending:
-                        last_word_end = _get_end(pieces)
-                        if last_word_end is not None:
-                            new_seek = round(last_word_end * FRAMES_PER_SECOND)
-                            # strict progress: a rewind to (or before) the
-                            # window start would loop forever
-                            if new_seek > window_seek:
-                                seeks[i] = new_seek
-                    last_word_end = _get_end(pieces)
-                    if last_word_end is not None:
-                        last_speech_ts[i] = last_word_end
-                for piece in pieces:
-                    toks = piece["tokens"]
-                    text = eng.tokenizer.decode(toks)
-                    if not text.strip():
-                        continue
-                    seg_ids[i] += 1  # ids start at 1, like the sequential path
-                    all_segments[i].append(
-                        Segment(
-                            id=seg_ids[i], seek=window_seek,
-                            start=piece["start"], end=piece["end"],
-                            text=text, tokens=toks,
-                            temperature=res.temperature,
-                            avg_logprob=res.avg_logprob,
-                            compression_ratio=res.compression_ratio,
-                            no_speech_prob=res.no_speech_prob,
-                            words=(
-                                [Word(**w) for w in piece["words"]]
-                                if options.word_timestamps
-                                and piece["words"] is not None
-                                else None
-                            ),
+                    prompts.append(p)
+                    sots.append(s)
+                results = eng.decode_with_fallback(
+                    cross, prompts, sots, options, seed=seed
+                )
+
+                with profiling.span("transcribe.segments"):
+                    for j, i in enumerate(active):
+                        res = results[j]
+                        content_frames = int(len(audios[i]) / mel_ops.HOP_LENGTH)
+                        segment_size = min(window_frames, content_frames - seeks[i])
+                        time_offset = seeks[i] * mel_ops.HOP_LENGTH / mel_ops.SAMPLE_RATE
+                        window_duration = segment_size * mel_ops.HOP_LENGTH / mel_ops.SAMPLE_RATE
+                        skip = (
+                            options.no_speech_threshold is not None
+                            and res.no_speech_prob > options.no_speech_threshold
+                            and (
+                                options.log_prob_threshold is None
+                                or res.avg_logprob < options.log_prob_threshold
+                            )
                         )
-                    )
-                    # context carries only under condition_on_previous_text
-                    # (build_prompt no longer gates preseeded context; the
-                    # seeded initial_prompt stays either way)
-                    if options.condition_on_previous_text:
-                        all_tokens[i].extend(
-                            t for t in toks if t < eng.spec.eot
+                        if skip:
+                            seeks[i] += segment_size
+                            continue
+                        raw_pieces, advance, single_ts_ending = (
+                            split_segments_by_timestamps(
+                                eng.spec, res.tokens, time_offset, window_duration,
+                                segment_size,
+                            )
                         )
+                        # the window's own cursor, stamped on its segments (the
+                        # sequential path and the reference record the pre-advance
+                        # seek)
+                        window_seek = seeks[i]
+                        seeks[i] += advance
+                        pieces = [
+                            {"start": st, "end": en, "tokens": tk, "words": None}
+                            for st, en, tk in raw_pieces
+                        ]
+                        if options.word_timestamps:
+                            add_word_timestamps(
+                                eng, cross, j, pieces, segment_size, time_offset,
+                                last_speech_ts[i],
+                                options.prepend_punctuations,
+                                options.append_punctuations,
+                                language=window_langs.get(i, languages[i]),
+                                task=options.task,
+                            )
+                            if not single_ts_ending:
+                                last_word_end = _get_end(pieces)
+                                if last_word_end is not None:
+                                    new_seek = round(last_word_end * FRAMES_PER_SECOND)
+                                    # strict progress: a rewind to (or before) the
+                                    # window start would loop forever
+                                    if new_seek > window_seek:
+                                        seeks[i] = new_seek
+                            last_word_end = _get_end(pieces)
+                            if last_word_end is not None:
+                                last_speech_ts[i] = last_word_end
+                        for piece in pieces:
+                            toks = piece["tokens"]
+                            text = eng.tokenizer.decode(toks)
+                            if not text.strip():
+                                continue
+                            seg_ids[i] += 1  # ids start at 1, like the sequential path
+                            all_segments[i].append(
+                                Segment(
+                                    id=seg_ids[i], seek=window_seek,
+                                    start=piece["start"], end=piece["end"],
+                                    text=text, tokens=toks,
+                                    temperature=res.temperature,
+                                    avg_logprob=res.avg_logprob,
+                                    compression_ratio=res.compression_ratio,
+                                    no_speech_prob=res.no_speech_prob,
+                                    words=(
+                                        [Word(**w) for w in piece["words"]]
+                                        if options.word_timestamps
+                                        and piece["words"] is not None
+                                        else None
+                                    ),
+                                )
+                            )
+                            # context carries only under condition_on_previous_text
+                            # (build_prompt no longer gates preseeded context; the
+                            # seeded initial_prompt stays either way)
+                            if options.condition_on_previous_text:
+                                all_tokens[i].extend(
+                                    t for t in toks if t < eng.spec.eot
+                                )
 
         return [
             (

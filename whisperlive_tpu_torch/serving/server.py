@@ -42,6 +42,7 @@ from whisperlive_tpu_torch.serving.session import (
     StreamingSession,
 )
 from whisperlive_tpu_torch.utils import metrics as wl_metrics
+from whisperlive_tpu_torch.utils import profiling
 
 logger = logging.getLogger(__name__)
 
@@ -130,7 +131,8 @@ class ServeClient:
     # ------------------------------------------------------------------
 
     def add_frames(self, frames: np.ndarray) -> None:
-        self.session.add_frames(frames)
+        with profiling.span("session.add_frames"):
+            self.session.add_frames(frames)
         self._new_audio.set()
 
     def set_eos(self, eos: bool = True) -> None:
@@ -195,7 +197,8 @@ class ServeClient:
                     pass
                 continue
 
-            chunk, chunk_dur = self.session.get_audio_chunk_for_processing()
+            with profiling.span("session.chunk"):
+                chunk, chunk_dur = self.session.get_audio_chunk_for_processing()
             if chunk_dur < MIN_CHUNK_S and not self.eos:
                 await asyncio.sleep(POLL_S)
                 continue
@@ -254,22 +257,32 @@ class ServeClient:
                     }
                 )
 
-            last_segment = self.session.update_segments(
-                result.segments, result.duration
-            )
-            # carry decoded tokens for conditioning the next window
-            for s in result.segments:
-                self.previous_tokens.extend(
-                    t for t in getattr(s, "tokens", []) if t < 50_000
+            rid = getattr(result, "rid", 0)
+            with profiling.span("session.update", rid=rid):
+                last_segment = self.session.update_segments(
+                    result.segments, result.duration
                 )
-            self.previous_tokens = self.previous_tokens[-224:]
-
-            segments = self.session.prepare_segments(last_segment)
+                # carry decoded tokens for conditioning the next window
+                for s in result.segments:
+                    self.previous_tokens.extend(
+                        t for t in getattr(s, "tokens", []) if t < 50_000
+                    )
+                self.previous_tokens = self.previous_tokens[-224:]
+                segments = self.session.prepare_segments(last_segment)
             if segments:
                 wl_metrics.track_segments(
                     sum(1 for s in segments if s.get("completed")), True
                 )
                 await self.send({"uid": self.uid, "segments": segments})
+                resolved = getattr(result, "resolved_ns", 0)
+                if resolved:
+                    # the update's hand-back: from the scheduler thread's
+                    # resolve to the push's return on this loop; its content
+                    # age runs from the decoded audio's capture to here
+                    pushed = time.monotonic_ns()
+                    profiling.record_span(
+                        "request.push", resolved, pushed, rid=rid,
+                        content_age_s=pushed / 1e9 - result.audio_bound_at)
             if self.translator is not None:
                 self.translator.poke()
 

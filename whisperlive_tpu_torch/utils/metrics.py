@@ -3,9 +3,11 @@
 Same collector set and call-site contract as the reference (§2.18):
 connection counters, a transcription-latency histogram, audio-seconds and
 segment counters, REST request/error counters — all silently no-op when
-prometheus_client is unavailable (metrics.py:59-65), plus TPU-specific
-gauges the reference has no equivalent for (batch occupancy, compile
-events).
+prometheus_client is unavailable (metrics.py:59-65), plus collectors the
+reference has no equivalent for: the batch-occupancy histogram, the
+active-streams gauge and the speculative decoder's acceptance gauge and
+window counter. The span log and device clock of utils/profiling.py hold
+where a request's and a batch's time goes.
 
 The port's copy of whisperlive_tpu/utils/metrics.py. Its collectors live in
 a registry of their own (REGISTRY, served by start_metrics_server), so the
