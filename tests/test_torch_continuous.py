@@ -344,6 +344,151 @@ def test_continuous_state_stays_finite_and_zero_on_free_rows():
 
 
 # ---------------------------------------------------------------------------
+# The captured step's arithmetic: the global step on the device
+# ---------------------------------------------------------------------------
+
+
+def _leaves(state):
+    out = {}
+    for name, x in state.items():
+        for sub, leaf in (x.items() if isinstance(x, dict) else [("", x)]):
+            if leaf is not None:
+                out[f"{name}/{sub}" if sub else name] = leaf
+    return out
+
+
+def _device_gstep_history(on_device: bool, prefix: bool):
+    """A pool history driven through step_chunk with the global step a host
+    int or a [1] device tensor: two windows join, one slot is released and
+    reused, and the global step wraps the 16-column ring. Returns the state
+    after every chunk."""
+    from whisperlive_tpu_torch.engine.continuous_step import step_chunk
+
+    _, te = make_engines("int8")
+    cb = tcont.ContinuousEngine(te, n_slots=3, prompt_pad=16, ring=16, steps_per_chunk=5,
+                                cross_ctx=640)
+    cb.init_state()
+    p, s = te.build_prompt(TOptions(**GREEDY), language="en")
+    snaps = []
+
+    def insert(slot, seconds, seed, budget):
+        pfx = dict(last_ts=[te.spec.timestamp_begin + 20], has_prefix=[True],
+                   pfx_last_ts=[True], pfx_penult_ts=[False]) if prefix else {}
+        cb.insert(np.stack([audio_of(seconds, seed)]), [p], [s], [True], [slot], [0.0],
+                  [True], [1.0], [budget], enc_ctx=512, **pfx)
+
+    def chunk():
+        g = torch.full((1,), cb.gstep, dtype=torch.int64) if on_device else cb.gstep
+        step_chunk(te, cb.state, g, cb.steps_per_chunk, cb.ring, cb.prompt_pad,
+                   cb.suppress_mask, False, False, cb._gen)
+        if on_device:
+            assert int(g) == cb.gstep + cb.steps_per_chunk
+        cb.gstep += cb.steps_per_chunk
+        snaps.append({k: v.clone() for k, v in _leaves(cb.state).items()})
+
+    insert(0, 2.0, 31, 12)
+    chunk()
+    insert(2, 1.5, 32, 14)
+    chunk()
+    chunk()
+    cb.release([0])
+    insert(0, 2.5, 33, 12)
+    for _ in range(3):
+        chunk()
+    assert cb.gstep > cb.ring
+    return snaps
+
+
+@pytest.mark.parametrize("prefix", [False, True], ids=["fresh", "prefix"])
+def test_device_gstep_step_equals_host_gstep_step(prefix):
+    """The captured step's form (global step, ring columns and cache slot on
+    the device, read and written through index ops) gives the host-int
+    step's state bit for bit, over chunks that wrap the ring with an insert
+    and a release between them."""
+    host = _device_gstep_history(False, prefix)
+    dev = _device_gstep_history(True, prefix)
+    assert len(host) == len(dev)
+    for h, d in zip(host, dev):
+        assert h.keys() == d.keys()
+        for name in h:
+            assert torch.equal(h[name], d[name]), name
+    assert int((host[-1]["gen_len"] > 0).sum()) >= 2
+
+
+GRAPH_RULE = {
+    "greedy": ({}, True), "cpu": ({"device": "cpu"}, False), "sampling": ({"sampling": True}, False),
+    "penalty": ({"penalty": True}, False), "lanes": ({"lanes": 2}, False),
+    "spec_k": ({"spec_k": 4}, False), "tp2": ({"tp": 2}, False),
+}
+
+
+@pytest.mark.parametrize("case", list(GRAPH_RULE))
+def test_graph_engages_only_for_the_fixed_greedy_step(case):
+    """The CUDA graph replays a chunk only where it is one fixed program: on
+    the card, tp = 1, one lane, no draft, no row at T > 0 and no repetition
+    penalty. The engine's device and tp are stood in for, the rest are the
+    pool's own attributes and the host's flags."""
+    import types
+
+    kw, want = GRAPH_RULE[case]
+    _, te = make_engines("float")
+    cb = tcont.ContinuousEngine(te, n_slots=2, prompt_pad=16, ring=32, steps_per_chunk=2)
+    cb.eng = types.SimpleNamespace(device=torch.device(kw.get("device", "cuda")),
+                                   cfg=types.SimpleNamespace(tp=kw.get("tp", 1)))
+    cb.beam_width = kw.get("lanes", 1)
+    cb.spec_k = kw.get("spec_k", 0)
+    assert cb.graphable(kw.get("sampling", False), kw.get("penalty", False)) is want
+
+
+def test_cpu_pool_steps_eagerly_and_counts_it():
+    _, te = make_engines("int8")
+    cs = tcont.ContinuousScheduler(te, n_slots=2, steps_per_chunk=3, prompt_pad=16, ring=32)
+    cb = cs.cb
+    cb.init_state()
+    p, s = te.build_prompt(TOptions(**GREEDY), language="en")
+    cb.insert(np.stack([audio_of(2.0, 34)]), [p], [s], [True], [1], [0.0], [True], [1.0], [6],
+              enc_ctx=512)
+    cb.step()
+    cb.step()
+    assert not cb.last_graph and cb._graph is None
+    assert cb.graph_stats == {"graph_steps": 0, "eager_steps": 6, "graph_captures": 0}
+    # the scheduler's counters are numbers (the benchmark subtracts every key)
+    assert {"graph_steps", "eager_steps", "graph_captures"} <= cs.tick_stats.keys()
+    assert all(isinstance(v, (int, float)) for v in cs.tick_stats.values())
+
+
+@pytest.mark.parametrize("lanes", [1, 2], ids=["greedy", "beam2"])
+def test_init_state_empties_the_pool_in_place(lanes):
+    """A second init_state keeps every state tensor's storage (a captured
+    step stays valid through warm-up and error recovery) and gives a fresh
+    state's values."""
+    from whisperlive_tpu_torch.engine import continuous_state as cstate
+
+    _, te = make_engines("int8")
+    cb = tcont.ContinuousEngine(te, n_slots=2, prompt_pad=16, ring=32, steps_per_chunk=3,
+                                cross_ctx=640, beam_width=lanes)
+    cb.init_state()
+    ptrs = {k: v.data_ptr() for k, v in _leaves(cb.state).items()}
+    p, s = te.build_prompt(TOptions(**GREEDY), language="en")
+    cb.insert(np.stack([audio_of(2.0, 35)]), [p], [s], [True], [0], [0.0], [True], [1.2], [6],
+              enc_ctx=512)
+    cb.step()
+    assert cb.gstep > 0 and bool(cb.state["active"].any())
+    cb.init_state()
+    assert cb.gstep == 0
+    # a beam pool's step swaps self_kv and its spare: the same two buffers
+    after = {k: v.data_ptr() for k, v in _leaves(cb.state).items()}
+    assert sorted(after.values()) == sorted(ptrs.values())
+    assert lanes > 1 or after == ptrs
+    fresh = _leaves(cstate.init_state(te.cfg, te.spec, cb.n_rows, 16, 32, 640, te.cross_kv_bits,
+                                      te.device, lanes=lanes))
+    got = _leaves(cb.state)
+    assert got.keys() == fresh.keys()
+    for name, x in fresh.items():
+        assert torch.equal(got[name], x), name
+
+
+# ---------------------------------------------------------------------------
 # ContinuousScheduler end to end
 # ---------------------------------------------------------------------------
 

@@ -573,3 +573,138 @@ def test_a_timed_prepare_agrees_with_the_profiler(cuda_device, rows):
     got = (float(np.median(paired)), float(np.median(kernels)))
     print(f"prepare of {rows} rows, event pair against the profiler's kernels (s):", got)
     assert got[0] == pytest.approx(got[1], rel=0.15), got
+
+
+# ---------------------------------------------------------------------------
+# The continuous pool's decode step replayed from its CUDA graph
+# ---------------------------------------------------------------------------
+
+POOL = dict(n_slots=4, prompt_pad=32, ring=32, steps_per_chunk=4)
+
+
+def _tiny_engine():
+    """tiny's widths on random bf16 weights, int8 decoder and cross-KV (K2,
+    K3 and K5 on the step), as the card serves it."""
+    from whisperlive_tpu_torch.engine.engine import WhisperEngine
+    from whisperlive_tpu_torch.models import whisper as tw
+
+    cfg = tw.WHISPER_CONFIGS["tiny"]
+    return WhisperEngine(cfg, tw.init_params(cfg, 0, torch.bfloat16, "cuda"), device="cuda",
+                         decoder_int8=True, cross_kv_bits=8)
+
+
+def _pool_history(cb) -> dict:
+    """A warm chunk, an init_state, two windows stepped three chunks, a third
+    window inserted mid-flight, two more chunks. Per chunk after the warm
+    one: logits, sampled and self_kv, the launches it counted, and whether
+    it was replayed."""
+    from whisperlive_tpu_torch.engine.engine import TranscribeOptions
+
+    prompt, sot = cb.eng.build_prompt(TranscribeOptions(), language="en")
+    rng = np.random.default_rng(5)
+
+    def insert(slots):
+        audio = (rng.standard_normal((len(slots), 16000 * 3)) * 0.1).astype(np.float32)
+        n = len(slots)
+        cb.insert(audio, [prompt] * n, [sot] * n, [True] * n, slots, [0.0] * n, [True] * n,
+                  [1.0] * n, [24] * n, enc_ctx=512)
+
+    out = {"state": [], "launches": [], "replayed": []}
+
+    def chunk():
+        before = dict(_kernels.launches)
+        cb.step()
+        out["launches"].append({k: n - before[k] for k, n in _kernels.launches.items()})
+        out["replayed"].append(cb.last_graph)
+        out["state"].append({k: cb.state[k].clone() for k in ("logits", "sampled", "self_kv")})
+
+    cb.init_state()
+    insert([0])
+    cb.step()  # warm: a graph pool runs it eagerly, then captures
+    cb.init_state()
+    insert([0, 1])
+    for _ in range(3):
+        chunk()
+    insert([3])
+    for _ in range(2):
+        chunk()
+    out["stats"] = dict(cb.graph_stats)
+    return out
+
+
+def _graph_and_eager_histories():
+    from whisperlive_tpu_torch.engine.continuous import ContinuousEngine
+
+    eng = _tiny_engine()
+    graph = ContinuousEngine(eng, **POOL)
+    eager = ContinuousEngine(eng, **POOL)
+    eager.graphable = lambda sampling, penalty: False
+    return _pool_history(graph), _pool_history(eager)
+
+
+@pytest.mark.cuda
+def test_replayed_pool_chunks_equal_eager_chunks_bit_for_bit(cuda_device):
+    """Five chunks replayed from the captured step, after an init_state and
+    with an insert between them, leave the logits, the sampled ring and the
+    self-KV bit-equal to the same chunks run eagerly."""
+    g, e = _graph_and_eager_histories()
+    assert g["replayed"] == [True] * 5 and e["replayed"] == [False] * 5
+    spc = POOL["steps_per_chunk"]
+    assert g["stats"] == {"graph_steps": 5 * spc, "eager_steps": spc, "graph_captures": 1}
+    assert e["stats"] == {"graph_steps": 0, "eager_steps": 6 * spc, "graph_captures": 0}
+    for i, (a, b) in enumerate(zip(g["state"], e["state"])):
+        for name in a:
+            assert torch.equal(a[name], b[name]), (i, name)
+    assert int((g["state"][-1]["sampled"] != 0).sum()) > 0
+
+
+@pytest.mark.cuda
+def test_a_replayed_chunk_counts_the_launches_of_an_eager_one(cuda_device):
+    """_kernels.launches counts a replay as the launches its capture
+    recorded: each replayed chunk counts what the same chunk run eagerly
+    launched (K2, K3 and K5 among them)."""
+    g, e = _graph_and_eager_histories()
+    assert g["launches"] == e["launches"]
+    for counts in g["launches"]:
+        assert counts["int8_matmul"] > 0 and counts["int8_matmul_t"] > 0
+        assert counts["cross_attention_int8_skip"] == 4 * POOL["steps_per_chunk"]
+
+
+@pytest.mark.cuda
+def test_no_capture_after_warmup(cuda_device):
+    """warmup() captures the greedy step once; a served churn of insert
+    buckets (1, then 3, then 4 concurrent windows, one with word
+    timestamps: the alignment pass at harvest) replays it and captures
+    nothing more."""
+    import dataclasses
+
+    from whisperlive_tpu_torch.engine.continuous import ContinuousScheduler
+    from whisperlive_tpu_torch.engine.engine import TranscribeOptions
+    from whisperlive_tpu_torch.engine.scheduler import BatchRequest
+
+    eng = _tiny_engine()
+    sched = ContinuousScheduler(eng, n_slots=4, steps_per_chunk=2, prompt_pad=64, ring=64)
+    sched.warmup()
+    warm = dict(sched.cb.graph_stats)
+    assert warm["graph_captures"] == 1
+    opts = TranscribeOptions(language="en", temperatures=(0.0,), log_prob_threshold=None,
+                             no_speech_threshold=None, compression_ratio_threshold=None,
+                             max_new_tokens=12)
+    rng = np.random.default_rng(6)
+    sched.start()
+    try:
+        for wave in ([2.0], [1.5, 2.0, 2.5], [1.0, 1.5, 2.0, 2.5]):
+            futs = []
+            for i, sec in enumerate(wave):
+                o = opts if i else dataclasses.replace(opts, word_timestamps=True)
+                audio = (rng.standard_normal(int(16000 * sec)) * 0.1).astype(np.float32)
+                futs.append(sched.submit(BatchRequest(audio=audio, options=o,
+                                                      uid=f"w{len(wave)}-{i}")))
+            for f in futs:
+                f.result(timeout=180)
+    finally:
+        sched.stop()
+    stats = sched.cb.graph_stats
+    assert stats["graph_captures"] == 1 and sched.tick_stats["graph_captures"] == 1
+    assert stats["graph_steps"] > warm["graph_steps"]
+    assert stats["eager_steps"] == warm["eager_steps"]

@@ -14,6 +14,15 @@ design hold:
   * the slot state lives on the card between chunks (continuous_state.py);
     the host copies one packed status array per chunk.
 
+On the card, a plain greedy pool (one lane a slot, no draft, no row
+sampling at T > 0 or with a repetition penalty, no tensor parallelism)
+replays its decode step from a CUDA graph: the first such chunk runs
+eagerly, then one step is captured with the global step in a device
+tensor, and each later chunk sets that tensor and replays the graph
+steps_per_chunk times. The same kernels do the same work without the
+per-launch host dispatch. Every other chunk, and every chunk on the CPU,
+runs eagerly.
+
 Fallback-temperature retries are ordinary re-inserts, so a retry does not
 stall the other streams.
 
@@ -81,6 +90,7 @@ from whisperlive_tpu_torch.engine.engine import (
 from whisperlive_tpu_torch.engine.scheduler import BatchRequest, assemble_result
 from whisperlive_tpu_torch.engine.speculative import check_draft
 from whisperlive_tpu_torch.ops.attention import MAX_WINDOW
+from whisperlive_tpu_torch.ops import _kernels
 from whisperlive_tpu_torch.ops import mel as mel_ops
 from whisperlive_tpu_torch.utils import metrics as wl_metrics
 from whisperlive_tpu_torch.utils import profiling
@@ -209,6 +219,13 @@ class ContinuousEngine:
         self._row_temp = np.zeros(n_slots, np.float32)
         self._row_rep = np.ones(n_slots, np.float32)
         self._gen: Optional[torch.Generator] = None
+        # the captured greedy step: (graph, device gstep, the launches one
+        # replay enqueues, the addresses it was captured over)
+        self._graph: Optional[tuple] = None
+        # decode steps replayed and run eagerly, and captures, since the
+        # pool was built; last_graph: whether the last chunk was replayed
+        self.graph_stats = {"graph_steps": 0, "eager_steps": 0, "graph_captures": 0}
+        self.last_graph = False
 
     # ------------------------------------------------------------------
 
@@ -241,12 +258,17 @@ class ContinuousEngine:
         return not self.dp_sharded or self.owner(slot) == self.shardings.dp_index
 
     def init_state(self, seed: int = 0) -> None:
+        """An empty pool: the state's tensors are emptied in place once they
+        exist, so a captured step survives (warm-up, error recovery)."""
         eng = self.eng
-        self.state = cstate.init_state(
-            eng.cfg, eng.spec, self.local_slots * self.beam_width, self.prompt_pad, self.ring,
-            self.cross_ctx, eng.cross_kv_bits, eng.device, draft=self.draft,
-            lanes=self.beam_width,
-        )
+        if self.state is not None:
+            cstate.reset_state(self.state, eng.spec, self.ring, self.cross_ctx)
+        else:
+            self.state = cstate.init_state(
+                eng.cfg, eng.spec, self.local_slots * self.beam_width, self.prompt_pad,
+                self.ring, self.cross_ctx, eng.cross_kv_bits, eng.device, draft=self.draft,
+                lanes=self.beam_width,
+            )
         self.gstep = 0
         self._row_temp[:] = 0.0
         self._row_rep[:] = 1.0
@@ -373,14 +395,68 @@ class ContinuousEngine:
         flags = dict(sampling=bool((self._row_temp > 0).any()),
                      penalty=bool((self._row_rep != 1.0).any()), generator=self._gen)
         with eng._lock:
+            replayed = False
             if self.spec_k:
                 spec_chunk(eng, self.draft, self.state, self.gstep, self.steps_per_chunk,
                            self.ring, self.prompt_pad, self.spec_k, self.suppress_mask, **flags)
+            elif self.graphable(flags["sampling"], flags["penalty"]):
+                replayed = self._graph_chunk()
             else:
                 step_chunk(eng, self.state, self.gstep, self.steps_per_chunk, self.ring,
                            self.prompt_pad, self.suppress_mask, lanes=self.beam_width, **flags)
+            self.last_graph = replayed
+            self.graph_stats["graph_steps" if replayed else "eager_steps"] += (
+                self.steps_per_chunk)
             self.gstep += self.gstep_per_chunk
             return self._fetch(cstate.pack_status(self.state, self.beam_width), rows=True)
+
+    def graphable(self, sampling: bool, penalty: bool) -> bool:
+        """Whether a chunk is the one fixed program a CUDA graph replays: on
+        the card, one lane a slot, no draft, no tensor parallelism (its
+        all-reduces), and no row sampling at T > 0 or with a repetition
+        penalty (the host knows both for each chunk)."""
+        return (self.eng.device.type == "cuda" and self.eng.cfg.tp == 1
+                and self.beam_width == 1 and not self.spec_k and not sampling and not penalty)
+
+    def _graph_key(self) -> tuple:
+        """The device addresses a captured step reads and writes: the
+        state's tensors, the suppress mask and the parameters."""
+        leaves = []
+        for x in self.state.values():
+            leaves.extend(x.values() if isinstance(x, dict) else (x,))
+        return (id(self.eng.params), self.suppress_mask.data_ptr(),
+                *(x.data_ptr() for x in leaves if x is not None))
+
+    def _graph_chunk(self) -> bool:
+        """One chunk of the greedy step from its CUDA graph; True if it was
+        replayed. Without a graph over the current state (the first such
+        chunk, or a state allocated anew), the chunk runs eagerly on a side
+        stream with the global step on the device (the capture's warm-up),
+        and then one step is captured there, which runs nothing."""
+        eng, st = self.eng, self.state
+        args = (self.ring, self.prompt_pad, self.suppress_mask, False, False, self._gen)
+        key = self._graph_key()
+        if self._graph is not None and self._graph[3] == key:
+            graph, g_dev, per_step, _ = self._graph
+            g_dev.fill_(self.gstep)
+            for _ in range(self.steps_per_chunk):
+                graph.replay()
+            _kernels.add_launches(per_step, self.steps_per_chunk)
+            return True
+        self._graph = None
+        g_dev = torch.full((1,), self.gstep, dtype=torch.int64, device=eng.device)
+        side = torch.cuda.Stream(eng.device)
+        side.wait_stream(torch.cuda.current_stream(eng.device))
+        with torch.cuda.stream(side):
+            step_chunk(eng, st, g_dev, self.steps_per_chunk, *args)
+        torch.cuda.current_stream(eng.device).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with _kernels.capturing() as per_step, torch.cuda.graph(
+                graph, stream=side, capture_error_mode="thread_local"):
+            step_chunk(eng, st, g_dev, 1, *args)
+        self._graph = (graph, g_dev, per_step, key)
+        self.graph_stats["graph_captures"] += 1
+        return False
 
     def release(self, slot_ids: list[int]) -> None:
         mask = np.zeros((self.n_slots,), bool)
@@ -510,6 +586,10 @@ class ContinuousScheduler:
             # over ticks at dispatch: occupied lane rows (free slots' rows K5
             # skips) and the cross positions K5 reads for them
             "step_rows": 0, "step_cross_pos": 0,
+            # the pool's decode steps replayed from its CUDA graph and run
+            # eagerly, and its captures (ContinuousEngine.graph_stats, warm-up
+            # included)
+            **self.cb.graph_stats,
         }
         # speculative pools: every harvested window's committed tokens and
         # verify rounds (a round commits 1 + accepted, so accepted =
@@ -965,8 +1045,9 @@ class ContinuousScheduler:
                 ctx = self.cb.cross_ctx
                 cross_pos = lanes * sum(min(info.cross_len or ctx, ctx)
                                         for info in self._slots.values())
-                with profiling.span("continuous.step"):
+                with profiling.span("continuous.step") as sp:
                     status = self.cb.step()
+                    sp.attrs["graph"] = int(self.cb.last_graph)
                 t2 = time.monotonic()
                 with profiling.span("continuous.harvest"):
                     self._harvest(status)
@@ -978,6 +1059,7 @@ class ContinuousScheduler:
                 ts["harvest_s"] += t3 - t2
                 ts["step_rows"] += occupied
                 ts["step_cross_pos"] += cross_pos
+                ts.update(self.cb.graph_stats)
             except Exception as e:
                 logger.exception("continuous scheduler iteration failed")
                 wl_metrics.track_error("continuous_scheduler")

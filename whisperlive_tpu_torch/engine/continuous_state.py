@@ -34,8 +34,10 @@ whose K/V may be attended).
 
 The JAX engine updates this state functionally, donating the old buffers
 to each jitted program. Here the tensors are allocated once and updated in
-place (index writes and copy_), so a slot's buffers never move. The
-global step counter is a host int kept by the caller.
+place (index writes and copy_), so a slot's buffers never move; reset_state
+empties the pool without moving them either, so a CUDA graph captured over
+the state stays valid. The global step counter is a host int kept by the
+caller.
 """
 
 from __future__ import annotations
@@ -84,6 +86,20 @@ def cross_template(cfg: wmod.WhisperConfig, bits: int, b: int, tcap: int,
     }
 
 
+def _fills(spec: dec.DecodingSpec, ring: int, cross_ctx: int) -> dict:
+    """The fields of an empty pool that do not start at zero, with their
+    values (every other tensor of the state starts zeroed)."""
+    return {
+        "logits": dec.NEG_INF,
+        "last_ts": spec.timestamp_begin - 1,
+        "ts_enabled": True,
+        "rep_penalty": 1.0,
+        "length_penalty": 1.0,
+        "max_new": ring - 1,
+        "cross_len": cross_ctx,
+    }
+
+
 def init_state(cfg: wmod.WhisperConfig, spec: dec.DecodingSpec, n_rows: int, prompt_pad: int,
                ring: int, cross_ctx: int, bits: int, device: torch.device,
                draft=None, lanes: int = 1) -> State:
@@ -91,52 +107,67 @@ def init_state(cfg: wmod.WhisperConfig, spec: dec.DecodingSpec, n_rows: int, pro
     draft engine, also the speculative round state."""
     b = n_rows
 
-    def full(value, dtype, *shape):
-        return torch.full(shape or (b,), value, dtype=dtype, device=device)
+    def empty(dtype, *shape):
+        return torch.empty(shape or (b,), dtype=dtype, device=device)
 
     spec_state = {} if draft is None else {
-        "cur": full(0, torch.int32),
-        "last_was_ts": full(False, torch.bool),
-        "penult_was_ts": full(False, torch.bool),
-        "tok_valid": full(False, torch.bool, b, ring),
-        "kv_valid": full(False, torch.bool, b, ring),
+        "cur": empty(torch.int32),
+        "last_was_ts": empty(torch.bool),
+        "penult_was_ts": empty(torch.bool),
+        "tok_valid": empty(torch.bool, b, ring),
+        "kv_valid": empty(torch.bool, b, ring),
         "d_self_kv": wmod.init_self_kv(draft.cfg, b, prompt_pad + ring, device=device),
         "d_cross_kv": cross_template(draft.cfg, draft.cross_kv_bits, b, cross_ctx, device),
     }
     beam_state = {} if lanes == 1 else {
         "self_kv_spare": wmod.init_self_kv(cfg, b, prompt_pad + ring, device=device),
     }
-    return {
+    state = {
         **spec_state,
         **beam_state,
         "self_kv": wmod.init_self_kv(cfg, b, prompt_pad + ring, device=device),
         "cross_kv": cross_template(cfg, bits, b, cross_ctx, device),
-        "sampled": full(0, torch.int32, b, ring),
-        "logits": full(dec.NEG_INF, torch.float32, b, cfg.n_vocab),
+        "sampled": empty(torch.int32, b, ring),
+        "logits": empty(torch.float32, b, cfg.n_vocab),
         # prompt ids after the language splice: the repetition penalty sees
         # the whole sequence, prompt included
-        "prompt_toks": full(0, torch.int32, b, prompt_pad),
-        "prompt_len": full(0, torch.int32),
-        "join_step": full(0, torch.int32),
-        "gen_len": full(0, torch.int32),
-        "last_ts": full(spec.timestamp_begin - 1, torch.int32),
-        "active": full(False, torch.bool),
-        "finished": full(False, torch.bool),
-        "has_prefix": full(False, torch.bool),
-        "pfx_last_ts": full(False, torch.bool),
-        "pfx_penult_ts": full(False, torch.bool),
-        "sum_logprob": full(0.0, torch.float32),
-        "ns_prob": full(0.0, torch.float32),
-        "temperature": full(0.0, torch.float32),
-        "ts_enabled": full(True, torch.bool),
-        "rep_penalty": full(1.0, torch.float32),
-        "length_penalty": full(1.0, torch.float32),
-        "max_new": full(ring - 1, torch.int32),
-        "cross_len": full(cross_ctx, torch.int32),
+        "prompt_toks": empty(torch.int32, b, prompt_pad),
+        "prompt_len": empty(torch.int32),
+        "join_step": empty(torch.int32),
+        "gen_len": empty(torch.int32),
+        "last_ts": empty(torch.int32),
+        "active": empty(torch.bool),
+        "finished": empty(torch.bool),
+        "has_prefix": empty(torch.bool),
+        "pfx_last_ts": empty(torch.bool),
+        "pfx_penult_ts": empty(torch.bool),
+        "sum_logprob": empty(torch.float32),
+        "ns_prob": empty(torch.float32),
+        "temperature": empty(torch.float32),
+        "ts_enabled": empty(torch.bool),
+        "rep_penalty": empty(torch.float32),
+        "length_penalty": empty(torch.float32),
+        "max_new": empty(torch.int32),
+        "cross_len": empty(torch.int32),
         # steps in which some row did not write (inactive or finished): the
         # share of steps K5 had rows to skip; read by the host at will
-        "idle_row_steps": torch.zeros((), dtype=torch.int64, device=device),
+        "idle_row_steps": torch.empty((), dtype=torch.int64, device=device),
     }
+    reset_state(state, spec, ring, cross_ctx)
+    return state
+
+
+def reset_state(state: State, spec: dec.DecodingSpec, ring: int, cross_ctx: int) -> None:
+    """Empty the pool in place: init_state's values, every tensor keeping its
+    storage (a CUDA graph captured over the state stays valid)."""
+    fills = _fills(spec, ring, cross_ctx)
+    for name, x in state.items():
+        if isinstance(x, dict):  # a cross-KV region
+            for leaf in x.values():
+                if leaf is not None:
+                    leaf.zero_()
+        else:
+            x.fill_(fills.get(name, 0))
 
 
 @torch.no_grad()

@@ -28,6 +28,12 @@ The chunk makes no device-to-host copy: the ring columns are host ints,
 and whether any row samples at T > 0 or has a repetition penalty comes
 from the host's record of the rows' options. The caller's one sync per
 chunk is the status fetch.
+
+step_chunk also takes the global step as a one-element int64 tensor on
+the state's device, which it advances in place: the ring columns and the
+cache slot are then read and written through index ops, the same
+arithmetic on the same values, and a step is one fixed program that
+ContinuousEngine captures once in a CUDA graph and replays.
 """
 
 from __future__ import annotations
@@ -51,7 +57,7 @@ def _greedy(filtered: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 def step_chunk(
     eng,  # WhisperEngine
     state: State,
-    gstep: int,  # global step of the chunk's first step
+    gstep: int | torch.Tensor,  # global step of the chunk's first step
     n_steps: int,
     ring: int,
     prompt_pad: int,
@@ -61,7 +67,9 @@ def step_chunk(
     generator: torch.Generator,
     lanes: int = 1,  # beam width K: each slot's contiguous rows
 ) -> None:
-    """Run n_steps lockstep decode steps on `state` in place."""
+    """Run n_steps lockstep decode steps on `state` in place. gstep: a host
+    int, or a [1] int64 tensor on the state's device that each step
+    advances by one in place."""
     spec, st = eng.spec, state
     n_rows = st["active"].shape[0]
     dev = st["active"].device
@@ -70,7 +78,8 @@ def step_chunk(
     prompt_zeros = torch.zeros((n_rows, prompt_pad), dtype=torch.bool, device=dev)
     if lanes > 1:
         later_lane = torch.arange(n_rows, device=dev) % lanes > 0
-    for g in range(gstep, gstep + n_steps):
+    on_device = isinstance(gstep, torch.Tensor)
+    for g in [gstep] * n_steps if on_device else range(gstep, gstep + n_steps):
         valid = ring_rules.ring_valid(g, st["join_step"], ring)
         filtered = ring_rules.apply_logit_rules_ring(
             spec, st["logits"], st["sampled"], g, st["gen_len"], st["last_ts"],
@@ -97,7 +106,11 @@ def step_chunk(
         col = g % ring
         # rows that do not write keep their ring cell: once gstep wraps, the
         # column lands inside a finished slot's hypothesis
-        st["sampled"][:, col] = torch.where(write, tok, st["sampled"][:, col])
+        cell = torch.where(write, tok, ring_rules.ring_col(st["sampled"], col))
+        if on_device:
+            st["sampled"].index_copy_(1, col, cell[:, None])
+        else:
+            st["sampled"][:, col] = cell
         is_ts = (tok >= spec.timestamp_begin) & write
         st["last_ts"].copy_(torch.where(is_ts, tok, st["last_ts"]))
         st["sum_logprob"].copy_(new_sum)
@@ -118,6 +131,8 @@ def step_chunk(
             st["cross_kv"], cross_len=st["cross_len"], active=write if lanes == 1 else None,
         )
         st["logits"].copy_(logits)
+        if on_device:
+            gstep.add_(1)
 
 
 # lane state a beam pool's parent gather reorders (the rest is per slot)

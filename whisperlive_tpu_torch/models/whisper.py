@@ -623,16 +623,19 @@ def decode_step(params, cfg, token, pos, slot: int, prompt_len, prompt_pad: int,
     return decode_step_masked(params, cfg, token, pos, slot, mask, self_kv, cross_kv)
 
 
-def decode_step_masked(params, cfg, token, pos, slot: int, mask, self_kv, cross_kv,
-                       cross_len=None, active=None):
+def decode_step_masked(params, cfg, token, pos, slot: int | torch.Tensor, mask, self_kv,
+                       cross_kv, cross_len=None, active=None):
     """decode_step with a caller-supplied [B, C] mask over cache slots.
 
     As in the JAX code, the cache and this step's new K are scored as
     separate columns, and the new K/V are written to `slot` only after the
-    layer has run (here in place on self_kv). cross_len [B] masks each
-    row's stale cross-KV tail; active [B] marks the rows whose output the
-    caller keeps (the continuous step's write mask): with int8 cross-KV,
-    the cross-attention of the other rows reads nothing (K5)."""
+    layer has run (here in place on self_kv). `slot` is a host int, or a
+    [1] int64 tensor on the cache's device (the continuous pool's captured
+    step, whose column lives on the card): the same write through
+    index_copy_, with no copy to the host. cross_len [B] masks each row's
+    stale cross-KV tail; active [B] marks the rows whose output the caller
+    keeps (the continuous step's write mask): with int8 cross-KV, the
+    cross-attention of the other rows reads nothing (K5)."""
     p = params["decoder"]
     x = _embed_lookup(p, token[:, None], cfg.dtype) + p["pos"].to(cfg.dtype)[
         pos[:, None].clamp(0, cfg.n_text_ctx - 1).long()
@@ -663,8 +666,12 @@ def decode_step_masked(params, cfg, token, pos, slot: int, mask, self_kv, cross_
         x = x + _row_linear(_merge_heads(cross_out), lp["cross_attn"]["o"], tp)
         x = x + _mlp(_layer_norm(x, lp["mlp_ln"]), lp["mlp"], tp)
 
-        skv[0, :, slot] = k_new[:, 0]
-        skv[1, :, slot] = v_new[:, 0]
+        if isinstance(slot, torch.Tensor):
+            skv[0].index_copy_(1, slot, k_new)
+            skv[1].index_copy_(1, slot, v_new)
+        else:
+            skv[0, :, slot] = k_new[:, 0]
+            skv[1, :, slot] = v_new[:, 0]
     x = _layer_norm(x, p["ln"])
     return _project_logits(params, x[:, 0])
 

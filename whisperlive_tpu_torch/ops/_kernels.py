@@ -11,10 +11,14 @@ toolkit.
 Every C launcher returns cudaGetLastError(); `launch` raises on a non-zero
 code and only then counts the launch, so `launches[name]` is exactly the
 number of times that kernel was enqueued since the last `reset_launches()`.
+A CUDA graph's capture enqueues nothing: `capturing()` takes the launches
+it records out of the counts, and each replay adds them back
+(`add_launches`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import logging
@@ -23,6 +27,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+from typing import Iterator
 
 logger = logging.getLogger(__name__)
 
@@ -140,3 +145,24 @@ def launch(name: str, *args) -> None:
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
+
+
+@contextlib.contextmanager
+def capturing() -> Iterator[dict[str, int]]:
+    """Around a CUDA graph's capture: yields a dict that holds, once the
+    block exits, the launches the capture recorded (one replay's), which
+    are taken out of `launches`."""
+    before = dict(launches)
+    recorded: dict[str, int] = {}
+    try:
+        yield recorded
+    finally:
+        for name, n in before.items():
+            recorded[name] = launches[name] - n
+            launches[name] = n
+
+
+def add_launches(counts: dict[str, int], times: int = 1) -> None:
+    """Count `times` replays of a CUDA graph whose capture recorded `counts`."""
+    for name, n in counts.items():
+        launches[name] += n * times

@@ -7,9 +7,12 @@ lives in ring column (join_step[b] + i) % ring. These functions read each
 row's last tokens and its validity mask through that addressing and apply
 the same openai-whisper rules as ops/decoding.py.
 
-The global step is a host int here (the port drives the loop from the
-host), so every ring column index is a Python int and costs no device
-sync; every per-row quantity is a tensor on the state's device.
+The global step is a host int (the port drives the loop from the host),
+so a ring column index is a Python int and costs no device sync; or, in
+the continuous pool's captured CUDA graph, a one-element int64 tensor on
+the state's device, read through index ops (never by Python indexing,
+which would copy it to the host). Every per-row quantity is a tensor on
+the state's device.
 """
 
 from __future__ import annotations
@@ -19,7 +22,7 @@ import torch
 from whisperlive_tpu_torch.ops.decoding import NEG_INF, DecodingSpec
 
 
-def ring_valid(gstep: int, join_step: torch.Tensor, ring: int) -> torch.Tensor:
+def ring_valid(gstep: int | torch.Tensor, join_step: torch.Tensor, ring: int) -> torch.Tensor:
     """[B, ring] bool: ring column r holds the token of step
     s_r = gstep-1 - ((gstep-1-r) mod ring); valid iff s_r >= join_step."""
     r = torch.arange(ring, device=join_step.device)[None, :]
@@ -27,8 +30,11 @@ def ring_valid(gstep: int, join_step: torch.Tensor, ring: int) -> torch.Tensor:
     return (s_r >= join_step[:, None]) & (gstep > join_step)[:, None]
 
 
-def ring_col(sampled: torch.Tensor, col: int) -> torch.Tensor:
-    """Column `col` (taken mod the ring width) of the [B, ring] ring."""
+def ring_col(sampled: torch.Tensor, col: int | torch.Tensor) -> torch.Tensor:
+    """Column `col` (taken mod the ring width) of the [B, ring] ring; `col`
+    a host int or a [1] device tensor."""
+    if isinstance(col, torch.Tensor):
+        return sampled.index_select(1, col % sampled.shape[1])[:, 0]
     return sampled[:, col % sampled.shape[1]]
 
 
@@ -36,7 +42,7 @@ def apply_logit_rules_ring(
     spec: DecodingSpec,
     logits: torch.Tensor,  # [B, V]
     sampled: torch.Tensor,  # [B, G] ring
-    gstep: int,
+    gstep: int | torch.Tensor,  # host int or [1] int64 device tensor
     gen_len: torch.Tensor,  # [B]
     last_ts: torch.Tensor,  # [B]
     suppress_mask: torch.Tensor,  # [V]
