@@ -5,14 +5,15 @@ control's numbers on many seeds, in one process.
 
 For each seed it runs the cell's traffic through the program for a short
 window (the cell's own load) and judges the run as a benchmark run is
-judged (harness.judge). Then it puts the control in the program's place:
-the reference one precision step below the configuration's int8 (its
-decoder linears and embedding at int4) decodes each sampled window
-greedily after the same prompt, as many tokens as the program served, and
-detects its language. Those answers, judged by harness.judge in turn, have
-to come out not correct. One JSON line a seed, with every compared number
-of both. The benchmark's own runs never run this. Needs a CUDA card, like
-run.py.
+judged (harness.judge, through the reference module the configuration
+names). Then it puts the control in the program's place: that module's
+control_records answers the sampled requests one precision step below the
+configuration (for a Whisper, reference.py's decoder linears and embedding
+at int4, decoding each sampled window greedily after the same prompt, as
+many tokens as the program served, and detecting its language). Those
+answers, judged by harness.judge in turn, have to come out not correct.
+One JSON line a seed, with every compared number of both. The benchmark's
+own runs never run this. Needs a CUDA card, like run.py.
 """
 
 from __future__ import annotations
@@ -25,46 +26,11 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 
-# the decoder's linears and embedding one step below the configuration's int8
-CONTROL = {"weight_bits": 4}
-
-
-def control_records(config: dict, seed: int, device: str, sample: list) -> list:
-    """The sampled records with the control's answers in place of the
-    program's: its greedy tokens after each prompt and its language."""
-    import torch
-
-    from benchmark import reference as ref
-
-    model = ref.Whisper(config, seed, device, **CONTROL)
-    tok = model.tok
-    out = []
-    for rec in sample:
-        cross = model.cross(model.encode(rec["audio"][None], rec["enc_ctx"]))
-        toks, seq, served = list(rec["prompt"]), list(rec["history"]), []
-        for _ in rec["served"]:
-            lg = model.logits(toks, cross, 0, len(toks) - 1)[0]
-            c = ref.greedy_choice(lg, seq, tok, rec["timestamps"])
-            toks.append(c)
-            seq.append(c)
-            served.append(c)
-            if c == tok.eot:
-                break
-        lang = rec.get("language")
-        if lang is not None:
-            ll = model.logits([tok.sot], cross, 0, 0)[0][tok.languages]
-            lang = tok.languages[int(ll.argmax())]
-        out.append(dict(rec, served=served, language=lang))
-        del cross
-    del model
-    if torch.cuda.is_available():
-        torch.cuda.empty_cache()
-    return out
-
 
 def readings(cell: str, seed: int, seconds: float, device: str = "cuda", config=None,
              mix_override=None) -> dict:
     """One seed's readings (see the module's docstring)."""
+    import dataclasses
     import importlib
 
     from benchmark import generator, harness
@@ -72,6 +38,7 @@ def readings(cell: str, seed: int, seconds: float, device: str = "cuda", config=
     spec = harness.load_spec()
     c = harness.find_cell(spec, cell)
     config = config or harness.load_config(spec, c["config"])
+    ref = harness.reference(config, c["config"], "control_records")
     mix = generator.load_mix(c["traffic"])
     if mix_override:
         mix.update(mix_override)
@@ -83,10 +50,7 @@ def readings(cell: str, seed: int, seconds: float, device: str = "cuda", config=
     ok, checks = harness.judge(run, config, seed, device, limits)
     ref_s = time.monotonic() - t_ref
     sample = harness.sample_records(run.records, mix["check"]["sample"], seed)
-    ctrl = harness.Run(kind=run.kind, dims=run.dims, mix=run.mix, seconds=run.seconds,
-                       setup_s=0.0, attempted=run.attempted, failed=run.failed,
-                       records=control_records(config, seed, device, sample),
-                       cross_kv_bits=run.cross_kv_bits)
+    ctrl = dataclasses.replace(run, records=ref.control_records(config, seed, device, sample))
     c_ok, c_checks = harness.judge(ctrl, config, seed, device, limits)
     return {"cell": cell, "seed": seed, "attempted": run.attempted, "failed": run.failed,
             "reference_s": ref_s,

@@ -3,8 +3,9 @@ engine under test, the correctness check and the result line.
 
 Everything a cell needs is found by name:
 
-  configs/<config>.json     the model's sizes (HF config.json keys) and the
-                            precision it is served in ("serving");
+  configs/<config>.json     the model's sizes (HF config.json keys), the
+                            precision it is served in ("serving") and its
+                            "reference", the module that judges its runs;
   traffic/<traffic>.json    the mix's parameters; its "kind" names the
                             driver, kinds/<kind>.py, which runs the mix
                             through the program and records what it did;
@@ -24,7 +25,6 @@ import dataclasses
 import importlib
 import importlib.util
 import json
-import math
 import sys
 import time
 from pathlib import Path
@@ -193,54 +193,33 @@ def sample_records(records: list, k: int, seed: int) -> list:
     return [records[i] for i in sorted(pick)]
 
 
-def reference_gaps(config: dict, seed: int, device: str, sample: list) -> dict:
-    """The reference's judgement of the sampled records: every served
-    token's gap (reference.token_gaps) and every language the program
-    detected (reference.language_gap)."""
-    import torch
-
-    from benchmark import reference as ref
-
-    model = ref.Whisper(config, seed, device)
-    tok = model.tok
-    out = {"token": [], "language": []}
-    for rec in sample:
-        cross = model.cross(model.encode(rec["audio"][None], rec["enc_ctx"]))
-        prompt, served = rec["prompt"], rec["served"]
-        if served:
-            lg = model.logits(prompt + served, cross, 0, len(prompt) - 1)[: len(served)]
-            out["token"] += ref.token_gaps(lg, rec["history"], served, tok, rec["timestamps"])
-        if rec.get("language") is not None:
-            ll = model.logits([tok.sot], cross, 0, 0)[0][tok.languages]
-            out["language"].append(ref.language_gap(ll, tok, rec["language"]))
-        del cross
-    del model
-    if torch.cuda.is_available():
-        torch.cuda.empty_cache()
-    return out
+def reference(config: dict, name: str | None = None, entry: str = "judge"):
+    """The module the configuration's "reference" key names (a path from the
+    repository's root to a file under benchmark/), imported as a module of
+    the benchmark package, with `entry` checked present. Each family's module judges its
+    own runs: judge(run, config, seed, device, limits) -> (correct, checks),
+    and puts its control in the program's place: control_records(config,
+    seed, device, sample) -> records. `name` labels the configuration in a
+    refusal (its source where not given)."""
+    label = name or config.get("source", "given as a dict")
+    rel = config.get("reference")
+    if not isinstance(rel, str):
+        raise SystemExit(f"configuration {label!r}: no 'reference' key naming the module "
+                         "that judges its runs")
+    path = (ROOT / rel).resolve()
+    if not path.is_relative_to(HERE) or path.suffix != ".py" or not path.is_file():
+        raise SystemExit(f"configuration {label!r}: its 'reference' {rel!r} is no Python file "
+                         "under benchmark/")
+    mod = importlib.import_module(".".join(path.relative_to(ROOT).with_suffix("").parts))
+    if not callable(getattr(mod, entry, None)):
+        raise SystemExit(f"configuration {label!r}: its 'reference' {rel!r} has no {entry}()")
+    return mod
 
 
 def judge(run: Run, config: dict, seed: int, device: str, limits: dict) -> tuple[bool, dict]:
-    """Compare the sampled answers with the reference. Returns (correct,
-    {number: {"value", "limit"}})."""
-    k = run.mix["check"]["sample"]
-    sample = sample_records(run.records, k, seed)
-    res = reference_gaps(config, seed, device, sample)
-    widest = max(res["token"] + res["language"], default=math.inf)
-    served = sum(len(r["served"]) for r in sample)
-    checks = {
-        "widest_gap": {"value": widest, "limit": limits["widest_gap"]["limit"]},
-        "unanswered": {"value": run.failed, "limit": 0},
-        "tokens_compared": {"value": served, "limit": limits["tokens_compared"]["limit"]},
-        # exact: the cross-KV width the configuration serves
-        "cross_kv_bits_off": {"value": (abs(run.cross_kv_bits - config["serving"]["cross_kv_bits"])
-                                        if run.cross_kv_bits is not None else math.inf),
-                              "limit": 0},
-    }
-    ok = (widest <= checks["widest_gap"]["limit"] and run.failed == 0
-          and served >= checks["tokens_compared"]["limit"] and run.attempted > 0
-          and checks["cross_kv_bits_off"]["value"] <= 0)
-    return ok, checks
+    """Compare the sampled answers with the reference the configuration
+    names. Returns (correct, {number: {"value", "limit"}})."""
+    return reference(config).judge(run, config, seed, device, limits)
 
 
 # ---------------------------------------------------------------------------
@@ -279,15 +258,13 @@ def run_cell(cell_name: str, seed: int, seconds: float, trace: bool, device: str
     spec = spec or load_spec()
     cell = find_cell(spec, cell_name)
     config = config or load_config(spec, cell["config"])
+    reference(config, cell["config"])  # a configuration with no judge stops before its run
     mix = generator.load_mix(cell["traffic"])
     if mix_override:
         mix.update(mix_override)
     kind = importlib.import_module(f"benchmark.kinds.{mix['kind']}")
     run = kind.run(config=config, mix=mix, seed=seed, seconds=seconds, trace=trace,
                    device=device, t_start=t_start)
-    found = forbidden_modules()
-    if found:
-        raise SystemExit(f"modules of JAX or the JAX package loaded: {', '.join(found)}")
     limits = load_limits(cell_name)
     correct, checks = judge(run, config, seed, device, limits)
     metrics, info = {}, {}
@@ -314,4 +291,8 @@ def run_cell(cell_name: str, seed: int, seconds: float, trace: bool, device: str
         info["trace_events"] = run.trace["events"]
     out["info"] = info  # run.py prints it on standard error
     out["checks"] = checks
+    # last, so that what the judge and the readers load is seen too
+    found = forbidden_modules()
+    if found:
+        raise SystemExit(f"modules of JAX or the JAX package loaded: {', '.join(found)}")
     return out

@@ -2,7 +2,8 @@
 window's seconds. Below the pool's knee every stream asks again as soon as
 its last answer is back and a second of new audio has come, so the count is
 the streams times the refresh rate each sees: the faster the round trip,
-the more updates."""
+the more updates. Read from any run that recorded its pushes, whatever its
+traffic kind."""
 
 LAYER = "end to end"
 UNIT = "updates/s"
@@ -11,6 +12,6 @@ MOVES = None
 
 
 def read(run):
-    if run.kind != "stream":
+    if "pushes" not in run.data:
         return None
     return len(run.data["pushes"]) / run.seconds

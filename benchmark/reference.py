@@ -18,6 +18,10 @@ zero-padded audio, and cross-attention sees ctx positions.
 `token_gaps` judges served greedy tokens: for each served token, by how
 much the reference's logits would have to move for the greedy rules to pick
 it (0 when the reference picks it too).
+
+This is the module a Whisper configuration names as its "reference"
+(configs/<name>.json): the harness judges a run through `judge` and puts
+the control in the program's place through `control_records`.
 """
 
 from __future__ import annotations
@@ -345,3 +349,89 @@ class Whisper:
             x = x + (F.gelu(y @ fc1["w"] + fc1["b"]) @ fc2["w"] + fc2["b"])
         x = _ln(x[0, first:], p["ln"])
         return x @ p["embed"].t()
+
+
+# ---------------------------------------------------------------------------
+# The judgement of a run, and the control
+# ---------------------------------------------------------------------------
+
+# the decoder's linears and embedding one step below the configuration's int8
+CONTROL = {"weight_bits": 4}
+
+
+def reference_gaps(config: dict, seed: int, device: str, sample: list) -> dict:
+    """The reference's judgement of the sampled records: every served
+    token's gap (token_gaps) and every language the program detected
+    (language_gap)."""
+    model = Whisper(config, seed, device)
+    tok = model.tok
+    out = {"token": [], "language": []}
+    for rec in sample:
+        cross = model.cross(model.encode(rec["audio"][None], rec["enc_ctx"]))
+        prompt, served = rec["prompt"], rec["served"]
+        if served:
+            lg = model.logits(prompt + served, cross, 0, len(prompt) - 1)[: len(served)]
+            out["token"] += token_gaps(lg, rec["history"], served, tok, rec["timestamps"])
+        if rec.get("language") is not None:
+            ll = model.logits([tok.sot], cross, 0, 0)[0][tok.languages]
+            out["language"].append(language_gap(ll, tok, rec["language"]))
+        del cross
+    del model
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+    return out
+
+
+def judge(run, config: dict, seed: int, device: str, limits: dict) -> tuple[bool, dict]:
+    """Compare a seeded sample of the run's answers with the reference.
+    Returns (correct, {number: {"value", "limit"}})."""
+    from benchmark import harness
+
+    k = run.mix["check"]["sample"]
+    sample = harness.sample_records(run.records, k, seed)
+    res = reference_gaps(config, seed, device, sample)
+    widest = max(res["token"] + res["language"], default=math.inf)
+    served = sum(len(r["served"]) for r in sample)
+    checks = {
+        "widest_gap": {"value": widest, "limit": limits["widest_gap"]["limit"]},
+        "unanswered": {"value": run.failed, "limit": 0},
+        "tokens_compared": {"value": served, "limit": limits["tokens_compared"]["limit"]},
+        # exact: the cross-KV width the configuration serves
+        "cross_kv_bits_off": {"value": (abs(run.cross_kv_bits - config["serving"]["cross_kv_bits"])
+                                        if run.cross_kv_bits is not None else math.inf),
+                              "limit": 0},
+    }
+    ok = (widest <= checks["widest_gap"]["limit"] and run.failed == 0
+          and served >= checks["tokens_compared"]["limit"] and run.attempted > 0
+          and checks["cross_kv_bits_off"]["value"] <= 0)
+    return ok, checks
+
+
+def control_records(config: dict, seed: int, device: str, sample: list) -> list:
+    """The sampled records with the control's answers in place of the
+    program's: the reference one precision step below the configuration
+    (CONTROL), its greedy tokens after each prompt and its language."""
+    model = Whisper(config, seed, device, **CONTROL)
+    tok = model.tok
+    out = []
+    for rec in sample:
+        cross = model.cross(model.encode(rec["audio"][None], rec["enc_ctx"]))
+        toks, seq, served = list(rec["prompt"]), list(rec["history"]), []
+        for _ in rec["served"]:
+            lg = model.logits(toks, cross, 0, len(toks) - 1)[0]
+            c = greedy_choice(lg, seq, tok, rec["timestamps"])
+            toks.append(c)
+            seq.append(c)
+            served.append(c)
+            if c == tok.eot:
+                break
+        lang = rec.get("language")
+        if lang is not None:
+            ll = model.logits([tok.sot], cross, 0, 0)[0][tok.languages]
+            lang = tok.languages[int(ll.argmax())]
+        out.append(dict(rec, served=served, language=lang))
+        del cross
+    del model
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+    return out

@@ -15,7 +15,8 @@ TINY = {"d_model": 64, "decoder_attention_heads": 2, "decoder_ffn_dim": 256, "de
         "max_source_positions": 1500, "max_target_positions": 448, "num_mel_bins": 80,
         "vocab_size": 51865,
         "serving": {"weight_dtype": "bfloat16", "compute_dtype": "bfloat16",
-                    "decoder_weight_bits": 8, "scale_dtype": "bfloat16", "cross_kv_bits": 8}}
+                    "decoder_weight_bits": 8, "scale_dtype": "bfloat16", "cross_kv_bits": 8},
+        "reference": "benchmark/reference.py"}
 
 # wide enough that a wrong token's logit lies as far below the best as at
 # the cells' widths (the logits' spread grows with the square root of d)
